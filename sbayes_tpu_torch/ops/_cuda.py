@@ -1,0 +1,120 @@
+"""Build and load the hand-written CUDA kernels of ``sbayes_tpu_torch/csrc``.
+
+Every ``csrc/*.cu`` source is compiled by its own ``nvcc`` process, all
+started together, for ``sm_90a`` (Hopper), so the build time stays that of
+the slowest source as kernels are added; the objects are then linked into
+one shared library with a plain C interface, loaded with ``ctypes``.
+The build runs at first use into ``sbayes_tpu_torch/_build/`` (ignored by
+git), keyed by a hash of the sources, so an unchanged tree builds once.
+Nothing here runs at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+SRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry points: name -> argument types (pointers, ints, then the stream)
+SIGNATURES = {
+    "sbt_loglh": [_P] * 7 + [_I] * 7 + [_P],
+    "sbt_marginal": [_P] * 10 + [_I] * 9 + [_P],
+}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a machine with the CUDA toolkit")
+
+
+def sources() -> list[Path]:
+    return sorted(SRC_DIR.glob("*.cu"))
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile every source (one nvcc each, all started together), link the
+    objects into one library and return its path; ``verbose`` prints
+    ptxas's register, shared-memory and spill report."""
+    srcs = sources()
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in srcs) + " ".join(ARCH_FLAGS).encode())
+    out_dir = BUILD_DIR / digest.hexdigest()[:16]
+    lib = out_dir / "libsbayes_kernels.so"
+    if lib.exists():
+        return lib
+    nvcc = nvcc_path()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    objs = [out_dir / (src.stem + ".o") for src in srcs]
+    procs = [subprocess.Popen([nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                               "-Xptxas", "-v", "-c", str(src), "-o", str(obj)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(srcs, objs)]
+    logs = [f"== {src.name}\n{proc.communicate()[0]}" for src, proc in zip(srcs, procs)]
+    failed = [src.name for src, proc in zip(srcs, procs) if proc.returncode != 0]
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(logs))
+    partial = out_dir / f"{lib.name}.{os.getpid()}"
+    link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(partial), *map(str, objs)],
+                          capture_output=True, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"linking the kernels failed:\n{link.stdout}\n{link.stderr}")
+    os.replace(partial, lib)  # a library that exists is always whole
+    if verbose:
+        print("\n".join(logs))
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.sbt_error_string.argtypes = [ctypes.c_int]
+    lib.sbt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(rc: int, name: str):
+    """Raise on a non-zero ``cudaError_t`` returned by a launch."""
+    if rc != 0:
+        msg = library().sbt_error_string(rc).decode()
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: error {rc} ({msg})")
+
+
+class LaunchCounter:
+    """How often a wrapper launched its kernel (the plain version and
+    refused launches do not count)."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.count = 0
+        self.variants: dict = {}
+
+    def add(self, variant=None):
+        """Count one launch (of ``variant``, for kernels built in variants)."""
+        self.count += 1
+        if variant is not None:
+            self.variants[variant] = self.variants.get(variant, 0) + 1
+
+
+def stream_of(t) -> int:
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
