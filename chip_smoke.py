@@ -15,10 +15,19 @@
    wall time per step of each operator and, from torch.profiler, the
    device-busy share and kernels per step of the schedule;
 4. kernels: each kernel (and each variant of the marginal) against its plain
-   PyTorch version at the shapes of phase 3, timed with CUDA events beside
-   the plain version and the memory/compute bound, and the likelihood kernel
-   once more at 400 features, where its count table is walked in feature
-   tiles; one ``kernels`` JSON line;
+   PyTorch version at the shapes of phase 3, timed beside the plain version,
+   the memory/compute bound and an empty kernel launched the same way
+   (``launch_floor_ms``); then both kernels once more at 400 features,
+   where they walk the features in shared-memory tiles, at an odd shape
+   (37 objects x 7 features x 5 states, 3 chains, some objects in no
+   family), where no table is 16-byte aligned and the kernels load with
+   plain loads, and with 1, 3 and 4 confounders, so that every component
+   count the kernels are compiled for is launched, and with 1100 families,
+   where one feature's rows need more shared memory than a block gets by
+   default; one ``kernels`` JSON
+   line. ``ms``, ``plain_ms`` and ``launch_floor_ms`` time eager calls with
+   CUDA events; ``device_ms`` and ``device_floor_ms`` time the same launches
+   replayed from a CUDA graph, where the host dispatches nothing;
 5. last line: ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the script exits non-zero and prints no result
@@ -41,9 +50,9 @@ H100_F32_OPS_PER_S = 67e12       # float32 outside the tensor cores
 DEVICE = "cuda"
 CHAINS = 1024                    # bench.py's chain count
 STEPS = 1000
-LOGLH_SMEM_BUDGET = 48 * 1024    # csrc/loglh.cu: kSmemBudget
 LOGLH_TOL_REL = 1e-5             # lgammaf vs torch.lgamma, summation order (of the total)
 MARGINAL_TOL_ABS = 1e-4          # 36 logs summed in another order (per object)
+MARGINAL_TOL_FEATURES = 36       # wider data: the tolerance grows with the logs summed
 
 
 def card_line() -> str:
@@ -232,6 +241,8 @@ def phase_where_time_goes(rt, states, reps: int = 10) -> dict:
 
 
 def cuda_time_ms(fn, reps: int = 50) -> float:
+    """Milliseconds per eager call: CUDA events around ``reps`` calls, so host
+    dispatch counts where it is slower than the device."""
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
@@ -244,106 +255,269 @@ def cuda_time_ms(fn, reps: int = 50) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_time_ms(fn, launches: int = 20, reps: int = 20) -> float:
+    """Milliseconds per call on the device alone: ``launches`` calls captured
+    into one CUDA graph, CUDA events around ``reps`` replays. The host
+    dispatches nothing inside a replay, so short kernels are not hidden
+    behind the Python wrapper; the graph still pays each launch."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * launches)
+
+
+def launch_floor() -> dict:
+    """An empty kernel through the same ctypes launch path, timed both ways:
+    the floor under ``ms`` and under ``device_ms`` of the ``kernels`` line."""
+    from sbayes_tpu_torch.ops import _cuda
+
+    lib = _cuda.library()
+    stream = torch.cuda.current_stream
+
+    def empty():
+        _cuda.check(lib.sbt_empty(stream().cuda_stream), "empty")
+
+    return {"launch_floor_ms": cuda_time_ms(empty), "device_floor_ms": device_time_ms(empty)}
+
+
 def bound_ms(n_bytes: float, n_ops: float) -> tuple:
     t_bytes, t_ops = n_bytes / H100_BYTES_PER_S * 1e3, n_ops / H100_F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def loglh_tiled_check(n_features: int = 400, n_chains: int = 64) -> dict:
-    """The likelihood kernel against its plain version on data wide enough
-    that its count table passes the shared-memory budget, so the kernel
-    walks the features in tiles; random memberships and valid sources."""
+def marginal_variant_args(inputs: dict, ratio: bool, heat: bool, two_eff: bool) -> tuple:
+    """Positional arguments after ``consts`` and the keywords of
+    ``marginal`` / ``marginal_plain`` for one variant."""
+    rows = (inputs["p_eff"][:, None] if (ratio and not two_eff)
+            else torch.stack([inputs["p_eff"], inputs["p_other"]], 1)).contiguous()
+    args = (rows, inputs["conf_eff"], inputs["wh"], inputs["hc"], inputs["hc_flip"],
+            inputs["incl"], inputs["inv_t"] if heat else None)
+    return args, dict(ratio=ratio, two_eff=two_eff)
+
+
+def path_kernel_inputs(rt, states) -> dict:
+    """The inputs both kernels get on the main path, from the chains' own
+    state: memberships and sources, and the effects, weights and
+    availabilities the Gibbsish operators hand to the marginal."""
+    from sbayes_tpu_torch.model.math import normalize
+    from sbayes_tpu_torch.sampling.conditionals import _pick_cluster
+
+    c = rt.consts
+    B = states.n_chains
+    dev = states.clusters.device
+    hc = rt.post.has_components(states.clusters)
+    hc_flip = hc.clone()
+    hc_flip[..., 0] = ~hc[..., 0]
+    i_cluster = torch.zeros(B, dtype=torch.long, device=dev)
+    p_eff = normalize(_pick_cluster(states.cl_counts, i_cluster) + c.conc_cluster[None])
+    return {"clusters": states.clusters, "source": states.source, "p_eff": p_eff,
+            "p_other": normalize(torch.roll(p_eff, 1, dims=0) + 0.1),
+            "conf_eff": normalize(states.conf_counts + c.conc_conf[None]),
+            "wh": states.weights.contiguous(), "hc": hc.float(), "hc_flip": hc_flip.float(),
+            "incl": hc[..., 0].float(), "inv_t": torch.full((B,), 1.0 / 1.3, device=dev)}
+
+
+def random_kernel_inputs(c, n_chains: int, seed: int) -> dict:
+    """Random valid inputs of both kernels for the model constants ``c``:
+    memberships, one-hot sources among the available components, normalised
+    effects and weights."""
+    from sbayes_tpu_torch.model.math import normalize
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=DEVICE)
+
+    B = n_chains
+    clusters = rand(B, c.K, c.N) < 0.3
+    hc = torch.cat([clusters.any(1)[..., None], c.hc_conf[None].expand(B, -1, -1)], dim=-1)
+    comp = (rand(B, c.N, c.F, c.C) * hc[:, :, None]).argmax(-1)
+    source = torch.nn.functional.one_hot(comp, c.C).bool() & ~c.na[None, :, :, None]
+    hc_flip = hc.clone()
+    hc_flip[..., 0] = ~hc[..., 0]
+    app = c.applicable.float()
+    return {"clusters": clusters, "source": source,
+            "p_eff": normalize((rand(B, c.F, c.S) + 0.05) * app),
+            "p_other": normalize((rand(B, c.F, c.S) + 0.05) * app),
+            "conf_eff": normalize((rand(B, c.C - 1, c.Gmax, c.F, c.S) + 0.05) * app),
+            "wh": normalize(rand(B, c.F, c.C) + 0.05), "hc": hc.float(),
+            "hc_flip": hc_flip.float(), "incl": hc[..., 0].float(),
+            "inv_t": 0.5 + rand(B)}
+
+
+def compare_with_plain(c, inputs: dict) -> dict:
+    """Both kernels and every marginal variant against their plain versions
+    on ``inputs``; raises beyond a tolerance, returns the largest errors."""
+    from sbayes_tpu_torch.ops import loglh, marginal
+
+    got = loglh.log_likelihood(c, inputs["clusters"], inputs["source"])
+    want = loglh.log_likelihood_plain(c, inputs["clusters"], inputs["source"])
+    again = [loglh.log_likelihood(c, inputs["clusters"], inputs["source"]) for _ in range(4)]
+    torch.cuda.synchronize()
+    if not all(torch.equal(got, other) for other in again):
+        raise AssertionError("loglh kernel: launches on the same inputs differ in bits")
+    errs = {"loglh_abs": float((got - want).abs().max()),
+            "loglh_rel": float(((got - want).abs() / want.abs()).max())}
+    if not errs["loglh_rel"] <= LOGLH_TOL_REL:
+        raise AssertionError(f"loglh kernel vs plain (N, F, S = {c.N, c.F, c.S}): relative "
+                             f"error {errs['loglh_rel']} > {LOGLH_TOL_REL}")
+    for variant in marginal.VARIANTS:
+        args, kw = marginal_variant_args(inputs, *variant)
+        got = marginal.marginal(c, *args, **kw)
+        want = marginal.marginal_plain(c, *args, **kw)
+        torch.cuda.synchronize()
+        name = marginal.variant_name(*variant)
+        errs[name] = float((got - want).abs().max())
+        tol = MARGINAL_TOL_ABS * max(1.0, c.F / MARGINAL_TOL_FEATURES)
+        if not errs[name] <= tol:
+            raise AssertionError(f"{name} kernel vs plain (N, F, S = {c.N, c.F, c.S}): "
+                                 f"{errs[name]} > {tol}")
+    return errs
+
+
+def tiled_check(n_features: int = 400, n_chains: int = 64) -> dict:
+    """Both kernels against their plain versions on data wide enough that
+    their tables pass the shared-memory budget, so each walks the features
+    in tiles; random memberships, valid sources, random effects."""
     from sbayes_tpu_torch.model.model import Model
-    from sbayes_tpu_torch.ops import loglh
+    from sbayes_tpu_torch.ops import loglh, marginal
     from sbayes_tpu_torch.testing import synthetic_config, synthetic_data
 
     c = Model(synthetic_data(n_features=n_features), synthetic_config(n_clusters=1).model,
               device=DEVICE).consts
-    row_bytes = (c.K + (c.C - 1) * c.Gmax) * c.S * 4
-    f_tile = min(LOGLH_SMEM_BUDGET // row_bytes, c.F)
-    if f_tile >= c.F:
-        raise AssertionError(f"{c.F} features fit one tile of {f_tile}: no tiling to check")
-    gen = torch.Generator(device=DEVICE).manual_seed(3)
-    clusters = torch.rand((n_chains, c.K, c.N), generator=gen, device=DEVICE) < 0.3
-    avail = torch.cat([clusters.any(1)[..., None],
-                       c.hc_conf[None].expand(n_chains, -1, -1).bool()], dim=-1)   # (B, N, C)
-    score = torch.rand((n_chains, c.N, c.F, c.C), generator=gen, device=DEVICE)
-    comp = (score * avail[:, :, None]).argmax(-1)
-    source = torch.nn.functional.one_hot(comp, c.C).bool() & ~c.na[None, :, :, None]
-    got = loglh.log_likelihood(c, clusters, source)
-    want = loglh.log_likelihood_plain(c, clusters, source)
-    torch.cuda.synchronize()
-    rel = float(((got - want).abs() / want.abs()).max())
-    if not rel <= LOGLH_TOL_REL:
-        raise AssertionError(f"loglh kernel vs plain at F = {c.F} (tiles of {f_tile}): "
-                             f"relative error {rel} > {LOGLH_TOL_REL}")
-    return {"F": c.F, "f_tile": f_tile, "chains": n_chains, "max_rel_err": rel}
+    tiles = {"loglh": loglh.feature_tile(c), "marginal": marginal.feature_tile(c)}
+    for name, f_tile in tiles.items():
+        if f_tile >= c.F:
+            raise AssertionError(f"{name}: {c.F} features fit one tile: no tiling to check")
+    errs = compare_with_plain(c, random_kernel_inputs(c, n_chains, seed=3))
+    return {"F": c.F, "f_tile": tiles["loglh"], "marginal_f_tile": tiles["marginal"],
+            "chains": n_chains, "max_rel_err": errs["loglh_rel"], "errors": errs}
+
+
+def odd_shape_check(n_chains: int = 3) -> dict:
+    """Both kernels against their plain versions where nothing is aligned:
+    37 objects (no multiple of 32) x 7 features x 5 states, 5 families, a
+    fifth of the objects in no family, K = 2 clusters. No per-chain table is
+    a multiple of 16 bytes, so every table takes the kernels' plain-load
+    path, and the ragged edges of every loop are exercised."""
+    from sbayes_tpu_torch.model.model import Model
+    from sbayes_tpu_torch.testing import synthetic_config, synthetic_data
+
+    data = synthetic_data(n_objects=37, n_features=7, n_states=5, n_families=5,
+                          no_family_share=0.2, seed=1)
+    c = Model(data, synthetic_config(n_clusters=2).model, device=DEVICE).consts
+    n_out = int((c.group_idx < 0).sum())
+    if n_out == 0:
+        raise AssertionError("the odd-shape data left no object out of every family")
+    slabs = {"p_eff": 4 * c.F * c.S, "conf_eff": 4 * (c.C - 1) * c.Gmax * c.F * c.S,
+             "wh": 4 * c.F * c.C, "source": c.N * c.F * c.C}
+    aligned = [k for k, v in slabs.items() if v % 16 == 0]
+    if aligned:
+        raise AssertionError(f"odd-shape tables {aligned} are multiples of 16 bytes")
+    errs = compare_with_plain(c, random_kernel_inputs(c, n_chains, seed=5))
+    return {"N": c.N, "F": c.F, "S": c.S, "K": c.K, "Gmax": c.Gmax, "chains": n_chains,
+            "objects_in_no_family": n_out, "errors": errs}
+
+
+def components_check(n_chains: int = 5) -> dict:
+    """Both kernels against their plain versions with 2, 4 and 5 components
+    (the cluster effect plus 1, 3 and 4 confounders; every other check has
+    3), on 50 objects x 12 features x 4 states with K = 2 clusters. The
+    kernels are compiled for 2, 3, 4 and for any other number of components:
+    this launches each of those."""
+    from sbayes_tpu_torch.model.model import Model
+    from sbayes_tpu_torch.testing import synthetic_config, synthetic_data
+
+    out = {}
+    for names in (("family",), ("universal", "family", "area"),
+                  ("universal", "family", "area", "script")):
+        data = synthetic_data(n_objects=50, n_features=12, n_states=4, n_families=3,
+                              no_family_share=0.2, seed=2, confounders=names)
+        c = Model(data, synthetic_config(n_clusters=2, confounders=names).model,
+                  device=DEVICE).consts
+        if c.C != len(names) + 1:
+            raise AssertionError(f"{names}: the model has {c.C} components")
+        out[f"C{c.C}"] = compare_with_plain(c, random_kernel_inputs(c, n_chains, seed=7 + c.C))
+    return out
+
+
+def many_groups_check(n_chains: int = 2) -> dict:
+    """Both kernels against their plain versions where one feature's rows
+    alone pass the 48 KB of shared memory a block gets by default: 1200
+    objects in 1100 families, 3 features. Each kernel then asks for a larger
+    block (up to 227 KB) and walks the features one at a time."""
+    from sbayes_tpu_torch.model.model import Model
+    from sbayes_tpu_torch.ops import loglh, marginal
+    from sbayes_tpu_torch.testing import synthetic_config, synthetic_data
+
+    data = synthetic_data(n_objects=1200, n_features=3, n_states=6, n_families=1100, seed=3)
+    c = Model(data, synthetic_config(n_clusters=1).model, device=DEVICE).consts
+    rows = c.K + (c.C - 1) * c.Gmax
+    if 4 * rows * c.S <= 48 * 1024:
+        raise AssertionError(f"{rows} rows of one feature fit the default shared memory")
+    tiles = {"loglh": loglh.feature_tile(c), "marginal": marginal.feature_tile(c)}
+    if tiles != {"loglh": 1, "marginal": 1}:
+        raise AssertionError(f"expected tiles of one feature, got {tiles}")
+    return {"N": c.N, "F": c.F, "Gmax": c.Gmax, "rows": rows, "chains": n_chains,
+            "errors": compare_with_plain(c, random_kernel_inputs(c, n_chains, seed=9))}
 
 
 def phase_kernels(rt, states, launches: dict) -> list:
     """Each kernel and marginal variant against its plain version."""
     from sbayes_tpu_torch.ops import loglh, marginal
-    from sbayes_tpu_torch.sampling.conditionals import _pick_cluster
-    from sbayes_tpu_torch.model.math import normalize
 
     c = rt.consts
     B = states.n_chains
+    inputs = path_kernel_inputs(rt, states)
+    errs = compare_with_plain(c, inputs)
+    floor = launch_floor()
     out = []
 
     # Kernel 1: collapsed likelihood.
-    got = loglh.log_likelihood(c, states.clusters, states.source)
-    want = loglh.log_likelihood_plain(c, states.clusters, states.source)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    rel = float(((got - want).abs() / want.abs()).max())
-    if not rel <= LOGLH_TOL_REL:
-        raise AssertionError(f"loglh kernel vs plain: relative error {rel} > {LOGLH_TOL_REL}")
-    ms = cuda_time_ms(lambda: loglh.log_likelihood(c, states.clusters, states.source))
+    def run_loglh():
+        return loglh.log_likelihood(c, states.clusters, states.source)
+
     plain_ms = cuda_time_ms(lambda: loglh.log_likelihood_plain(c, states.clusters, states.source),
                             reps=10)
-    # Count adds and lgamma calls, each lgamma as one operation: a lower bound.
-    rows = c.K + (c.C - 1) * c.Gmax
-    ops = B * (c.N * c.F * c.C + rows * c.F * (3 * c.S + 4))
-    b_ms, b_by = bound_ms(loglh.bytes_moved(c, B), ops)
+    n_bytes = loglh.bytes_moved(c, B)
+    b_ms, b_by = bound_ms(n_bytes, loglh.operations(c, B))
     out.append({"name": "loglh", "route": "cuda", "source": "sbayes_tpu_torch/csrc/loglh.cu",
                 "replaces": "sbayes_tpu/ops/pallas_kernels.py:82", "launches": launches["loglh"],
-                "max_abs_err": err, "max_rel_err": rel, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                "bytes": loglh.bytes_moved(c, B), "feature_tiled": loglh_tiled_check()})
+                "max_abs_err": errs["loglh_abs"], "max_rel_err": errs["loglh_rel"],
+                "ms": cuda_time_ms(run_loglh), "device_ms": device_time_ms(run_loglh),
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                "bytes": n_bytes, **floor, "feature_tiled": tiled_check(),
+                "odd_shape": odd_shape_check(), "components": components_check(), "many_groups": many_groups_check()})
 
     # Kernel 2: membership marginal, all variants, on the states' own effects.
-    ar = torch.arange(B, device=states.clusters.device)
-    i_cluster = torch.zeros(B, dtype=torch.long, device=ar.device)
-    hc = rt.post.has_components(states.clusters)
-    hc_flip = hc.clone()
-    hc_flip[..., 0] = ~hc[..., 0]
-    p_eff = normalize(_pick_cluster(states.cl_counts, i_cluster) + c.conc_cluster[None])
-    p_other = normalize(torch.roll(p_eff, 1, dims=0) + 0.1)
-    conf_eff = normalize(states.conf_counts + c.conc_conf[None])
-    wh = states.weights.contiguous()
-    inv_t = torch.full((B,), 1.0 / 1.3, device=ar.device)
-    args = (conf_eff, wh, hc.float(), hc_flip.float(), hc[..., 0].float())
-    for ratio, heat, two_eff in marginal.VARIANTS:
-        rows_e = p_eff[:, None] if (ratio and not two_eff) else torch.stack([p_eff, p_other], 1)
-        it = inv_t if heat else None
-        kw = dict(ratio=ratio, two_eff=two_eff)
-        got = marginal.marginal(c, rows_e.contiguous(), *args, it, **kw)
-        want = marginal.marginal_plain(c, rows_e, *args, it, **kw)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        if not err <= MARGINAL_TOL_ABS:
-            raise AssertionError(f"marginal {ratio, heat, two_eff} vs plain: {err}")
-        ms = cuda_time_ms(lambda: marginal.marginal(c, rows_e.contiguous(), *args, it, **kw))
-        plain_ms = cuda_time_ms(lambda: marginal.marginal_plain(c, rows_e, *args, it, **kw),
-                                reps=10)
+    for variant in marginal.VARIANTS:
+        args, kw = marginal_variant_args(inputs, *variant)
+
+        def run_marginal():
+            return marginal.marginal(c, *args, **kw)
+
+        plain_ms = cuda_time_ms(lambda: marginal.marginal_plain(c, *args, **kw), reps=10)
+        ratio, heat, two_eff = variant
         n_bytes = marginal.bytes_moved(c, B, ratio, two_eff, heat)
         b_ms, b_by = bound_ms(n_bytes, marginal.operations(c, B, ratio, two_eff, heat))
-        name = marginal.variant_name(ratio, heat, two_eff)
+        name = marginal.variant_name(*variant)
         out.append({"name": name, "route": "cuda", "source": "sbayes_tpu_torch/csrc/marginal.cu",
                     "replaces": "sbayes_tpu/ops/pallas_marginal.py:178",
-                    "launches": launches.get(name, 0), "max_abs_err": err, "ms": ms,
+                    "launches": launches.get(name, 0), "max_abs_err": errs[name],
+                    "ms": cuda_time_ms(run_marginal), "device_ms": device_time_ms(run_marginal),
                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                    "library_ms": None, "bytes": n_bytes})
+                    "library_ms": None, "bytes": n_bytes, **floor})
     return out
 
 

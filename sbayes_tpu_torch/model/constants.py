@@ -2,16 +2,19 @@
 
 Port of ``sbayes_tpu/model/constants.py``: the same prior parsing and the
 same padded confounder layout, built from ``Data`` with numpy and moved to
-the requested device once. Two index tensors are added for the CUDA
-kernels (``ops/loglh.py``, ``ops/marginal.py``):
+the requested device once. These tensors are added for the CUDA kernels
+(``ops/loglh.py``, ``ops/marginal.py``):
 
 * ``feat_idx`` (N, F) int8: the observed state of each (object, feature),
-  with the sentinel ``S`` at NA cells;
+  with the sentinel ``S`` at NA cells, and ``feat_idx_t`` (F, N), the same
+  feature-major (the kernels' lanes run over objects);
 * ``group_idx`` (C-1, N) int32: each object's group per confounder, with
-  ``-1`` for objects in no group of that confounder.
+  ``-1`` for objects in no group of that confounder;
+* ``conc_table`` (R, F, S + 1): what the collapsed likelihood needs of the
+  model alone, in one table (``concentration_table``).
 
 The TPU layout fields (pre-tiled feature tiles, feature chunking, packed
-source) are not ported: on the GPU both kernels read ``feat_idx`` directly.
+source) are not ported: on the GPU both kernels read the state index directly.
 This slice supports the uniform geo prior only.
 """
 from __future__ import annotations
@@ -99,6 +102,18 @@ def parse_dirichlet_concentration(cfg: DirichletPriorConfig, feature_names, stat
     raise ValueError(f"Unsupported Dirichlet prior type {t}")
 
 
+def concentration_table(conc_cluster: NDArray, conc_conf: NDArray) -> NDArray:
+    """The model-only inputs of the collapsed likelihood in one (R, F, S + 1)
+    table: row 0 is the cluster prior (shared by all clusters), then the
+    (C-1) * Gmax confounder-group rows, R = 1 + (C-1) * Gmax. Entries
+    [..., :S] are the concentrations ``a`` (0 = the state is excluded),
+    entry [..., S] is ``sum_s a``, summed in float64 and rounded once."""
+    F, S = conc_cluster.shape
+    a = np.concatenate([conc_cluster[None], conc_conf.reshape(-1, F, S)]).astype(FLOAT_TYPE)
+    sum_a = a.sum(-1, dtype=np.float64, keepdims=True)
+    return np.concatenate([a, sum_a], axis=-1).astype(FLOAT_TYPE)
+
+
 @dataclass(frozen=True)
 class GeoPriorConstants:
     prior_type: str                 # uniform (the only one ported so far)
@@ -121,6 +136,7 @@ class ModelConstants:
     applicable: Any                 # bool (F, S)
     n_states_per_feature: Any       # f32 (F,)
     feat_idx: Any                   # int8 (N, F), S = NA
+    feat_idx_t: Any                 # int8 (F, N), the same feature-major
 
     conf_names: tuple
     group_names: dict
@@ -135,6 +151,7 @@ class ModelConstants:
     conc_conf: Any                  # f32 (C-1, Gmax, F, S)
     conc_weights: Any               # f32 (F, C)
     weights_prior_uniform: bool
+    conc_table: Any                 # f32 (R, F, S + 1): a, then sum_s a; R = 1 + (C-1) Gmax
 
     geo: GeoPriorConstants
     adjacency: Any                  # bool (N, N)
@@ -286,6 +303,7 @@ def build_model_constants(data: Data, config: ModelConfig, n_clusters: Optional[
         applicable=t(applicable, torch.bool),
         n_states_per_feature=t(applicable.sum(-1), torch.float32),
         feat_idx=t(feat_idx, torch.int8),
+        feat_idx_t=t(np.ascontiguousarray(feat_idx.T), torch.int8),
         conf_names=conf_names,
         group_names=group_names,
         groups=t(groups, torch.float32),
@@ -298,6 +316,7 @@ def build_model_constants(data: Data, config: ModelConfig, n_clusters: Optional[
         conc_conf=t(conc_conf, torch.float32),
         conc_weights=t(conc_weights, torch.float32),
         weights_prior_uniform=weights_prior_uniform,
+        conc_table=t(concentration_table(conc_cluster, conc_conf[:n_conf]), torch.float32),
         geo=geo,
         adjacency=t(adjacency, torch.bool),
         locations=t(np.asarray(data.objects.locations), torch.float32),

@@ -27,8 +27,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: name -> argument types (pointers, ints, then the stream)
 SIGNATURES = {
-    "sbt_loglh": [_P] * 7 + [_I] * 7 + [_P],
+    "sbt_loglh": [_P] * 6 + [_I] * 7 + [_P],
+    "sbt_loglh_feature_tile": [_I] * 6,
     "sbt_marginal": [_P] * 10 + [_I] * 9 + [_P],
+    "sbt_marginal_feature_tile": [_I] * 5,
+    "sbt_empty": [_P],
 }
 
 
@@ -51,7 +54,9 @@ def build(verbose: bool = False) -> Path:
     objects into one library and return its path; ``verbose`` prints
     ptxas's register, shared-memory and spill report."""
     srcs = sources()
-    digest = hashlib.sha256(b"".join(p.read_bytes() for p in srcs) + " ".join(ARCH_FLAGS).encode())
+    hashed = srcs + sorted(SRC_DIR.glob("*.cuh"))          # headers the sources share
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in hashed)
+                            + " ".join(ARCH_FLAGS).encode())
     out_dir = BUILD_DIR / digest.hexdigest()[:16]
     lib = out_dir / "libsbayes_kernels.so"
     if lib.exists():

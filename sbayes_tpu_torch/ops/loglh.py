@@ -7,9 +7,13 @@ tensors it runs ``log_likelihood_plain`` (sufficient-statistic counts, then
 ``dirichlet_categorical_logpdf``), the plain PyTorch version of the same
 function. There is no other switch.
 
+The kernel calls no lgamma: over integer counts both lgamma differences
+telescope into sums of logs (``log_rising``), one term per observation, and
+the model-only inputs come in one table (``ModelConstants.conc_table``).
+
 Bound on an H100: memory. The kernel reads each chain's source and
-memberships once (the shared feature index and concentrations stay in L2),
-see ``bytes_moved``.
+memberships once (the shared feature index and concentration tables stay in
+L2), see ``bytes_moved`` and ``operations``.
 """
 from __future__ import annotations
 
@@ -29,6 +33,18 @@ def log_likelihood_plain(consts, clusters, source):
     lh_cl = dirichlet_categorical_logpdf(cl, consts.conc_cluster[None, None]).sum((-1, -2))
     lh_conf = dirichlet_categorical_logpdf(conf, consts.conc_conf[None]).sum((-1, -2, -3))
     return lh_cl + lh_conf
+
+
+def log_rising(a, c):
+    """``lgamma(a + c) - lgamma(a) = sum_{i<c} log(a + i)`` for integer counts
+    ``c >= 0`` and ``a > 0``, as the kernel sums it: one log per unit of
+    count, none for a count of 0 (exactly 0). Plain PyTorch, any
+    broadcastable shapes."""
+    a, c = torch.broadcast_tensors(a, c)
+    acc = torch.zeros_like(a)
+    for i in range(int(c.max()) if c.numel() else 0):
+        acc = acc + torch.where(c > i, torch.log(a + i), torch.zeros_like(a))
+    return acc
 
 
 def log_likelihood(consts, clusters, source):
@@ -55,9 +71,8 @@ def log_likelihood_cuda(consts, clusters, source):
     out = torch.empty(B, dtype=torch.float32, device=clusters.device)
     lib = _cuda.library()
     rc = lib.sbt_loglh(
-        clusters.data_ptr(), source.data_ptr(), consts.feat_idx.data_ptr(),
-        consts.group_idx.data_ptr(), consts.conc_cluster.data_ptr(),
-        consts.conc_conf.data_ptr(), out.data_ptr(),
+        clusters.data_ptr(), source.data_ptr(), consts.feat_idx_t.data_ptr(),
+        consts.group_idx.data_ptr(), consts.conc_table.data_ptr(), out.data_ptr(),
         B, K, N, F, S, C, G, _cuda.stream_of(out))
     _cuda.check(rc, "loglh")
     launches.add()
@@ -67,10 +82,27 @@ def log_likelihood_cuda(consts, clusters, source):
 def bytes_moved(consts, B: int) -> int:
     """Bytes the function must move: each input cell it needs read once, the
     output written once. The source of NA cells and the concentrations of
-    the padding groups up to Gmax are never needed."""
+    the padding groups up to Gmax are never needed. The shared table holds,
+    for the cluster prior and each real group, a concentration per cell and
+    their sum per feature."""
     N, F, S, C, K = consts.N, consts.F, consts.S, consts.C, consts.K
     observed = int((consts.feat_idx < S).sum())
     per_chain = K * N + observed * C + 4
     n_groups = sum(int(n) for n in consts.n_groups)
-    shared = N * F + 4 * (C - 1) * N + 4 * F * S + 4 * n_groups * F * S
+    shared = N * F + 4 * (C - 1) * N + 4 * (1 + n_groups) * F * (S + 1)
     return B * per_chain + shared
+
+
+def operations(consts, B: int) -> int:
+    """Operations per call, a lower bound: one add per source byte, and per
+    (row, feature) 3 S + 4 adds and lgamma calls, each lgamma counted as one
+    operation, whatever evaluates it."""
+    rows = consts.K + (consts.C - 1) * consts.Gmax
+    return B * (consts.N * consts.F * consts.C + rows * consts.F * (3 * consts.S + 4))
+
+
+def feature_tile(consts) -> int:
+    """Features per shared-memory tile of the kernel for this model (F = the
+    kernel does not tile); asks the built library."""
+    return _cuda.library().sbt_loglh_feature_tile(consts.K, consts.N, consts.F, consts.S,
+                                                  consts.C, consts.Gmax)

@@ -131,7 +131,7 @@ def marginal_cuda(consts, p_eff, conf_eff, wh, hc, hc_flip, incl, inv_t=None,
         args[name] = t.contiguous()
     out = torch.empty((B, N) if ratio else (B, N, 2), dtype=torch.float32, device=p_eff.device)
     rc = _cuda.library().sbt_marginal(
-        consts.feat_idx.data_ptr(), consts.group_idx.data_ptr(),
+        consts.feat_idx_t.data_ptr(), consts.group_idx.data_ptr(),
         args["p_eff"].data_ptr(), args["conf_eff"].data_ptr(), args["wh"].data_ptr(),
         args["hc"].data_ptr(), args["hc_flip"].data_ptr(), args["incl"].data_ptr(),
         args["inv_t"].data_ptr() if inv_t is not None else None, out.data_ptr(),
@@ -140,6 +140,13 @@ def marginal_cuda(consts, p_eff, conf_eff, wh, hc, hc_flip, incl, inv_t=None,
     _cuda.check(rc, "marginal")
     launches.add((bool(ratio), inv_t is not None, bool(two_eff)))
     return out
+
+
+def feature_tile(consts, ratio=True, two_eff=False) -> int:
+    """Features per shared-memory tile of the kernel for this model (F = the
+    kernel does not tile); asks the built library."""
+    return _cuda.library().sbt_marginal_feature_tile(consts.F, consts.S, consts.C, consts.Gmax,
+                                                     _n_rows(ratio, two_eff))
 
 
 def effect_cells_read(consts) -> tuple:

@@ -23,8 +23,17 @@ def synthetic_data(
     n_states: int = 6,
     n_families: int = 6,
     seed: int = 0,
+    no_family_share: float = 0.0,
+    confounders: tuple = ("universal", "family"),
 ) -> Data:
-    """A synthetic dataset shaped like the south_america case study."""
+    """A synthetic dataset shaped like the south_america case study. With
+    ``no_family_share`` > 0 about that share of the objects is left out of
+    every family (they keep their features). ``confounders`` names the
+    confounders of the data: ``universal`` (one group of all objects),
+    ``family`` (the families the features were drawn from) and under any
+    other name a random partition into ``n_families`` groups. The default
+    draws the same data as the JAX package's ``synthetic_data`` from the
+    same seed."""
     rng = np.random.default_rng(seed)
 
     locations = rng.uniform(-75, -35, size=(n_objects, 2))
@@ -65,12 +74,19 @@ def synthetic_data(
     fam_assign = np.zeros((n_families, n_objects), dtype=bool)
     for i in range(n_families):
         fam_assign[i, family_of == i] = True
-    confounders = OrderedDict(
-        universal=Confounder("universal", np.ones((1, n_objects), bool), ["<ALL>"]),
-        family=Confounder("family", fam_assign, fam_names),
-    )
+    if no_family_share > 0:
+        fam_assign[:, rng.random(n_objects) < no_family_share] = False
+    by_name = OrderedDict()
+    for name in confounders:
+        if name == "universal":
+            by_name[name] = Confounder(name, np.ones((1, n_objects), bool), ["<ALL>"])
+        elif name == "family":
+            by_name[name] = Confounder(name, fam_assign, fam_names)
+        else:
+            assign = rng.integers(0, n_families, size=n_objects) == np.arange(n_families)[:, None]
+            by_name[name] = Confounder(name, assign, [f"{name}{i}" for i in range(n_families)])
 
-    return Data(objects=objects, features=features, confounders=confounders,
+    return Data(objects=objects, features=features, confounders=by_name,
                 projection="epsg:4326", geo_costs="from_data")
 
 
@@ -80,6 +96,7 @@ def synthetic_config(
     samples: int = 100,
     geo_prior: str = "uniform",
     rate: float = 1e6,
+    confounders: tuple = ("universal", "family"),
 ) -> SBayesConfig:
     """A config dict matching the synthetic data (no files involved)."""
     geo = {"type": geo_prior}
@@ -89,15 +106,15 @@ def synthetic_config(
         "data": {"features": __file__, "feature_states": __file__},  # placeholders, not read
         "model": {
             "clusters": n_clusters,
-            "confounders": ["universal", "family"],
+            "confounders": list(confounders),
             "prior": {
                 "objects_per_cluster": {"type": "uniform_area", "min": 2, "max": 50},
                 "geo": geo,
                 "weights": {"type": "uniform"},
                 "cluster_effect": {"type": "uniform"},
                 "confounding_effects": {
-                    "universal": {"<ALL>": {"type": "uniform"}},
-                    "family": {"<DEFAULT>": {"type": "uniform"}},
+                    name: {"<ALL>" if name == "universal" else "<DEFAULT>": {"type": "uniform"}}
+                    for name in confounders
                 },
             },
         },

@@ -121,3 +121,125 @@ def test_wrapper_uses_plain_version_only_for_cpu_tensors(models, monkeypatch):
     before = loglh.launches.count
     loglh.log_likelihood(m.consts, torch.as_tensor(clusters), torch.as_tensor(source))
     assert loglh.launches.count == before
+
+
+def test_concentration_table_holds_the_model_only_inputs(models):
+    """The precomputed table of the kernel: row 0 is the cluster prior, then
+    the confounder groups (padding groups included); the concentrations
+    unchanged (zeros at excluded states included), then their sum; and
+    lgamma of its entries is what the plain version computes from the
+    concentrations (rtol 1e-6: the sum is rounded once from float64)."""
+    _, m, _, _ = models
+    c = m.consts
+    a = torch.cat([c.conc_cluster[None], c.conc_conf.reshape(-1, c.F, c.S)])
+    assert (a == 0).any() and (a > 0).any()
+    assert c.conc_table.shape == (1 + (c.C - 1) * c.Gmax, c.F, c.S + 1)
+    assert c.conc_table.dtype == torch.float32 and c.conc_table.is_contiguous()
+    torch.testing.assert_close(c.conc_table[..., :c.S], a, rtol=0, atol=0)
+    torch.testing.assert_close(c.conc_table[..., c.S], a.sum(-1), rtol=1e-6, atol=0)
+    torch.testing.assert_close(torch.lgamma(c.conc_table[..., c.S]), torch.lgamma(a.sum(-1)),
+                               rtol=1e-6, atol=1e-6)
+    pos = a > 0
+    torch.testing.assert_close(torch.lgamma(c.conc_table[..., :c.S][pos]), torch.lgamma(a[pos]),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("conc", [0.5, 1.0 / 3.0, 7.25], ids=["jeffreys", "third", "large"])
+def test_concentration_table_of_other_concentrations(conc):
+    """``concentration_table`` on non-unit concentrations with excluded
+    states and a padding group of zeros only (sum 0: such a row holds no
+    counts)."""
+    from sbayes_tpu_torch.model.constants import concentration_table
+
+    applicable = np.array([[1, 1, 0], [1, 1, 1]], bool)
+    cl = np.where(applicable, conc, 0.0).astype(np.float32)
+    conf = np.stack([cl * 2, np.zeros_like(cl)])[None]                    # (1, 2, F, S)
+    table = concentration_table(cl, conf)
+    assert table.shape == (3, 2, 4) and table.dtype == np.float32
+    np.testing.assert_array_equal(table[0, :, :3], cl)
+    np.testing.assert_array_equal(table[1, :, :3], cl * 2)
+    np.testing.assert_allclose(table[:2, :, 3], [[2 * conc, 3 * conc], [4 * conc, 6 * conc]],
+                               rtol=1e-6)
+    assert (table[2] == 0).all()
+
+
+@pytest.mark.parametrize("conc", [1e-3, 0.5, 1.0, 1.0 / 3.0, 6.0, 31.5, 2500.0],
+                         ids=["tiny", "jeffreys", "uniform", "third", "sum6", "large", "huge"])
+def test_log_rising_matches_lgamma(conc):
+    """sum_{i<c} log(a + i), the kernel's form, against
+    lgamma(c + a) - lgamma(a) in float64 for every count an object set of
+    128 can produce. Tolerance rtol 2e-6 + atol 2e-6: c float32 logs summed
+    in float32."""
+    from sbayes_tpu_torch.ops.loglh import log_rising
+
+    counts = torch.arange(0, 129)
+    a = torch.full((129,), conc, dtype=torch.float32)
+    got = log_rising(a, counts)
+    a64 = a.double()
+    want = torch.lgamma(a64 + counts) - torch.lgamma(a64)
+    assert got.dtype == torch.float32 and got[0] == 0.0
+    torch.testing.assert_close(got.double(), want, rtol=2e-6, atol=2e-6)
+
+
+def test_zero_counts_contribute_exactly_zero(models):
+    """What the kernel skips is exactly 0 in the plain version: a cell with
+    count 0 (lgamma(a) - lgamma(a)) and a (row, feature) with n = 0."""
+    from sbayes_tpu_torch.model.math import dirichlet_categorical_logpdf
+
+    _, m, _, _ = models
+    c = m.consts
+    a = c.conc_conf                                                       # (C-1, G, F, S)
+    zero = torch.zeros_like(a)
+    assert (dirichlet_categorical_logpdf(zero, a)[c.group_valid] == 0).all()
+    pos = a > 0
+    assert ((torch.lgamma(zero + a) - torch.lgamma(a))[pos] == 0).all()
+    counts = zero.clone()
+    counts[..., 0] = 3.0                                                  # one cell per feature
+    full = dirichlet_categorical_logpdf(counts, a)[c.group_valid]
+    sum_a = a.sum(-1)
+    only = (torch.lgamma(sum_a) - torch.lgamma(3.0 + sum_a)
+            + torch.lgamma(3.0 + a[..., 0]) - torch.lgamma(a[..., 0]))[c.group_valid]
+    torch.testing.assert_close(full, only, rtol=0, atol=0)
+
+
+def test_kernel_arithmetic_matches_plain(models):
+    """The kernel's arithmetic in plain PyTorch (exact counts, the
+    concentration table, no lgamma: sum_{i<c} log(a + i) per cell with
+    a > 0, minus sum_{i<n} log(sum a + i) per (row, feature)) against the
+    plain version. rtol 1e-5 of the total, the kernel's own tolerance on
+    the card."""
+    from sbayes_tpu_torch.model.math import compute_feature_counts
+    from sbayes_tpu_torch.ops.loglh import log_likelihood_plain, log_rising
+
+    _, m, clusters, source = models
+    c = m.consts
+    cl, src = torch.as_tensor(clusters), torch.as_tensor(source)
+    cl_counts, conf_counts = compute_feature_counts(cl, src, c.features, c.groups)
+    B = cl.shape[0]
+    counts = torch.cat([cl_counts, conf_counts.reshape(B, -1, c.F, c.S)], dim=1)    # (B, rows, F, S)
+    model_row = torch.cat([torch.zeros(c.K, dtype=torch.long),
+                           1 + torch.arange((c.C - 1) * c.Gmax)])
+    table = c.conc_table[model_row]                                       # (rows, F, S + 1)
+    a, sum_a = table[..., :c.S], table[..., c.S]
+    one = torch.ones_like(a)
+    cells = torch.where(a > 0, log_rising(torch.where(a > 0, a, one), counts),
+                        torch.zeros_like(counts))
+    n = counts.sum(-1)
+    assert (n[:, sum_a == 0] == 0).all()
+    rows = log_rising(torch.where(sum_a > 0, sum_a, torch.ones_like(sum_a)), n)
+    got = cells.sum((-1, -2, -3)) - rows.sum((-1, -2))
+    torch.testing.assert_close(got, log_likelihood_plain(c, cl, src), rtol=1e-5, atol=0)
+
+
+def test_bound_counts_live_in_the_module(models):
+    """``bytes_moved`` and ``operations`` of the likelihood: bytes grow by the
+    per-chain part only, operations are linear in the chains."""
+    from sbayes_tpu_torch.ops import loglh
+
+    _, m, _, _ = models
+    c = m.consts
+    per_chain = loglh.bytes_moved(c, 3) - loglh.bytes_moved(c, 2)
+    assert per_chain == c.K * c.N + int((c.feat_idx < c.S).sum()) * c.C + 4
+    assert loglh.bytes_moved(c, 0) > 4 * (1 + int(sum(c.n_groups))) * c.F * (c.S + 1)
+    rows = c.K + (c.C - 1) * c.Gmax
+    assert loglh.operations(c, 2) == 2 * (c.N * c.F * c.C + rows * c.F * (3 * c.S + 4))

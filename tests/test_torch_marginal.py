@@ -178,3 +178,127 @@ def test_wrapper_batches_chains_independently(setup):
                           torch.as_tensor(wh[b:b + 1], dtype=torch.float32),
                           *[r[b:b + 1] for r in rest])
         torch.testing.assert_close(batched[b], single[0])
+
+
+def test_feature_major_index_is_the_transpose(setup):
+    """``feat_idx_t`` (F, N), which the kernel's lanes read along objects, is
+    the contiguous transpose of ``feat_idx`` (N, F), sentinel S at NA."""
+    m = setup[4]
+    c = m.consts
+    assert c.feat_idx_t.shape == (c.F, c.N) and c.feat_idx_t.dtype == torch.int8
+    assert c.feat_idx_t.is_contiguous()
+    assert torch.equal(c.feat_idx_t, c.feat_idx.T)
+    assert torch.equal(c.feat_idx_t.T == c.S, c.na)
+
+
+def _odd_model():
+    from sbayes_tpu_torch.model.model import Model
+    from sbayes_tpu_torch.testing import synthetic_config, synthetic_data
+
+    data = synthetic_data(n_objects=37, n_features=7, n_states=5, n_families=5,
+                          no_family_share=0.2, seed=1)
+    return Model(data, synthetic_config(n_clusters=2).model, device="cpu")
+
+
+def test_synthetic_data_can_leave_objects_out_of_every_family():
+    """``no_family_share`` empties some objects' family column (group index
+    -1, availability 0) and changes nothing else of the data."""
+    from sbayes_tpu_torch.testing import synthetic_data
+
+    kw = dict(n_objects=37, n_features=7, n_states=5, n_families=5, seed=1)
+    base, odd = synthetic_data(**kw), synthetic_data(no_family_share=0.2, **kw)
+    np.testing.assert_array_equal(base.features.values, odd.features.values)
+    fam, fam_odd = base.confounders["family"].group_assignment, odd.confounders["family"].group_assignment
+    assert fam.sum(0).min() == 1
+    out = fam_odd.sum(0) == 0
+    assert 0 < out.sum() < 37
+    np.testing.assert_array_equal(fam[:, ~out], fam_odd[:, ~out])
+    c = _odd_model().consts
+    assert torch.equal(c.group_idx[1] < 0, torch.as_tensor(out))
+    assert (c.group_idx[0] == 0).all() and not c.hc_conf[torch.as_tensor(out), 1].any()
+
+
+@pytest.mark.parametrize("names", [("family",), ("universal", "family", "area"),
+                                   ("universal", "family", "area", "script")],
+                         ids=["C2", "C4", "C5"])
+def test_synthetic_data_with_other_confounders(names):
+    """``confounders`` names the confounders of data and config: the model
+    gets one component per name plus the cluster effect, every further
+    confounder partitions the objects, and the features stay those of the
+    default confounders."""
+    from sbayes_tpu_torch.model.model import Model
+    from sbayes_tpu_torch.testing import synthetic_config, synthetic_data
+
+    kw = dict(n_objects=50, n_features=12, n_states=4, n_families=3, seed=2)
+    data = synthetic_data(confounders=names, **kw)
+    np.testing.assert_array_equal(data.features.values, synthetic_data(**kw).features.values)
+    assert tuple(data.confounders) == names
+    c = Model(data, synthetic_config(n_clusters=2, confounders=names).model, device="cpu").consts
+    assert c.C == len(names) + 1 and c.group_idx.shape == (len(names), 50)
+    for i, name in enumerate(names):
+        if name != "universal":
+            assert data.confounders[name].group_assignment.sum(0).tolist() == [1] * 50
+            assert len(torch.unique(c.group_idx[i])) == 3
+
+
+@pytest.mark.parametrize("ratio,heat,two_eff", [
+    (True, False, False), (True, True, False), (True, False, True), (False, False, False),
+], ids=["ratio", "ratio_heat", "two_eff", "abs"])
+def test_index_form_matches_plain_on_odd_shapes(ratio, heat, two_eff):
+    """The kernel's arithmetic written as loops over the index tensors it
+    reads (feature-major state index, group index with -1, NA at 1, TINY
+    clamps, float64) against the plain version on data with objects in no
+    family. Tolerance rtol = atol = 1e-4: float32 sums of 7 logs."""
+    from sbayes_tpu_torch.ops.marginal import TINY, marginal_plain
+
+    c = _odd_model().consts
+    rng = np.random.default_rng(8)
+    B, N, F, S, C, G = 2, c.N, c.F, c.S, c.C, c.Gmax
+    E = 1 if (ratio and not two_eff) else 2
+
+    def norm(x):
+        return x / x.sum(-1, keepdims=True)
+
+    app = c.applicable.numpy()
+    p_eff = norm((rng.random((B, E, F, S)) + 0.05) * app)
+    conf_eff = norm((rng.random((B, C - 1, G, F, S)) + 0.05) * app)
+    wh = norm(rng.random((B, F, C)) + 0.05)
+    in_cl = rng.random((B, N)) < 0.4
+    hc = np.concatenate([in_cl[..., None], np.broadcast_to(c.hc_conf.numpy(), (B, N, C - 1))], -1)
+    hc_flip = hc.copy()
+    hc_flip[..., 0] = ~hc[..., 0]
+    inv_t = rng.uniform(0.5, 1.0, B) if heat else None
+    fit, gi = c.feat_idx_t.numpy(), c.group_idx.numpy()
+
+    want = np.zeros((B, N) if ratio else (B, N, 2))
+    for b in range(B):
+        for n in range(N):
+            acc = np.zeros(2)
+            for f in range(F):
+                s = fit[f, n]
+                na = s >= S
+                lh0 = [1.0 if na else (max(p_eff[b, e, f, s], TINY) ** inv_t[b] if heat
+                                       else p_eff[b, e, f, s]) for e in range(E)]
+                lh = [None] + [1.0 if na else (0.0 if gi[k, n] < 0 else conf_eff[b, k, gi[k, n], f, s])
+                               for k in range(C - 1)]
+                z_cur = sum(wh[b, f, k] * hc[b, n, k] for k in range(C))
+                z_flip = sum(wh[b, f, k] * hc_flip[b, n, k] for k in range(C))
+                s_cur = wh[b, f, 0] * hc[b, n, 0] * lh0[0] + sum(
+                    wh[b, f, k] * hc[b, n, k] * lh[k] for k in range(1, C))
+                s_flip = wh[b, f, 0] * hc_flip[b, n, 0] * lh0[-1] + sum(
+                    wh[b, f, k] * hc_flip[b, n, k] * lh[k] for k in range(1, C))
+                if ratio:
+                    r = s_cur / max(s_flip, TINY) * (z_flip / max(z_cur, TINY))
+                    acc[0] += np.log(max(r, TINY))
+                else:
+                    lh_cur, lh_flip = s_cur / max(z_cur, TINY), s_flip / max(z_flip, TINY)
+                    lh_with, lh_without = (lh_cur, lh_flip) if in_cl[b, n] else (lh_flip, lh_cur)
+                    acc += np.log([max(lh_without, TINY), max(lh_with, TINY)])
+            want[b, n] = (acc[0] if in_cl[b, n] else -acc[0]) if ratio else acc
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32))
+
+    got = marginal_plain(c, t(p_eff), t(conf_eff), t(wh), t(hc), t(hc_flip), t(in_cl),
+                         None if inv_t is None else t(inv_t), ratio=ratio, two_eff=two_eff)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
