@@ -8,12 +8,24 @@
    configuration (K = 1, uniform geo prior) on a synthetic dataset of the
    south_america shape (100 objects x 36 features x 6 states, universal + 6
    families), into a temporary directory; every results file must exist and
-   both kernels must have been launched;
+   both kernels must have been launched. Then ``main_path_k3``: the same
+   through K = 3 with the cost-based geo prior (mean, rate 1e6): results
+   under ``K3/``, three cluster columns, a geo-prior column that is not all
+   zero, and the absolute marginal (the jump) launched;
 3. full width: ``SamplerRuntime.init_chains(CHAINS)``, STEPS steps in chunks of 200,
    an exact refresh; the carried log-likelihood / log-prior / counts must
    equal the recompute; one JSON line with the steps per second; then the
    wall time per step of each operator and, from torch.profiler, the
-   device-busy share and kernels per step of the schedule;
+   device-busy share and kernels per step of the schedule. Then
+   ``full_width_k3``: the same at K = 3 with the cost-based geo prior and the
+   ten-operator schedule, STEPS_K3 steps; besides the K = 1 checks the
+   carried skeleton aggregates must equal their recompute, no object may be
+   in two clusters, every size must lie within its bounds and the jump must
+   be accepted sometimes and not always; its time breakdown also holds one
+   ``_update_geo`` (the batched Prim): launches and wall time. Then ``jump_512``:
+   64 chains, 512 features, K = 2, the jump alone for 50 MH steps, so that
+   the two-effect ratio marginal (the log-space jump) is launched by an
+   operator; the same invariants;
 4. kernels: each kernel (and each variant of the marginal) against its plain
    PyTorch version at the shapes of phase 3, timed beside the plain version,
    the memory/compute bound and an empty kernel launched the same way
@@ -24,8 +36,12 @@
    plain loads, and with 1, 3 and 4 confounders, so that every component
    count the kernels are compiled for is launched, and with 1100 families,
    where one feature's rows need more shared memory than a block gets by
-   default; one ``kernels`` JSON
-   line. ``ms``, ``plain_ms`` and ``launch_floor_ms`` time eager calls with
+   default; the absolute and two-effect variants are timed on the inputs
+   the jump gives them at K = 3 (two clusters' effects, ``hc_flip = hc``,
+   ``incl = 1``), the likelihood also on the K = 3 states, the two-effect
+   variant also at ``jump_512``'s shapes; one ``kernels`` JSON line,
+   ``launches`` summed over the three driven paths (``launches_by_path``).
+   ``ms``, ``plain_ms`` and ``launch_floor_ms`` time eager calls with
    CUDA events; ``device_ms`` and ``device_floor_ms`` time the same launches
    replayed from a CUDA graph, where the host dispatches nothing;
 5. last line: ``{"ok": true, "device": {...}}``.
@@ -50,6 +66,8 @@ H100_F32_OPS_PER_S = 67e12       # float32 outside the tensor cores
 DEVICE = "cuda"
 CHAINS = 1024                    # bench.py's chain count
 STEPS = 1000
+STEPS_K3 = 600
+GEO_K3 = {"type": "cost_based", "rate": 1e6, "aggregation": "mean"}   # bench.py's geo model
 LOGLH_TOL_REL = 1e-5             # lgammaf vs torch.lgamma, summation order (of the total)
 MARGINAL_TOL_ABS = 1e-4          # 36 logs summed in another order (per object)
 MARGINAL_TOL_FEATURES = 36       # wider data: the tolerance grows with the logs summed
@@ -61,19 +79,19 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def smoke_config(path: Path, results: Path) -> Path:
-    """The default model configuration (K = 1, uniform geo) as a JSON config
-    file; the data come from ``synthetic_data`` (the data paths are not read)."""
+def smoke_config(path: Path, results: Path, n_clusters: int = 1, geo: dict = None) -> Path:
+    """A model configuration as a JSON config file (default: K = 1, uniform
+    geo); the data come from ``synthetic_data`` (the data paths are not read)."""
     placeholder = path / "features.csv"
     placeholder.write_text("id\n")
     cfg = {
         "data": {"features": str(placeholder), "feature_states": str(placeholder)},
         "model": {
-            "clusters": 1,
+            "clusters": n_clusters,
             "confounders": ["universal", "family"],
             "prior": {
                 "objects_per_cluster": {"type": "uniform_area", "min": 2, "max": 50},
-                "geo": {"type": "uniform"},
+                "geo": geo or {"type": "uniform"},
                 "weights": {"type": "uniform"},
                 "cluster_effect": {"type": "uniform"},
                 "confounding_effects": {
@@ -88,7 +106,7 @@ def smoke_config(path: Path, results: Path) -> Path:
         },
         "results": {"path": str(results), "log_likelihood": False, "log_file": False},
     }
-    cfg_path = path / "config.json"
+    cfg_path = path / f"config_K{n_clusters}.json"
     cfg_path.write_text(json.dumps(cfg))
     return cfg_path
 
@@ -110,14 +128,15 @@ def counters() -> dict:
     return out
 
 
-def phase_main_path(tmp: Path) -> dict:
+def phase_main_path(tmp: Path, n_clusters: int = 1, geo: dict = None) -> dict:
     """sample_ensemble over 8 runs, as ``cli.main`` runs ``mcmc.runs > 1``."""
     from sbayes_tpu_torch.experiment import Experiment
     from sbayes_tpu_torch.sampling.runner import MCMCSetup
     from sbayes_tpu_torch.testing import synthetic_data
 
-    cfg_path = smoke_config(tmp, tmp / "results")
-    experiment = Experiment(config_file=cfg_path, experiment_name="smoke", log=True)
+    cfg_path = smoke_config(tmp, tmp / "results", n_clusters, geo)
+    experiment = Experiment(config_file=cfg_path, experiment_name=f"smoke_K{n_clusters}",
+                            log=True)
     data = synthetic_data()
     mcmc = MCMCSetup(data=data, experiment=experiment, device=DEVICE)
     runs = list(range(experiment.config.mcmc.runs))
@@ -143,12 +162,73 @@ def phase_main_path(tmp: Path) -> dict:
             v = float(last[col])
             if v != v or abs(v) == float("inf"):
                 raise AssertionError(f"run {r}: non-finite {col} {v}")
-    if launches["loglh"] == 0 or launches.get("marginal", 0) == 0:
+        stats_file = mcmc.get_results_file_path("stats", r)
+        if stats_file.parent.name != f"K{n_clusters}":
+            raise AssertionError(f"results of K = {n_clusters} under {stats_file.parent}")
+        if [c for c in header if c.startswith("size_a")] != [f"size_a{i}"
+                                                             for i in range(n_clusters)]:
+            raise AssertionError(f"run {r}: cluster size columns of {header[:8]}")
+        geo_col = [float(line.split("\t")[header.index("geo_prior")]) for line in lines[1:]]
+        if (geo is not None) != any(v != 0.0 for v in geo_col):
+            raise AssertionError(f"run {r}: geo_prior column {geo_col[:3]}... under {geo}")
+        for row in mcmc.get_results_file_path("clusters", r).read_text().splitlines():
+            cols = row.split("\t")
+            if len(cols) != n_clusters or any(set(c) - {"0", "1"} for c in cols):
+                raise AssertionError(f"run {r}: clusters row with {len(cols)} columns")
+    need = ["loglh", "marginal"] + (["marginal_abs"] if n_clusters > 1 else [])
+    if any(launches.get(k, 0) == 0 for k in need):
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
-    return {"runs": len(runs), "wall_s": wall, "launches": launches}
+    return {"runs": len(runs), "K": n_clusters, "geo": geo or {"type": "uniform"},
+            "wall_s": wall, "launches": launches}
 
 
-def phase_full_width(n_chains: int, n_steps: int) -> tuple:
+def check_carried_state(consts, states, ref, stats, jump_idx=None) -> dict:
+    """The carried invariants of ``states`` against the exact recompute
+    ``ref``; raises on a violation, returns the largest differences."""
+    # (absolute, relative) tolerance: the counts are exact integers; the f32
+    # running totals take one rounding per accepted move.
+    tol = {"log_lh": (1e-3, 1e-4), "log_prior": (1e-3, 1e-4), "cl_counts": (0.0, 0.0),
+           "conf_counts": (0.0, 0.0), "pat_counts": (0.0, 0.0)}
+    errs = {}
+    for key, (atol, rtol) in tol.items():
+        a, b = getattr(states, key), getattr(ref, key)
+        err = float((a - b).abs().max())
+        errs[key] = err
+        limit = atol + rtol * float(b.abs().max())
+        if not err <= limit:
+            raise AssertionError(f"carried {key} differs from the recompute by {err} > {limit}")
+    if ref.geo_agg is not None:
+        # The skeleton aggregates [total, n_edges, max_edge] are re-derived per
+        # changed cluster (sums in another order): each entry within 1e-3 of
+        # its own recompute, the edge counts exactly.
+        a, b = states.geo_agg, ref.geo_agg
+        if not torch.equal(a[..., 1], b[..., 1]):
+            raise AssertionError("carried geo_agg: an edge count differs from the recompute")
+        rel = ((a - b).abs() / b.abs().clamp(min=1e-30)).max()
+        errs["geo_agg"], errs["geo_agg_rel"] = float((a - b).abs().max()), float(rel)
+        if not bool(((a - b).abs() <= 1e-3 * b.abs()).all()):
+            raise AssertionError(f"carried geo_agg differs from the recompute by {float(rel)} "
+                                 "relative > 1e-3")
+    if int(stats.non_finite.sum()) != 0:
+        raise AssertionError("non-finite posterior accepted")
+    if int((states.clusters.sum(1) > 1).sum()) != 0:
+        raise AssertionError("an object is in two clusters")
+    sizes = states.clusters.sum(-1)
+    if int(sizes.min()) < consts.min_size or int(sizes.max()) > consts.max_size:
+        raise AssertionError(f"cluster sizes {int(sizes.min())}..{int(sizes.max())} leave "
+                             f"[{consts.min_size}, {consts.max_size}]")
+    errs["size_min"], errs["size_max"] = int(sizes.min()), int(sizes.max())
+    if jump_idx is not None:
+        acc = float(stats.accepts[:, jump_idx].sum())
+        rate = acc / float((stats.accepts + stats.rejects)[:, jump_idx].sum())
+        if not 0.0 < rate < 1.0:
+            raise AssertionError(f"jump acceptance rate {rate}")
+        errs["jump_accept_rate"] = rate
+    return errs
+
+
+def phase_full_width(n_chains: int, n_steps: int, n_clusters: int = 1,
+                     geo_prior: str = "uniform") -> tuple:
     """init_chains(n) + n_steps steps in chunks of 200 + an exact refresh."""
     from sbayes_tpu_torch.config.schema import MCMCConfig
     from sbayes_tpu_torch.model.model import Model
@@ -156,7 +236,9 @@ def phase_full_width(n_chains: int, n_steps: int) -> tuple:
     from sbayes_tpu_torch.testing import synthetic_config, synthetic_data
 
     data = synthetic_data()
-    cfg = synthetic_config(n_clusters=1)
+    cfg = synthetic_config(n_clusters=n_clusters, geo_prior=geo_prior, **(
+        {"rate": GEO_K3["rate"], "aggregation": GEO_K3["aggregation"]}
+        if geo_prior == "cost_based" else {}))
     model = Model(data, cfg.model, device=DEVICE)
     rt = SamplerRuntime(model, MCMCConfig.from_dict({"steps": 1000, "samples": 5}))
     gen, op_gen = make_generators(7, DEVICE)
@@ -175,25 +257,17 @@ def phase_full_width(n_chains: int, n_steps: int) -> tuple:
     launches = counters()
     ref = rt.refresh(states)
     torch.cuda.synchronize()
-    # (absolute, relative) tolerance: the counts are exact integers; the f32
-    # running totals take one rounding per accepted move.
-    tol = {"log_lh": (1e-3, 1e-4), "log_prior": (1e-3, 1e-4), "cl_counts": (0.0, 0.0),
-           "conf_counts": (0.0, 0.0), "pat_counts": (0.0, 0.0)}
-    errs = {}
-    for key, (atol, rtol) in tol.items():
-        a, b = getattr(states, key), getattr(ref, key)
-        err = float((a - b).abs().max())
-        errs[key] = err
-        limit = atol + rtol * float(b.abs().max())
-        if not err <= limit:
-            raise AssertionError(f"carried {key} differs from the recompute by {err} > {limit}")
-    if int(stats.non_finite.sum()) != 0:
-        raise AssertionError("non-finite posterior accepted")
-    if launches["loglh"] == 0 or launches.get("marginal", 0) == 0:
-        raise AssertionError(f"a kernel was not launched at full width: {launches}")
     c = model.consts
+    jump_idx = rt.op_names.index("cluster_jump_gibbsish") if n_clusters > 1 else None
+    errs = check_carried_state(c, states, ref, stats, jump_idx)
+    need = ["loglh", "marginal"] + (["marginal_abs"] if n_clusters > 1 else [])
+    if any(launches.get(k, 0) == 0 for k in need):
+        raise AssertionError(f"a kernel was not launched at full width: {launches}")
+    accepts, total = stats.accepts.sum(0).float(), (stats.accepts + stats.rejects).sum(0).float()
     info = {"chains": n_chains, "N": c.N, "F": c.F, "S": c.S, "C": c.C, "Gmax": c.Gmax,
-            "K": c.K, "steps": n_steps, "init_s": t_init, "run_s": t_run,
+            "K": c.K, "geo": geo_prior, "operators": rt.op_names,
+            "accept_rate_by_operator": dict(zip(rt.op_names, (accepts / total).tolist())),
+            "steps": n_steps, "init_s": t_init, "run_s": t_run,
             "steps_per_s": n_steps / t_run, "chain_steps_per_s": n_chains * n_steps / t_run,
             "launches": launches, "launches_per_step": {k: v / n_steps for k, v in
                                                         launches.items()},
@@ -209,7 +283,7 @@ def phase_where_time_goes(rt, states, reps: int = 10) -> dict:
     the device-busy share and CUDA kernels per step from torch.profiler."""
     from sbayes_tpu_torch.sampling.runner import make_generators
 
-    gen, op_gen = make_generators(11, "cuda")
+    gen, op_gen = make_generators(11, DEVICE)
     op_ms = {}
     for i, name in enumerate(rt.op_names):
         st = rt._apply(i, gen, states)[0]
@@ -233,11 +307,103 @@ def phase_where_time_goes(rt, states, reps: int = 10) -> dict:
                if getattr(e, "self_device_time_total", 0) > 0 and e.device_type.name == "CUDA"]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    prim = update_geo_cost(rt, states) if states.geo_agg is not None else None
     return {"op_ms_per_step": op_ms, "schedule_weights": rt.op_weights.tolist(),
+            "update_geo": prim,
             "window_steps": n_steps, "window_wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_busy_share": busy_ms / wall_ms if busy_ms else None,
             "kernels_per_step": sum(e.count for e in kernels) / n_steps,
             "top_device_ms": {e.key[:60]: e.self_device_time_total / 1e3 for e in top}}
+
+
+def update_geo_cost(rt, states, reps: int = 10) -> dict:
+    """Launches and wall time of one ``_update_geo`` of one cluster per chain
+    (the batched Prim of ``ops/mst.py`` on the chains' own clusters), with
+    the whole update beside the Prim alone."""
+    from sbayes_tpu_torch.ops.mst import cluster_mst_stats
+    from sbayes_tpu_torch.sampling.operators import OperatorFactory
+
+    c = rt.consts
+    factory = OperatorFactory(rt.cond)
+    i_cluster = torch.zeros(states.n_chains, dtype=torch.long, device=states.clusters.device)
+    masks = states.clusters[:, 0]
+    forms = {"update_geo": lambda: factory._update_geo(states.geo_agg, states.clusters,
+                                                       i_cluster),
+             "prim": lambda: cluster_mst_stats(c.cost_matrix, masks)}
+    out = {"batch_max_size": int(masks.sum(-1).max())}
+    for name, fn in forms.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / reps * 1e3
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        out[name] = {"wall_ms": wall_ms, "launches": sum(e.count for e in events),
+                     "device_ms": sum(e.self_device_time_total for e in events) / 1e3}
+    return out
+
+
+def phase_jump_512(n_chains: int = 64, n_steps: int = 50) -> dict:
+    """The jump alone at 512 features (K = 2, cost-based geo prior), where it
+    takes its log-space form: two random clusters of 10 objects per chain
+    with a Gibbs-sampled source, then ``n_steps`` MH steps of the one operator; the two-effect ratio marginal
+    must have been launched, and the carried state must equal its recompute."""
+    from sbayes_tpu_torch.model.math import normalize_weights, sample_categorical_onehot
+    from sbayes_tpu_torch.model.model import Model
+    from sbayes_tpu_torch.sampling.conditionals import Conditionals
+    from sbayes_tpu_torch.sampling.kernel import OperatorStats, make_mh_apply_fn
+    from sbayes_tpu_torch.sampling.operators import OperatorFactory, OperatorSpec
+    from sbayes_tpu_torch.sampling.runner import make_generators
+    from sbayes_tpu_torch.sampling.state import ChainState
+    from sbayes_tpu_torch.testing import synthetic_config, synthetic_data
+
+    cfg = synthetic_config(n_clusters=2, geo_prior="cost_based", rate=GEO_K3["rate"],
+                           aggregation=GEO_K3["aggregation"])
+    model = Model(synthetic_data(n_features=512), cfg.model, device=DEVICE)
+    c = model.consts
+    cond = Conditionals(model.posterior)
+    factory = OperatorFactory(cond)
+    gen, _ = make_generators(13, DEVICE)
+    # Start: two random disjoint clusters of 10 objects per chain, uniform
+    # weights, a source drawn from the prior and one full Gibbs pass over it.
+    # (At this width the initializer's EM puts up to 72 of the 100 objects
+    # into one cluster, beyond max_size = 50, and no jump repairs that.)
+    order = torch.argsort(torch.rand((n_chains, c.N), generator=gen, device=c.device), dim=-1)
+    clusters = torch.stack([(order < 10), (order >= 10) & (order < 20)], dim=1)
+    weights = torch.full((n_chains, c.F, c.C), 1.0 / c.C, device=c.device)
+    source = sample_categorical_onehot(
+        gen, normalize_weights(weights, cond.post.has_components(clusters))
+    ) & ~c.na[None, :, :, None]
+    minus_inf = torch.full((n_chains,), float("-inf"), device=c.device)
+    states = ChainState(clusters, weights, source, minus_inf, minus_inf,
+                        torch.full((n_chains, 4), float("-inf"), device=c.device))
+    states = factory.make_gibbs_sample_source("all", max_size=c.N)(gen, states).state
+    states = cond.post.fill_state(states)
+    spec = OperatorSpec("cluster_jump_gibbsish", 1.0, factory.make_cluster_jump(), "clusters")
+    apply = make_mh_apply_fn(cond, [spec])
+    stats = OperatorStats.zeros(n_chains, 1, c.device)
+    reset_counters()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        states, accept, step_size, nf = apply(0, gen, states)
+        stats = stats.record(0, accept, step_size, nf)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counters()
+    if launches.get("marginal_two_eff", 0) != 2 * n_steps or launches.get("marginal_abs", 0):
+        raise AssertionError(f"the jump at {c.F} features launched {launches}")
+    errs = check_carried_state(c, states, cond.post.fill_state(states), stats, jump_idx=0)
+    inputs = jump_kernel_inputs(cond, states)
+    kernel_errs = compare_with_plain(c, inputs)
+    return {"chains": n_chains, "N": c.N, "F": c.F, "K": c.K, "steps": n_steps, "wall_s": wall,
+            "launches": launches, "carried_vs_recompute_max_abs": errs,
+            "kernels_vs_plain": kernel_errs, "two_eff": time_marginal_variant(
+                c, inputs, (True, False, True), n_chains)}
 
 
 def cuda_time_ms(fn, reps: int = 50) -> float:
@@ -326,6 +492,44 @@ def path_kernel_inputs(rt, states) -> dict:
             "conf_eff": normalize(states.conf_counts + c.conc_conf[None]),
             "wh": states.weights.contiguous(), "hc": hc.float(), "hc_flip": hc_flip.float(),
             "incl": hc[..., 0].float(), "inv_t": torch.full((B,), 1.0 / 1.3, device=dev)}
+
+
+def jump_kernel_inputs(cond, states) -> dict:
+    """The inputs the jump operator gives both kernels, from the chains' own
+    state: the effects of clusters 0 (source) and 1 (target) as the two
+    effect rows, ``hc_flip = hc`` and ``incl = 1``."""
+    from sbayes_tpu_torch.model.math import normalize
+
+    c = cond.consts
+    B = states.n_chains
+    hc = cond.post.has_components(states.clusters).float()
+    effects = normalize(states.cl_counts[:, :2] + c.conc_cluster[None, None])
+    return {"clusters": states.clusters, "source": states.source, "p_eff": effects[:, 0],
+            "p_other": effects[:, 1],
+            "conf_eff": normalize(states.conf_counts + c.conc_conf[None]),
+            "wh": states.weights.contiguous(), "hc": hc, "hc_flip": hc,
+            "incl": torch.ones((B, c.N), device=hc.device),
+            "inv_t": torch.full((B,), 1.0 / 1.3, device=hc.device)}
+
+
+def time_marginal_variant(c, inputs: dict, variant: tuple, n_chains: int) -> dict:
+    """One marginal variant on ``inputs``: its error against the plain
+    version, eager and device time, the plain version's time and the bound."""
+    from sbayes_tpu_torch.ops import marginal
+
+    args, kw = marginal_variant_args(inputs, *variant)
+
+    def run():
+        return marginal.marginal(c, *args, **kw)
+
+    err = float((run() - marginal.marginal_plain(c, *args, **kw)).abs().max())
+    ratio, heat, two_eff = variant
+    n_bytes = marginal.bytes_moved(c, n_chains, ratio, two_eff, heat)
+    b_ms, b_by = bound_ms(n_bytes, marginal.operations(c, n_chains, ratio, two_eff, heat))
+    return {"max_abs_err": err, "ms": cuda_time_ms(run), "device_ms": device_time_ms(run),
+            "plain_ms": cuda_time_ms(lambda: marginal.marginal_plain(c, *args, **kw), reps=10),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "bytes": n_bytes,
+            "chains": n_chains, "F": c.F}
 
 
 def random_kernel_inputs(c, n_chains: int, seed: int) -> dict:
@@ -473,51 +677,69 @@ def many_groups_check(n_chains: int = 2) -> dict:
             "errors": compare_with_plain(c, random_kernel_inputs(c, n_chains, seed=9))}
 
 
-def phase_kernels(rt, states, launches: dict) -> list:
-    """Each kernel and marginal variant against its plain version."""
-    from sbayes_tpu_torch.ops import loglh, marginal
+def time_loglh(c, states) -> dict:
+    """The likelihood kernel on ``states``: eager and device time, the plain
+    version's time, the bound."""
+    from sbayes_tpu_torch.ops import loglh
+
+    def run():
+        return loglh.log_likelihood(c, states.clusters, states.source)
+
+    n_bytes = loglh.bytes_moved(c, states.n_chains)
+    b_ms, b_by = bound_ms(n_bytes, loglh.operations(c, states.n_chains))
+    return {"ms": cuda_time_ms(run), "device_ms": device_time_ms(run),
+            "plain_ms": cuda_time_ms(lambda: loglh.log_likelihood_plain(
+                c, states.clusters, states.source), reps=10),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "bytes": n_bytes}
+
+
+def phase_kernels(rt, states, rt_k3, states_k3, launches_by_path: dict,
+                  jump_512: dict) -> list:
+    """Each kernel and marginal variant against its plain version, at the
+    K = 1 path's shapes and inputs; the likelihood also on the K = 3 states,
+    and the absolute and two-effect variants on the inputs the K = 3 jump
+    gives them. ``launches_by_path``: the launch counts of each driven path;
+    ``jump_512``: the two-effect variant's timing at ``phase_jump_512``'s shapes."""
+    from sbayes_tpu_torch.ops import marginal
 
     c = rt.consts
     B = states.n_chains
     inputs = path_kernel_inputs(rt, states)
     errs = compare_with_plain(c, inputs)
     floor = launch_floor()
-    out = []
+    paths = {name: {path: n.get(name, 0) for path, n in launches_by_path.items()}
+             for name in ["loglh"] + [marginal.variant_name(*v) for v in marginal.VARIANTS]}
+    inputs_k3 = jump_kernel_inputs(rt_k3.cond, states_k3)
+    errs_k3 = compare_with_plain(rt_k3.consts, inputs_k3)
 
     # Kernel 1: collapsed likelihood.
-    def run_loglh():
-        return loglh.log_likelihood(c, states.clusters, states.source)
+    entry = {"name": "loglh", "route": "cuda", "source": "sbayes_tpu_torch/csrc/loglh.cu",
+             "replaces": "sbayes_tpu/ops/pallas_kernels.py:82",
+             "launches": sum(paths["loglh"].values()), "launches_by_path": paths["loglh"],
+             "max_abs_err": errs["loglh_abs"], "max_rel_err": errs["loglh_rel"],
+             **time_loglh(c, states), **floor, "feature_tiled": tiled_check(),
+             "odd_shape": odd_shape_check(), "components": components_check(),
+             "many_groups": many_groups_check(),
+             "k3": {"K": rt_k3.consts.K, "max_abs_err": errs_k3["loglh_abs"],
+                    "max_rel_err": errs_k3["loglh_rel"],
+                    **time_loglh(rt_k3.consts, states_k3)}}
+    out = [entry]
 
-    plain_ms = cuda_time_ms(lambda: loglh.log_likelihood_plain(c, states.clusters, states.source),
-                            reps=10)
-    n_bytes = loglh.bytes_moved(c, B)
-    b_ms, b_by = bound_ms(n_bytes, loglh.operations(c, B))
-    out.append({"name": "loglh", "route": "cuda", "source": "sbayes_tpu_torch/csrc/loglh.cu",
-                "replaces": "sbayes_tpu/ops/pallas_kernels.py:82", "launches": launches["loglh"],
-                "max_abs_err": errs["loglh_abs"], "max_rel_err": errs["loglh_rel"],
-                "ms": cuda_time_ms(run_loglh), "device_ms": device_time_ms(run_loglh),
-                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                "bytes": n_bytes, **floor, "feature_tiled": tiled_check(),
-                "odd_shape": odd_shape_check(), "components": components_check(), "many_groups": many_groups_check()})
-
-    # Kernel 2: membership marginal, all variants, on the states' own effects.
+    # Kernel 2: membership marginal, all variants: the Gibbsish forms on the
+    # K = 1 states' own effects, the jump's forms on the K = 3 jump's inputs.
     for variant in marginal.VARIANTS:
-        args, kw = marginal_variant_args(inputs, *variant)
-
-        def run_marginal():
-            return marginal.marginal(c, *args, **kw)
-
-        plain_ms = cuda_time_ms(lambda: marginal.marginal_plain(c, *args, **kw), reps=10)
-        ratio, heat, two_eff = variant
-        n_bytes = marginal.bytes_moved(c, B, ratio, two_eff, heat)
-        b_ms, b_by = bound_ms(n_bytes, marginal.operations(c, B, ratio, two_eff, heat))
         name = marginal.variant_name(*variant)
-        out.append({"name": name, "route": "cuda", "source": "sbayes_tpu_torch/csrc/marginal.cu",
-                    "replaces": "sbayes_tpu/ops/pallas_marginal.py:178",
-                    "launches": launches.get(name, 0), "max_abs_err": errs[name],
-                    "ms": cuda_time_ms(run_marginal), "device_ms": device_time_ms(run_marginal),
-                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                    "library_ms": None, "bytes": n_bytes, **floor})
+        of_jump = variant[2] or not variant[0]
+        timed = (time_marginal_variant(rt_k3.consts, inputs_k3, variant, states_k3.n_chains)
+                 if of_jump else time_marginal_variant(c, inputs, variant, B))
+        entry = {"name": name, "route": "cuda", "source": "sbayes_tpu_torch/csrc/marginal.cu",
+                 "replaces": "sbayes_tpu/ops/pallas_marginal.py:178",
+                 "launches": sum(paths[name].values()), "launches_by_path": paths[name],
+                 **timed, "inputs": "k3_jump" if of_jump else "k1_gibbsish", **floor}
+        entry["max_abs_err"] = max(entry["max_abs_err"], errs[name], errs_k3[name])
+        if variant == (True, False, True):
+            entry["jump_512"] = jump_512
+        out.append(entry)
     return out
 
 
@@ -538,16 +760,31 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as tmp:
         main_path = phase_main_path(Path(tmp))
-    print(json.dumps({"phase": "main_path", **main_path}), flush=True)
+        print(json.dumps({"phase": "main_path", **main_path}), flush=True)
+        main_path_k3 = phase_main_path(Path(tmp), n_clusters=3, geo=GEO_K3)
+        print(json.dumps({"phase": "main_path_k3", **main_path_k3}), flush=True)
 
     rt, states, full = phase_full_width(CHAINS, STEPS)
     full.update({"device": torch.cuda.get_device_name(0), "card": card})
     print(json.dumps({"phase": "full_width", **full}), flush=True)
-
     print(json.dumps({"phase": "where_time_goes", "card": card,
                       **phase_where_time_goes(rt, states)}), flush=True)
 
-    kernels = phase_kernels(rt, states, main_path["launches"])
+    rt_k3, states_k3, full_k3 = phase_full_width(CHAINS, STEPS_K3, n_clusters=3,
+                                                 geo_prior="cost_based")
+    time_k3 = phase_where_time_goes(rt_k3, states_k3)
+    full_k3.update({"device": torch.cuda.get_device_name(0), "card": card,
+                    "kernels_per_step": time_k3["kernels_per_step"],
+                    "device_busy_share": time_k3["device_busy_share"]})
+    print(json.dumps({"phase": "full_width_k3", **full_k3}), flush=True)
+    print(json.dumps({"phase": "where_time_goes_k3", "card": card, **time_k3}), flush=True)
+
+    jump_512 = phase_jump_512()
+    print(json.dumps({"phase": "jump_512", "card": card, **jump_512}), flush=True)
+
+    by_path = {"main_path": main_path["launches"], "main_path_k3": main_path_k3["launches"],
+               "jump_512": jump_512["launches"]}
+    kernels = phase_kernels(rt, states, rt_k3, states_k3, by_path, jump_512["two_eff"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

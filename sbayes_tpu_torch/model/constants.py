@@ -15,7 +15,6 @@ the requested device once. These tensors are added for the CUDA kernels
 
 The TPU layout fields (pre-tiled feature tiles, feature chunking, packed
 source) are not ported: on the GPU both kernels read the state index directly.
-This slice supports the uniform geo prior only.
 """
 from __future__ import annotations
 
@@ -116,12 +115,13 @@ def concentration_table(conc_cluster: NDArray, conc_conf: NDArray) -> NDArray:
 
 @dataclass(frozen=True)
 class GeoPriorConstants:
-    prior_type: str                 # uniform (the only one ported so far)
-    aggregation: str
-    probability_function: str
-    skeleton: str
+    prior_type: str                 # uniform | cost_based | simulated
+    aggregation: str                # mean | sum | max
+    probability_function: str       # exponential | sigmoid
+    skeleton: str                   # mst | delaunay | diameter | complete_graph
     scale: Optional[float]
     inflection_point: Optional[float]
+    mean_edge_length: float = 1.0   # simulated type: mean edge of the MST of all objects
 
 
 @dataclass(frozen=True)
@@ -154,6 +154,7 @@ class ModelConstants:
     conc_table: Any                 # f32 (R, F, S + 1): a, then sum_s a; R = 1 + (C-1) Gmax
 
     geo: GeoPriorConstants
+    cost_matrix: Any                # f32 (N, N) geo costs ((1, 1) zeros: uniform geo, N > 2000)
     adjacency: Any                  # bool (N, N)
     locations: Any                  # f32 (N, 2)
 
@@ -198,14 +199,6 @@ def build_model_constants(data: Data, config: ModelConfig, n_clusters: Optional[
     K = n_clusters if n_clusters is not None else config.clusters
     if not isinstance(K, int):
         raise ValueError("build_model_constants needs a single integer cluster count")
-
-    geo_cfg = config.prior.geo
-    if geo_cfg.type is not GeoPriorConfig.Types.UNIFORM:
-        raise NotImplementedError(
-            f"geo prior `{geo_cfg.type.value}` is not ported yet: the cost-based and simulated "
-            "geo priors (MST skeletons, carried geo aggregates) come with the K >= 2 slice "
-            "of the PyTorch port; use `geo: {type: uniform}`."
-        )
 
     N, F, S = features.values.shape
     if S >= 127:
@@ -277,11 +270,25 @@ def build_model_constants(data: Data, config: ModelConfig, n_clusters: Optional[
     else:
         raise ValueError(f"Unsupported weights prior type {w_cfg.type}")
 
+    geo_cfg = config.prior.geo
+    if geo_cfg.type is GeoPriorConfig.Types.UNIFORM and N > 2000:
+        # Only the cost-based and simulated geo priors read the cost matrix:
+        # under the uniform one a large model keeps no (N, N) tensor on the device.
+        cost_matrix = np.zeros((1, 1), dtype=FLOAT_TYPE)
+    else:
+        cost_matrix = np.asarray(data.geo_cost_matrix, dtype=FLOAT_TYPE)
+    mean_edge_length = 1.0
+    if geo_cfg.type is GeoPriorConfig.Types.SIMULATED:
+        from scipy.sparse.csgraph import minimum_spanning_tree
+
+        mst = minimum_spanning_tree(np.asarray(data.network.dist_mat, dtype=float))
+        edges = mst.tocsr()[mst.nonzero()]
+        mean_edge_length = float(np.mean(edges)) if edges.size else 1.0
     geo = GeoPriorConstants(
         prior_type=geo_cfg.type.value, aggregation=geo_cfg.aggregation.value,
         probability_function=geo_cfg.probability_function.value,
         skeleton=geo_cfg.skeleton.value, scale=geo_cfg.rate,
-        inflection_point=geo_cfg.inflection_point,
+        inflection_point=geo_cfg.inflection_point, mean_edge_length=mean_edge_length,
     )
 
     adjacency = np.asarray(data.network.adj_mat.todense()).astype(bool)
@@ -318,6 +325,7 @@ def build_model_constants(data: Data, config: ModelConfig, n_clusters: Optional[
         weights_prior_uniform=weights_prior_uniform,
         conc_table=t(concentration_table(conc_cluster, conc_conf[:n_conf]), torch.float32),
         geo=geo,
+        cost_matrix=t(cost_matrix, torch.float32),
         adjacency=t(adjacency, torch.bool),
         locations=t(np.asarray(data.objects.locations), torch.float32),
         size_prior_type=sp_cfg.type.value,

@@ -3,12 +3,20 @@
 Port of ``sbayes_tpu/model/posterior.py``. Every chain-state tensor has a
 leading chain axis ``B``; every result is per chain, shape ``(B,)``.
 ``log_likelihood`` runs the collapsed-likelihood kernel (``ops/loglh.py``)
-for CUDA tensors. The port supports the uniform geo prior only (0) so far.
+for CUDA tensors.
+
+The geo prior of a cluster is a function of its skeleton's aggregate, the
+triple [total, n_edges, max_edge] (``skeleton_triple``: the MST by the
+batched Prim of ``ops/mst.py``, the complete graph, or the Delaunay graph on
+the host). The triples are carried in ``ChainState.geo_agg`` (B, K, 3) and
+re-derived only for the clusters an operator changed, so the MH step maps
+the carried triples (``geo_prior_from_agg``) instead of running K MSTs.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from sbayes_tpu_torch.model.constants import ModelConstants
@@ -20,6 +28,7 @@ from sbayes_tpu_torch.model.math import (
     source_pick,
 )
 from sbayes_tpu_torch.ops import loglh
+from sbayes_tpu_torch.ops.mst import cluster_mst_stats
 
 
 class PosteriorParts(NamedTuple):
@@ -45,10 +54,6 @@ class Posterior:
     """Likelihood and priors of a model, evaluated for a batch of chains."""
 
     def __init__(self, consts: ModelConstants, sample_from_prior: bool = False):
-        if consts.geo.prior_type != "uniform":
-            raise NotImplementedError(
-                f"geo prior `{consts.geo.prior_type}` is not ported yet (cost-based geo "
-                "prior slice)")
         self.consts = consts
         self.sample_from_prior = sample_from_prior
 
@@ -138,9 +143,127 @@ class Posterior:
             return -torch.log(sizes ** 2).sum(-1)
         raise ValueError(f"Unknown size prior type {c.size_prior_type}")
 
+    # ---------------- geo prior ----------------
+
+    @property
+    def carry_geo(self) -> bool:
+        """Whether states carry per-cluster skeleton aggregates."""
+        return self.consts.geo.prior_type != "uniform"
+
+    def _geo_cost_matrix(self):
+        c = self.consts
+        if c.geo.prior_type == "simulated":
+            return c.cost_matrix * (0.020838 / c.geo.mean_edge_length)
+        return c.cost_matrix
+
+    def skeleton_triple(self, mask):
+        """(M, 3) [total, n_edges, max_edge] of the skeleton of each cluster
+        in ``mask`` (M, N) bool."""
+        c = self.consts
+        g = c.geo
+        cost = self._geo_cost_matrix()
+        skeleton = "mst" if g.prior_type == "simulated" else g.skeleton
+        if skeleton == "mst":
+            return cluster_mst_stats(cost, mask)
+        if skeleton == "complete_graph":
+            # The full (m, m) submatrix, diagonal included.
+            m = mask.to(cost.dtype)
+            total = torch.einsum("bi,ij,bj->b", m, cost, m)
+            n_edges = m.sum(-1) ** 2
+            pair = mask[:, :, None] & mask[:, None, :]
+            max_e = torch.where(pair, cost[None], torch.full((), float("-inf"),
+                                                             device=cost.device)).amax((-1, -2))
+            return torch.stack([total, n_edges, torch.clamp(max_e, min=0.0)], dim=-1)
+        if skeleton == "delaunay":
+            locations = c.locations.cpu().numpy()
+            cost_np = c.cost_matrix.cpu().numpy()
+            rows = [_delaunay_host(m, locations, cost_np) for m in mask.cpu().numpy()]
+            return torch.as_tensor(np.stack(rows).reshape(-1, 3), dtype=cost.dtype,
+                                   device=cost.device)
+        if skeleton == "diameter":
+            raise NotImplementedError("skeleton=diameter is not implemented")
+        raise ValueError(f"Unknown skeleton {skeleton}")
+
+    def geo_agg_of(self, clusters):
+        """(B, K, 3) carried skeleton aggregates, or None when not carried."""
+        if not self.carry_geo:
+            return None
+        B, K, N = clusters.shape
+        return self.skeleton_triple(clusters.reshape(B * K, N)).view(B, K, 3)
+
+    def _aggregate_of_triple(self, triple):
+        g = self.consts.geo
+        total, n_edges, max_e = triple[..., 0], triple[..., 1], triple[..., 2]
+        if g.aggregation == "sum":
+            return total
+        if g.aggregation == "mean":
+            return total / torch.clamp(n_edges, min=1.0)
+        if g.aggregation == "max":
+            return torch.clamp(max_e, min=0.0)
+        raise ValueError(f"Unknown aggregation {g.aggregation}")
+
+    def _geo_probability_function(self, agg_cost):
+        g = self.consts.geo
+        if g.probability_function == "exponential":
+            return -agg_cost / g.scale
+        if g.probability_function == "sigmoid":
+            x0, s = g.inflection_point, g.scale
+            log_expit = torch.nn.functional.logsigmoid
+            return log_expit(-(agg_cost - x0) / s) - log_expit(
+                torch.tensor(x0 / s, dtype=agg_cost.dtype, device=agg_cost.device))
+        raise ValueError(f"Unknown probability_function {g.probability_function}")
+
+    def geo_prior_from_agg(self, clusters, geo_agg):
+        """(B, K) geo-prior log-probabilities from the skeleton aggregates
+        ``geo_agg`` (B, K, 3) of ``clusters``."""
+        g = self.consts.geo
+        if g.prior_type == "cost_based":
+            return self._geo_probability_function(self._aggregate_of_triple(geo_agg))
+        if g.prior_type == "simulated":
+            return _simulated_sigmoid(geo_agg[..., 0], clusters.sum(-1).to(geo_agg.dtype))
+        raise ValueError(f"Unknown geo prior type {g.prior_type}")
+
     def geo_prior_per_cluster(self, clusters):
-        """(B, K) geo-prior log-probabilities: 0 under the uniform geo prior."""
-        return torch.zeros(clusters.shape[:2], device=clusters.device)
+        """(B, K) geo-prior log-probabilities, the skeletons recomputed."""
+        if not self.carry_geo:
+            return torch.zeros(clusters.shape[:2], device=clusters.device)
+        return self.geo_prior_from_agg(clusters, self.geo_agg_of(clusters))
+
+    def geo_prior_costs_per_object(self, clusters, i_cluster, geo_agg=None):
+        """(B, N) change of the log geo prior of cluster ``i_cluster`` (B,) if
+        each object were added to it (the cheapest edge to the cluster joins
+        the aggregate). ``geo_agg`` may pass the state's carried aggregates;
+        without them the cluster's MST is computed here."""
+        c = self.consts
+        g = c.geo
+        cost = c.cost_matrix
+        if g.prior_type == "uniform":
+            return torch.zeros((clusters.shape[0], c.N), device=clusters.device)
+        ar = torch.arange(clusters.shape[0], device=clusters.device)
+        cluster = clusters[ar, i_cluster]                                   # (B, N)
+        m = cluster.sum(-1, keepdim=True).to(cost.dtype)
+        inf = torch.full((), float("inf"), device=cost.device)
+        cost_to_cluster = torch.where(cluster[:, :, None], cost[None], inf).amin(1)
+        # The carried aggregates of the simulated type are on the scaled cost
+        # matrix and those of other skeletons are no MST: only cost_based with
+        # the MST skeleton reuses them here.
+        if geo_agg is not None and g.prior_type == "cost_based" and g.skeleton == "mst":
+            triple = geo_agg[ar, i_cluster]
+        else:
+            triple = cluster_mst_stats(cost, cluster)
+        total, count, max_edge = triple[:, 0:1], triple[:, 1:2], triple[:, 2:3]
+        if g.aggregation == "mean":
+            before = total / torch.clamp(count, min=1.0)
+            after = (cost_to_cluster + m * before) / (1 + m)
+        elif g.aggregation == "sum":
+            before = total
+            after = cost_to_cluster + before
+        elif g.aggregation == "max":
+            before = max_edge
+            after = torch.maximum(cost_to_cluster, before)
+        else:
+            raise ValueError(f"Aggregation {g.aggregation} not implemented for costs per object")
+        return self._geo_probability_function(after) - self._geo_probability_function(before)
 
     def weights_prior(self, weights):
         """(B,) Dirichlet prior on the mixture weights."""
@@ -163,9 +286,10 @@ class Posterior:
 
     # ---------------- bundles ----------------
 
-    def parts(self, state, counts=None) -> PosteriorParts:
+    def parts(self, state, counts=None, geo_agg=None) -> PosteriorParts:
         """Full posterior decomposition; ``counts`` may pass the state's
-        carried counts (else the likelihood is recomputed by the kernel)."""
+        carried counts (else the likelihood is recomputed by the kernel) and
+        ``geo_agg`` its skeleton aggregates (else they are recomputed)."""
         B = state.clusters.shape[0]
         if self.sample_from_prior:
             log_lh = torch.zeros(B, device=state.clusters.device)
@@ -176,18 +300,57 @@ class Posterior:
         return PosteriorParts(
             log_lh=log_lh,
             size_prior=self.size_prior(state.clusters),
-            geo_prior=self.geo_prior_per_cluster(state.clusters).sum(-1),
+            geo_prior=(self.geo_prior_per_cluster(state.clusters) if geo_agg is None
+                       else self.geo_prior_from_agg(state.clusters, geo_agg)).sum(-1),
             weights_prior=self.weights_prior(state.weights),
             source_prior=self.source_prior(state.clusters, state.weights, state.source),
         )
 
     def fill_state(self, state):
         """The state with log_lh / log_prior / prior_parts and the carried
-        counts and pattern counts recomputed exactly."""
+        counts, pattern counts and geo aggregates recomputed exactly."""
         counts = self.feature_counts(state.clusters, state.source)
-        p = self.parts(state, counts=counts)
+        geo_agg = self.geo_agg_of(state.clusters)
+        p = self.parts(state, counts=counts, geo_agg=geo_agg)
         return state._replace(
             log_lh=p.log_lh, log_prior=p.log_prior, prior_parts=p.prior_vector(),
-            cl_counts=counts[0], conf_counts=counts[1], geo_agg=None,
+            cl_counts=counts[0], conf_counts=counts[1],
+            geo_agg=geo_agg,
             pat_counts=self.pattern_counts(state.clusters, state.source),
         )
+
+
+def _delaunay_host(mask, locations, cost):
+    """(3,) [total, n_edges, max_edge] over the Delaunay graph of ONE
+    cluster's own points, on the host. Fewer than 3 points, collinear points
+    or an empty graph fall back to the complete graph."""
+    from sbayes_tpu_torch.data.geo import compute_delaunay
+
+    idx = np.flatnonzero(np.asarray(mask))
+    m = idx.size
+    if m < 2:
+        return np.zeros(3, np.float32)
+    sub_cost = np.asarray(cost)[np.ix_(idx, idx)]
+    if m == 2:
+        e = float(sub_cost[0, 1])
+        return np.asarray([e, 1.0, e], np.float32)
+    try:
+        adj = compute_delaunay(np.asarray(locations)[idx]).toarray() > 0
+        np.fill_diagonal(adj, False)
+        iu = np.triu(adj)
+    except Exception:
+        iu = np.triu(np.ones((m, m), bool), k=1)
+    edges = sub_cost[iu]
+    if edges.size == 0:
+        edges = sub_cost[np.triu(np.ones((m, m), bool), k=1)]
+    return np.asarray([edges.sum(), float(edges.size), edges.max()], np.float32)
+
+
+def _simulated_sigmoid(total_distance, n):
+    """The fitted logistic areality prior of the simulated geo prior."""
+    logn = torch.log(torch.clamp(n, min=1.0))
+    a, b, c, d = -1.62973132061948, 12.7679075267602, -25.4137798184766, 17.237407405487
+    intercept = a * logn ** 3 + b * logn ** 2 + c * logn + d
+    a2, b2, c2, d2 = -31.397363895626, 1.02000702311327, -94.0788824218419, 0.93626444975598
+    coeff = a2 * b2 ** (-n) + c2 / torch.clamp(n, min=1.0) + d2
+    return torch.nn.functional.logsigmoid(coeff * total_distance + intercept)

@@ -5,7 +5,9 @@ sampling path uses: per-component likelihoods (also the exact leave-self-out
 form for likelihood logging), the source posterior, and the Gibbs source
 resample in its two forms — a mask over all objects
 (``gibbs_resample_source``, used by the initializer) and gathered rows, m
-objects per chain (``gibbs_resample_source_rows``). Everything is batched over chains: chain-state
+objects per chain (``gibbs_resample_source_rows`` for moves within a
+cluster, ``gibbs_resample_source_jump_rows`` for the jump between two).
+Everything is batched over chains: chain-state
 tensors carry a leading axis B, ``i_cluster`` is a (B,) index, gathered
 object indices are (B, m) with N meaning "padding".
 """
@@ -159,7 +161,7 @@ class Conditionals:
         ``subset`` (B, N): forward and backward share the likelihoods,
         weights heated by 1/Tp, backward weights from the OLD clusters (the
         JAX package's ``_resample_engine`` as ``gibbs_resample_source`` calls
-        it; its other settings serve the jump, a later slice)."""
+        it)."""
         c = self.consts
         if conf_counts_full is None:
             conf_counts_full = self._conf_counts_of(state_old.source)
@@ -240,27 +242,39 @@ class Conditionals:
         hc0 = gather_cols(clusters, obj_idx).any(dim=1)                        # (B, m)
         return torch.cat([hc0[..., None], hc_conf_m], dim=-1)
 
-    def gibbs_resample_source_rows(self, gen, state_old, clusters_new, obj_idx, valid,
-                                   i_cluster, counts) -> SourceResample:
-        """Rows counterpart of ``gibbs_resample_source`` (the JAX package's
-        ``_resample_engine_rows``) on the DISTINCT indices ``obj_idx`` (B, m)
-        with validity ``valid`` (B, m). ``counts`` are the carried counts of
-        ``state_old``; the rows are written later, by the MH step."""
+    def _resample_engine_rows(self, gen, state_old, clusters_new, obj_idx, valid, i_fwd, i_back,
+                              share_lh: bool, heat: bool, hc_back_from_old: bool,
+                              counts) -> SourceResample:
+        """Gibbs resample of the source rows of the DISTINCT objects
+        ``obj_idx`` (B, m) with validity ``valid`` (B, m), leaving the rows'
+        own contribution out of the effect estimates (the JAX package's
+        ``_resample_engine_rows``). ``counts`` are the carried counts of
+        ``state_old``; the rows are written later, by the MH step.
+
+        ``i_fwd`` / ``i_back`` (B,): the cluster whose effect scores the
+        forward / backward draw (``share_lh``: one likelihood for both);
+        ``heat``: weights raised to 1/Tp; ``hc_back_from_old``: the backward
+        availabilities come from the OLD clusters, else from the new ones."""
         feats_m, na_m, hc_conf_m = self.gather_obj(obj_idx)
         src_rows_old = gather_rows(state_old.source, obj_idx)                  # (B, m, F, C)
         hc_new_m = self.rows_availability(clusters_new, obj_idx, hc_conf_m)
         hc_old_m = self.rows_availability(state_old.clusters, obj_idx, hc_conf_m)
 
-        w_f = normalize_weights(state_old.weights, hc_new_m) ** (1.0 / self.Tp)
-        w_b = normalize_weights(state_old.weights, hc_old_m) ** (1.0 / self.Tp)
+        w_f = normalize_weights(state_old.weights, hc_new_m)
+        w_b = normalize_weights(state_old.weights, hc_old_m) if hc_back_from_old else w_f
+        if heat:
+            w_f = w_f ** (1.0 / self.Tp)
+            w_b = w_b ** (1.0 / self.Tp)
         if self.sample_from_prior:
             p = w_f / torch.clamp(w_f.sum(-1, keepdim=True), min=EPS32)
             p_back = w_b / torch.clamp(w_b.sum(-1, keepdim=True), min=EPS32)
         else:
-            lh = self._clgu_rows(state_old, obj_idx, valid, i_cluster, counts, feats_m, na_m,
-                                 src_rows_old)
-            p = normalize(w_f * lh)
-            p_back = normalize(w_b * lh)
+            lh_f = self._clgu_rows(state_old, obj_idx, valid, i_fwd, counts, feats_m, na_m,
+                                   src_rows_old)
+            lh_b = lh_f if share_lh else self._clgu_rows(
+                state_old, obj_idx, valid, i_back, counts, feats_m, na_m, src_rows_old)
+            p = normalize(w_f * lh_f)
+            p_back = normalize(w_b * lh_b)
 
         x = sample_categorical_onehot(gen, p) & ~na_m[..., None]
         new_rows = torch.where(valid[:, :, None, None], x, src_rows_old)
@@ -270,6 +284,26 @@ class Conditionals:
                     - self.source_prior_rows_logp(state_old.weights, hc_old_m, src_rows_old,
                                                   valid, na_m))
         return SourceResample(state_old.source, log_q, log_q_back, sp_delta, new_rows=new_rows)
+
+    def gibbs_resample_source_rows(self, gen, state_old, clusters_new, obj_idx, valid,
+                                   i_cluster, counts) -> SourceResample:
+        """Rows counterpart of ``gibbs_resample_source``, for moves within one
+        cluster: forward and backward share the likelihoods, weights heated
+        by 1/Tp, backward weights from the OLD clusters."""
+        return self._resample_engine_rows(
+            gen, state_old, clusters_new, obj_idx, valid, i_fwd=i_cluster, i_back=i_cluster,
+            share_lh=True, heat=True, hc_back_from_old=True, counts=counts)
+
+    def gibbs_resample_source_jump_rows(self, gen, state_old, clusters_new, obj_idx, valid,
+                                        i_cluster_new, i_cluster_old, counts) -> SourceResample:
+        """Source resample of objects that jump from cluster ``i_cluster_old``
+        to ``i_cluster_new``: the forward draw under the target cluster's
+        effect, the backward density under the source cluster's (both from
+        the OLD state), unheated weights from the new clusters for both."""
+        return self._resample_engine_rows(
+            gen, state_old, clusters_new, obj_idx, valid, i_fwd=i_cluster_new,
+            i_back=i_cluster_old, share_lh=False, heat=False, hc_back_from_old=False,
+            counts=counts)
 
     def source_posterior_rows(self, clusters, weights, counts, obj_idx, feats_m, na_m,
                               hc_conf_m):

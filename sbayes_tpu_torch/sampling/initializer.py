@@ -1,13 +1,16 @@
 """Initial samples: annealed EM soft clustering, refinement, best of attempts.
 
 Port of the ``em`` method of ``sbayes_tpu/sampling/initializer.py``,
-batched over chains: annealed EM over clusters and confounder groups, a
+batched over chains: annealed EM over clusters and confounder groups (with
+the geo term under a cost-based geo prior), a
 discretization with a per-cluster minimum size and a truncated-normal total
 size, a prior source draw followed by a full Gibbs source step, two rounds of
 ML cluster steps with a weights re-estimate between them, and the best of
 ``attempts`` by likelihood (the likelihood kernel on CUDA).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -40,7 +43,7 @@ class Initializer:
 
         self.factory = OperatorFactory(cond)
         self.full_source_op = self.factory.make_gibbs_sample_source("all", max_size=10 ** 9)
-        self.ml_step = self.factory.make_ml_cluster_step()
+        self.ml_step = self.factory.make_ml_cluster_step(consider_geo=True)
 
         c = self.consts
         rows = [torch.ones((c.K, c.N), dtype=torch.bool, device=c.device)]
@@ -66,6 +69,7 @@ class Initializer:
         z = z / torch.clamp(z.sum(1, keepdim=True), min=1e-35)
         f_ar = torch.arange(c.F, device=dev)[None]
         feat_idx = c.feat_idx.long()                                    # (N, F), S = NA
+        geo_on = c.geo.prior_type == "cost_based"
 
         for i_step in range(self.n_em_steps):
             state_counts = torch.einsum("bgn,nfs->bgfs", z, c.features)
@@ -74,8 +78,17 @@ class Initializer:
             p_obs = torch.cat([p, p.sum(-1, keepdim=True)], dim=-1)[:, :, f_ar, feat_idx]
             group_lls = torch.log(torch.clamp(p_obs, min=1e-35)).sum(-1)   # (n, G, N)
             temperature = (self.n_em_steps / (1.0 + i_step)) ** 3
-            lh = torch.where(avail, group_lls / temperature,
-                             torch.full((), float("-inf"), device=dev))
+            lh = group_lls / temperature
+            if geo_on:
+                # Geo term: the mean cost from each object to a group's
+                # (sharpened) members; confounder groups get the clusters' mean.
+                avg_dist = torch.softmax(N * z, dim=2) @ c.cost_matrix
+                log_geo = -avg_dist / c.geo.scale / 2.0
+                mean_cluster_geo = (torch.logsumexp(log_geo[:, :K].reshape(n, -1), dim=-1)
+                                    - math.log(K * N))
+                log_geo[:, K:] = mean_cluster_geo[:, None, None]
+                lh = lh + log_geo
+            lh = torch.where(avail, lh, torch.full((), float("-inf"), device=dev))
             z = torch.softmax(lh, dim=1)
         return self._discretize_fuzzy_clusters(z, total_size)
 

@@ -76,7 +76,11 @@ def make_mh_apply_fn(cond: Conditionals, op_specs: Sequence[OperatorSpec]) -> Ca
         if spec.changes == "clusters":
             ll, d_ll = candidate_log_lh(old, cand, ll_delta)
             pp[:, PRIOR_SIZE] = post.size_prior(cand.clusters)
-            pp[:, PRIOR_GEO] = post.geo_prior_per_cluster(cand.clusters).sum(-1)
+            # The operator re-derived the aggregates of the clusters it
+            # changed: the geo prior is a map over the carried triples.
+            pp[:, PRIOR_GEO] = (
+                post.geo_prior_per_cluster(cand.clusters) if cand.geo_agg is None
+                else post.geo_prior_from_agg(cand.clusters, cand.geo_agg)).sum(-1)
         elif spec.changes == "source":
             ll, d_ll = candidate_log_lh(old, cand, ll_delta)
         elif spec.changes == "weights":

@@ -1,15 +1,19 @@
 """The MCMC operators of the default schedule, batched over chains.
 
-Port of the scheduled K = 1 operators of ``sbayes_tpu/sampling/operators.py``: grow/shrink
-(naive and Gibbsish), the wide membership resample, the initializer's ML
-cluster step, source Gibbs resampling (random subset, groups, all) and the
-weights Gibbs step. Each operator is ``op(gen, state) -> OpResult`` on a
+Port of the scheduled operators of ``sbayes_tpu/sampling/operators.py``:
+grow/shrink (naive and Gibbsish), the wide membership resample, the jump of
+one object between two clusters (K >= 2), the initializer's ML cluster
+step, source Gibbs resampling (random subset, groups, all) and the weights
+Gibbs step. Each operator is ``op(gen, state) -> OpResult`` on a
 batch of chains; one operator runs for the whole batch per step. Sentinel
 transition probabilities force acceptance (Gibbs: log_q = -inf,
 log_q_back = 0) or rejection (log_q = 0, log_q_back = -inf).
 
-The membership marginal of the Gibbsish operators runs the CUDA kernel of
-``ops/marginal.py`` on CUDA tensors (``_marginal_impl``).
+The membership marginal of the Gibbsish operators and of the jump runs the
+CUDA kernel of ``ops/marginal.py`` on CUDA tensors (``_marginal_impl``,
+``make_cluster_jump``). Under a cost-based geo prior every cluster operator
+re-derives the carried skeleton aggregates of the clusters it changed
+(``_update_geo``).
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import torch
 
 from sbayes_tpu_torch.model.math import (
     compact_indices,
+    conditional_effect_mean,
     dirichlet_categorical_delta,
     gather_cols,
     gather_rows,
@@ -58,6 +63,12 @@ def _gumbel(gen, shape, device):
     """Standard Gumbel noise (uniforms clamped away from 0)."""
     u = torch.rand(shape, generator=gen, device=device)
     return -torch.log(-torch.log(torch.clamp(u, min=torch.finfo(torch.float32).tiny)))
+
+
+def _random_cluster_pair(gen, n_chains: int, n_clusters: int, device):
+    """Per chain a random ordered pair (i_src, i_tgt) of distinct clusters."""
+    perm = torch.argsort(torch.rand((n_chains, n_clusters), generator=gen, device=device), dim=-1)
+    return perm[:, 0], perm[:, 1]
 
 
 def _heat_prob(p, temperature):
@@ -126,12 +137,19 @@ class OperatorFactory:
         return self._marginal_impl(state, i_cluster, counts, heat_effect_lh, ratio=False)
 
     def _cluster_posterior(self, state, i_cluster, gibbsish=True, counts=None,
-                           additive_smoothing=1e-6, heat_effect_lh=False):
-        """(B, N) membership probability of each object."""
+                           additive_smoothing=1e-6, heat_effect_lh=False,
+                           consider_geo=False, geo_scaler=1.0):
+        """(B, N) membership probability of each object; with
+        ``consider_geo`` the log-odds gain the geo-prior change of adding
+        the object (from the carried aggregates when the state has them)."""
         B, N = state.clusters.shape[0], self.consts.N
         if self.sample_from_prior or not gibbsish:
             return torch.full((B, N), 0.5, device=state.clusters.device)
         odds = self._cluster_log_odds(state, i_cluster, counts, heat_effect_lh)
+        if consider_geo:
+            geo = self.cond.post.geo_prior_costs_per_object(state.clusters, i_cluster,
+                                                            geo_agg=state.geo_agg)
+            odds = odds + geo / self.Tp / geo_scaler
         p = torch.sigmoid(odds)
         if additive_smoothing > 0:
             a = additive_smoothing
@@ -177,6 +195,20 @@ class OperatorFactory:
                  - torch.einsum("bmp,bmx->bpx", oh_old, old_rows.reshape(B, m, -1).float()))
         return pat_counts + delta.view(pat_counts.shape)
 
+    def _update_geo(self, geo_agg, clusters_new, *changed_clusters):
+        """The carried (B, K, 3) skeleton aggregates with the rows of the
+        changed clusters (each a (B,) index) re-derived from ``clusters_new``:
+        one skeleton call for all of them. None when geo is not carried."""
+        if geo_agg is None:
+            return None
+        ar = torch.arange(clusters_new.shape[0], device=clusters_new.device)
+        masks = torch.cat([clusters_new[ar, i] for i in changed_clusters])
+        triples = self.cond.post.skeleton_triple(masks).view(len(changed_clusters), -1, 3)
+        geo_agg = geo_agg.clone()
+        for i, triple in zip(changed_clusters, triples):
+            geo_agg[ar, i] = triple
+        return geo_agg
+
     def _grow_candidates(self, clusters, i_cluster, neighbourhood: str):
         """(B, N) growth candidates of cluster ``i_cluster``."""
         occ = clusters.any(dim=1)
@@ -192,7 +224,8 @@ class OperatorFactory:
     # AlterCluster: grow or shrink one object (naive and Gibbsish)
     # ==================================================================
 
-    def make_alter_cluster(self, gibbsish: bool, neighbourhood: str) -> Callable:
+    def make_alter_cluster(self, gibbsish: bool, neighbourhood: str,
+                           consider_geo: bool = False) -> Callable:
         """Grow or shrink one cluster by one object.
 
         Divergence from the JAX package: there the proposal densities always
@@ -227,7 +260,8 @@ class OperatorFactory:
 
             counts = self._state_counts(state)
             grow_cand = self._grow_candidates(state.clusters, i_cluster, neighbourhood)
-            p_post = _heat_prob(self._cluster_posterior(state, i_cluster, gibbsish, counts), T)
+            p_post = _heat_prob(self._cluster_posterior(state, i_cluster, gibbsish, counts,
+                                                        consider_geo=consider_geo), T)
             zero = torch.zeros((), device=dev)
             p_vec = torch.where(do_grow[:, None], torch.where(grow_cand, p_post, zero),
                                 torch.where(cluster, 1.0 - p_post, zero))
@@ -252,14 +286,15 @@ class OperatorFactory:
             pat_new = self._delta_pat(
                 state.pat_counts, obj_idx, valid, state.clusters[ar, :, obj].any(-1)[:, None],
                 clusters_new[ar, :, obj].any(-1)[:, None], src_obj, rs.new_rows)
-            state_new = state._replace(clusters=clusters_new, pat_counts=pat_new,
-                                       cl_counts=cl_new, conf_counts=conf_new)
+            state_new = state._replace(
+                clusters=clusters_new, pat_counts=pat_new, cl_counts=cl_new, conf_counts=conf_new,
+                geo_agg=self._update_geo(state.geo_agg, clusters_new, i_cluster))
 
             back_grow_cand = self._grow_candidates(clusters_new, i_cluster, neighbourhood)
             rejected = rejected | (~do_grow & ~back_grow_cand[ar, obj])
             new_cluster = _pick_cluster(clusters_new, i_cluster)
             p_back = _heat_prob(self._cluster_posterior(state_new, i_cluster, gibbsish,
-                                                        counts_new), T)
+                                                        counts_new, consider_geo=consider_geo), T)
             pb_vec = torch.where(do_grow[:, None], torch.where(new_cluster, 1.0 - p_back, zero),
                                  torch.where(back_grow_cand, p_back, zero))
             p_bwd = pb_vec / torch.clamp(pb_vec.sum(-1), min=TINY)[:, None]
@@ -283,7 +318,8 @@ class OperatorFactory:
     # AlterClusterWide: resample the whole membership vector of one cluster
     # ==================================================================
 
-    def _make_wide_cluster_probs(self, w_stay: float, eps: float) -> Callable:
+    def _make_wide_cluster_probs(self, w_stay: float, eps: float, consider_geo: bool = False,
+                                 geo_scaler: float = 2.0) -> Callable:
         """(B, N) Bernoulli proposal probabilities of the wide operator:
         the posterior mixed with the current cluster, rescaled so the
         expected proposal size matches the current size."""
@@ -292,7 +328,8 @@ class OperatorFactory:
             cluster = _pick_cluster(state.clusters, i_cluster)
             availf = avail.float()
             p_raw = self._cluster_posterior(state, i_cluster, counts=counts,
-                                            additive_smoothing=0.0, heat_effect_lh=True)
+                                            additive_smoothing=0.0, heat_effect_lh=True,
+                                            consider_geo=consider_geo, geo_scaler=geo_scaler)
             p_raw = p_raw * availf
             p = (p_raw + EPS32) / torch.clamp((p_raw + EPS32 * availf).sum(-1, keepdim=True),
                                               min=TINY) * availf
@@ -312,7 +349,8 @@ class OperatorFactory:
 
         return cluster_probs
 
-    def make_alter_cluster_wide(self, w_stay: float = 0.15, eps: float = None) -> Callable:
+    def make_alter_cluster_wide(self, consider_geo: bool = False, w_stay: float = 0.15,
+                                eps: float = None, geo_scaler: float = 2.0) -> Callable:
         """Resample the full membership of one cluster (redraw until the
         proposal differs, at most 100 rounds) with a gathered-rows source
         resample over the changed objects."""
@@ -321,7 +359,7 @@ class OperatorFactory:
         min_size, max_size = self.consts.min_size, self.consts.max_size
         if eps is None:
             eps = 0.01 / N
-        cluster_probs = self._make_wide_cluster_probs(w_stay, eps)
+        cluster_probs = self._make_wide_cluster_probs(w_stay, eps, consider_geo, geo_scaler)
 
         def op(gen, state):
             B = state.n_chains
@@ -377,8 +415,10 @@ class OperatorFactory:
             pat_new = self._delta_pat(
                 state.pat_counts, obj_idx, valid, gather_cols(state.clusters, obj_idx).any(1),
                 gather_cols(clusters_new, obj_idx).any(1), src_rows_old, rs.new_rows)
-            state_new = state._replace(clusters=clusters_new, pat_counts=pat_new,
-                                       cl_counts=counts_new[0], conf_counts=counts_new[1])
+            state_new = state._replace(
+                clusters=clusters_new, pat_counts=pat_new, cl_counts=counts_new[0],
+                conf_counts=counts_new[1],
+                geo_agg=self._update_geo(state.geo_agg, clusters_new, i_cluster))
 
             p_back = cluster_probs(state_new, i_cluster, avail, counts_new)
             log_q_back = site_logp(p_back, cluster_old) - torch.log1p(
@@ -392,13 +432,14 @@ class OperatorFactory:
 
         return op
 
-    def make_ml_cluster_step(self, w_stay: float = 0.1, eps: float = 1e-6) -> Callable:
+    def make_ml_cluster_step(self, consider_geo: bool = True, w_stay: float = 0.1,
+                             eps: float = 1e-6, geo_scaler: float = 2.0) -> Callable:
         """Deterministic maximum-likelihood cluster step of the initializer:
         threshold the wide proposal probabilities at the current size.
         Returns ``step(gen, state, i_cluster)`` for an int ``i_cluster``."""
         cond = self.cond
         consts = self.consts
-        cluster_probs = self._make_wide_cluster_probs(w_stay, eps)
+        cluster_probs = self._make_wide_cluster_probs(w_stay, eps, consider_geo, geo_scaler)
 
         def ml_step(gen, state, i_cluster: int):
             B = state.n_chains
@@ -420,7 +461,9 @@ class OperatorFactory:
             clusters_new[:, i_cluster] = cluster_new
             changed = cluster_old != cluster_new
             rs = cond.gibbs_resample_source(gen, state, clusters_new, changed, ic)
-            state_new = state._replace(clusters=clusters_new, source=rs.source)
+            state_new = state._replace(
+                clusters=clusters_new, source=rs.source,
+                geo_agg=self._update_geo(state.geo_agg, clusters_new, ic))
             if state.cl_counts is not None:
                 cl, conf = cond.post.feature_counts(clusters_new, rs.source)
                 state_new = state_new._replace(cl_counts=cl, conf_counts=conf)
@@ -430,6 +473,108 @@ class OperatorFactory:
             return state_new
 
         return ml_step
+
+    # ==================================================================
+    # ClusterJump: move one object between two clusters
+    # ==================================================================
+
+    def _jump_probability(self, state, counts, i_src, i_tgt, logspace: bool):
+        """(B, N) probability that each member of cluster ``i_src`` (B,)
+        prefers cluster ``i_tgt`` (B,); meaningful at the members of i_src.
+
+        One launch of the marginal kernel scores both memberships: effect
+        rows [source, target], ``hc_flip = hc`` and ``incl = 1``, so the
+        "with" marginal is staying and the "without" marginal is the jump.
+        ``logspace``: sigmoid((log m_jump - log m_stay) / T) from the
+        two-effect ratio form; else both marginals are exponentiated in f32
+        and floored at EPS (products that underflow give 0.5)."""
+        c = self.consts
+        cl_counts, conf_counts = counts
+
+        def effect(i):
+            return conditional_effect_mean(c.conc_cluster[None], _pick_cluster(cl_counts, i),
+                                           c.unif_conc[None], self.Tp, self.T)
+
+        p_eff = torch.stack([effect(i_src), effect(i_tgt)], dim=1).contiguous()
+        conf_eff = conditional_effect_mean(c.conc_conf[None], conf_counts,
+                                           c.unif_conc[None, None, None], self.Tp, self.T)
+        hc = self.cond.post.has_components(state.clusters).float()
+        wh = state.weights ** (1.0 / self.Tp)
+        incl = torch.ones(hc.shape[:2], device=hc.device)
+        if logspace:
+            diff = marginal(c, p_eff, conf_eff, wh, hc, hc, incl, None, ratio=True, two_eff=True)
+            return torch.sigmoid(-diff / self.T)
+        out = marginal(c, p_eff, conf_eff, wh, hc, hc, incl, None, ratio=False)
+        lh_jump = torch.exp(out[..., 0] / self.T) + EPS32
+        lh_stay = torch.exp(out[..., 1] / self.T) + EPS32
+        return lh_jump / (lh_jump + lh_stay)
+
+    def make_cluster_jump(self, gibbsish: bool = True, logspace: Optional[bool] = None) -> Callable:
+        """Move one object from a random cluster to another random cluster
+        (per chain a random ordered pair), chosen among the source cluster's
+        members by how much each prefers the target, with a resample of its
+        source row. Rejected when the source cluster is at its minimum or
+        the target at its maximum size. ``logspace`` picks the form of
+        ``_jump_probability`` (default: log-space from 512 features on, where
+        the f32 products underflow)."""
+        cond = self.cond
+        consts = self.consts
+        K, N = consts.K, consts.N
+        if logspace is None:
+            logspace = consts.F >= 512
+        informed = gibbsish and not self.sample_from_prior
+
+        def op(gen, state):
+            B = state.n_chains
+            dev = state.clusters.device
+            ar = torch.arange(B, device=dev)
+            i_src, i_tgt = _random_cluster_pair(gen, B, K, dev)
+            source_cluster = _pick_cluster(state.clusters, i_src)
+            target_cluster = _pick_cluster(state.clusters, i_tgt)
+            rejected = ((source_cluster.sum(-1) <= consts.min_size)
+                        | (target_cluster.sum(-1) >= consts.max_size))
+
+            counts = self._state_counts(state)
+            ones = torch.ones((B, N), device=dev)
+            zero = torch.zeros((), device=dev)
+            pj = self._jump_probability(state, counts, i_src, i_tgt, logspace) if informed else ones
+            pj_vec = torch.where(source_cluster, pj, zero)
+            p_jump = pj_vec / torch.clamp(pj_vec.sum(-1, keepdim=True), min=TINY)
+
+            obj = _masked_categorical(gen, pj_vec, source_cluster)
+            clusters_new = state.clusters.clone()
+            clusters_new[ar, i_src, obj] = False
+            clusters_new[ar, i_tgt, obj] = True
+            obj_idx = obj[:, None]
+            valid = torch.ones((B, 1), dtype=torch.bool, device=dev)
+            rs = cond.gibbs_resample_source_jump_rows(
+                gen, state, clusters_new, obj_idx, valid, i_cluster_new=i_tgt,
+                i_cluster_old=i_src, counts=counts)
+            src_obj = gather_rows(state.source, obj_idx)                       # (B, 1, F, C)
+            cl_new, conf_new, ll_d = self._delta_counts(
+                counts, obj, state.clusters, clusters_new, src_obj[:, 0], rs.new_rows[:, 0])
+            pat_new = self._delta_pat(
+                state.pat_counts, obj_idx, valid, state.clusters[ar, :, obj].any(-1)[:, None],
+                clusters_new[ar, :, obj].any(-1)[:, None], src_obj, rs.new_rows)
+            state_new = state._replace(
+                clusters=clusters_new, pat_counts=pat_new, cl_counts=cl_new, conf_counts=conf_new,
+                geo_agg=self._update_geo(state.geo_agg, clusters_new, i_src, i_tgt))
+
+            # The reverse move: the object jumps back from the target.
+            pjb = (self._jump_probability(state_new, (cl_new, conf_new), i_tgt, i_src, logspace)
+                   if informed else ones)
+            pjb_vec = torch.where(_pick_cluster(clusters_new, i_tgt), pjb, zero)
+            p_jump_back = pjb_vec / torch.clamp(pjb_vec.sum(-1, keepdim=True), min=TINY)
+
+            log_q = torch.log(torch.clamp(p_jump[ar, obj], min=TINY)) + rs.log_q
+            log_q_back = torch.log(torch.clamp(p_jump_back[ar, obj], min=TINY)) + rs.log_q_back
+            log_q, log_q_back, sp_d, ll_d = _reject_where(
+                rejected, log_q, log_q_back, rs.source_prior_delta, ll_d)
+            rows = (torch.where(rejected, N, obj)[:, None], rs.new_rows)
+            return OpResult(state_new, log_q, log_q_back, torch.ones(B, device=dev),
+                            source_prior_delta=sp_d, ll_delta=ll_d, source_rows=rows)
+
+        return op
 
     # ==================================================================
     # GibbsSampleSource
@@ -607,19 +752,19 @@ class OperatorSpec(NamedTuple):
 
 def get_operator_schedule(cond: Conditionals, operators_config,
                           p_grow: float = 0.5) -> list[OperatorSpec]:
-    """The scheduled operators with the JAX package's weights (normalized).
-
-    The inter-cluster jump (weight 0 at K = 1) and the cost-based geo
-    variants belong to a later slice."""
+    """The scheduled operators with the JAX package's names and weights
+    (normalized): the cluster share splits 0.025 / 0.025 / 0.025 / 0.025 /
+    0.6 / 0.05 / 0.25 over the naive, Gibbsish, wide and jump operators (the
+    jump only with more than one cluster), the source share 0.4 / 0.6 over
+    the random-subset and per-group resamples. Under a cost-based geo prior
+    the main Gibbsish and the wide operator weight their proposals by it;
+    the naive operators never do, whatever their names."""
     factory = OperatorFactory(cond, p_grow=p_grow)
     consts = cond.consts
-    if consts.K > 1:
-        raise NotImplementedError(
-            "K >= 2 needs the cluster jump operator, which is not ported yet (K >= 2 slice)")
+    geo_on = consts.geo.prior_type == "cost_based"
     w_c = operators_config.clusters
     w_w = operators_config.weights
     w_s = operators_config.source
-    geo_on = False   # the uniform geo prior: no geo-weighted proposals
 
     ops = [
         OperatorSpec("cluster_naive_n1", 0.025 * w_c,
@@ -635,11 +780,15 @@ def get_operator_schedule(cond: Conditionals, operators_config,
                      factory.make_alter_cluster(gibbsish=True, neighbourhood="everywhere"),
                      "clusters"),
         OperatorSpec("cluster_gibbsish_geo", 0.6 * w_c,
-                     factory.make_alter_cluster(gibbsish=True, neighbourhood="everywhere"),
+                     factory.make_alter_cluster(gibbsish=True, neighbourhood="everywhere",
+                                                consider_geo=geo_on),
                      "clusters", {"geo": geo_on}),
         OperatorSpec("gibbsish_sample_cluster_wide_geo", 0.05 * w_c,
-                     factory.make_alter_cluster_wide(),
+                     factory.make_alter_cluster_wide(consider_geo=geo_on),
                      "clusters", {"geo": geo_on, "w_stay": 0.15}),
+        OperatorSpec("cluster_jump_gibbsish", 0.25 * w_c if consts.K > 1 else 0.0,
+                     factory.make_cluster_jump(gibbsish=True),
+                     "clusters"),
         OperatorSpec("gibbs_sample_sources", 0.4 * w_s,
                      factory.make_gibbs_sample_source("random_subset", max_size=20),
                      "source", {"object_selector": "RANDOM_SUBSET", "max_step_size": 20}),

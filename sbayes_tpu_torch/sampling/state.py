@@ -29,7 +29,7 @@ class ChainState(NamedTuple):
     prior_parts: torch.Tensor              # f32 (B, 4) [size, geo, weights, source]
     cl_counts: Optional[torch.Tensor] = None    # f32 (B, K, F, S), exact integers
     conf_counts: Optional[torch.Tensor] = None  # f32 (B, C-1, Gmax, F, S)
-    geo_agg: Optional[torch.Tensor] = None      # carried geo aggregates (not ported yet)
+    geo_agg: Optional[torch.Tensor] = None      # f32 (B, K, 3) [total, n_edges, max_edge]
     pat_counts: Optional[torch.Tensor] = None   # f32 (B, P, F, C)
 
     @property

@@ -97,11 +97,15 @@ def synthetic_config(
     geo_prior: str = "uniform",
     rate: float = 1e6,
     confounders: tuple = ("universal", "family"),
+    aggregation: str = "mean",
+    skeleton: str = "mst",
 ) -> SBayesConfig:
-    """A config dict matching the synthetic data (no files involved)."""
+    """A config dict matching the synthetic data (no files involved).
+    ``rate``, ``aggregation`` (mean | sum | max) and ``skeleton`` belong to
+    the cost-based geo prior."""
     geo = {"type": geo_prior}
     if geo_prior == "cost_based":
-        geo.update({"rate": rate, "aggregation": "mean"})
+        geo.update({"rate": rate, "aggregation": aggregation, "skeleton": skeleton})
     cfg = {
         "data": {"features": __file__, "feature_states": __file__},  # placeholders, not read
         "model": {

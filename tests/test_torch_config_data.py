@@ -109,7 +109,8 @@ def test_fixture_data_equals_jax(fixture_dir):
 
 
 ARRAYS = ("features", "na", "applicable", "n_states_per_feature", "groups", "group_valid",
-          "hc_conf", "conc_cluster", "unif_conc", "conc_conf", "conc_weights", "adjacency",
+          "hc_conf", "conc_cluster", "unif_conc", "conc_conf", "conc_weights", "cost_matrix",
+          "adjacency",
           "locations", "static_pat", "pat_bits")
 
 
@@ -162,16 +163,40 @@ def test_synthetic_constants_equal_jax(n_clusters):
     _assert_constants_equal(c, jax_build(jax_data(**kw), jax_config(n_clusters).model))
 
 
-def test_cost_based_geo_is_refused(fixture_dir):
-    """The fixture config as it is (cost-based geo prior) belongs to a later
-    slice: building constants refuses it instead of falling back."""
+def test_fixture_cost_based_geo_builds_jax_constants(fixture_dir):
+    """The fixture config as it is (cost-based geo prior) builds the JAX
+    package's constants, cost matrix and geo settings included."""
+    from sbayes_tpu.config.schema import SBayesConfig as JaxConfig
+    from sbayes_tpu.data.loader import Data as JaxData
+    from sbayes_tpu.model.constants import build_model_constants as jax_build
     from sbayes_tpu_torch.config.schema import SBayesConfig
     from sbayes_tpu_torch.data.loader import Data
     from sbayes_tpu_torch.model.constants import build_model_constants
 
     cfg = SBayesConfig.from_config_file(fixture_dir / "config.yaml")
-    with pytest.raises(NotImplementedError, match="geo prior"):
-        build_model_constants(Data.from_config(cfg), cfg.model, device="cpu")
+    jcfg = JaxConfig.from_config_file(fixture_dir / "config.yaml")
+    c = build_model_constants(Data.from_config(cfg), cfg.model, device="cpu")
+    jc = jax_build(JaxData.from_config(jcfg), jcfg.model)
+    _assert_constants_equal(c, jc)
+    assert (c.geo.prior_type, c.geo.aggregation, c.geo.scale) == ("cost_based", "sum", 50000.0)
+    for f in c.geo.__dataclass_fields__:
+        assert getattr(c.geo, f) == getattr(jc.geo, f), f
+
+
+def test_cost_based_geo_is_refused(fixture_dir):
+    """What is still refused of the cost-based geo prior, as in the JAX
+    package: its ``diameter`` skeleton. Every other form runs."""
+    from sbayes_tpu_torch.config.schema import SBayesConfig
+    from sbayes_tpu_torch.data.loader import Data
+    from sbayes_tpu_torch.model.constants import build_model_constants
+    from sbayes_tpu_torch.model.posterior import Posterior
+
+    cfg = SBayesConfig.from_config_file(
+        fixture_dir / "config.yaml", {"model": {"prior": {"geo": {"skeleton": "diameter"}}}})
+    c = build_model_constants(Data.from_config(cfg), cfg.model, device="cpu")
+    post = Posterior(c)
+    with pytest.raises(NotImplementedError, match="diameter"):
+        post.geo_prior_per_cluster(torch.ones((1, 1, c.N), dtype=torch.bool))
 
 
 def test_cuda_device_without_card_raises():

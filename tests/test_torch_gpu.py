@@ -16,7 +16,9 @@ def test_kernels_match_plain_on_the_card():
     each within its stated tolerance) at the full-width shapes, at 400
     features (feature tiles), at the odd shape (plain-load path, objects in
     no family), with 2, 4 and 5 components and with more groups than the
-    default shared memory holds."""
+    default shared memory holds; the absolute and two-effect variants on the
+    inputs of the K = 3 jump, with their launches on the K = 3 path and in
+    the jump at 512 features."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     sys.path.insert(0, str(ROOT))
@@ -24,7 +26,14 @@ def test_kernels_match_plain_on_the_card():
 
     rt, states, info = chip_smoke.phase_full_width(256, 200)
     assert info["launches"]["loglh"] > 0 and info["launches"]["marginal"] > 0
-    rows = chip_smoke.phase_kernels(rt, states, info["launches"])
+    rt_k3, states_k3, info_k3 = chip_smoke.phase_full_width(256, 200, n_clusters=3,
+                                                            geo_prior="cost_based")
+    jump = chip_smoke.phase_jump_512(n_chains=32, n_steps=20)
+    by_path = {"k1": info["launches"], "k3": info_k3["launches"], "jump_512": jump["launches"]}
+    rows = chip_smoke.phase_kernels(rt, states, rt_k3, states_k3, by_path, jump["two_eff"])
+    by_name = {r["name"]: r for r in rows}
+    assert by_name["marginal_abs"]["launches_by_path"]["k3"] > 0
+    assert by_name["marginal_two_eff"]["launches_by_path"]["jump_512"] == 40
     assert {r["name"] for r in rows} == {"loglh", "marginal", "marginal_heat",
                                          "marginal_two_eff", "marginal_abs"}
     first = rows[0]
@@ -34,3 +43,28 @@ def test_kernels_match_plain_on_the_card():
     assert set(first["components"]) == {"C2", "C4", "C5"}
     assert first["many_groups"]["rows"] * 4 * 6 > 48 * 1024
     assert all(r["launch_floor_ms"] > 0 and r["device_floor_ms"] > 0 for r in rows)
+
+
+@pytest.mark.gpu
+def test_k3_geo_invariants_on_the_card():
+    """chip_smoke's K = 3 phase at 256 chains x 200 steps with the cost-based
+    geo prior: the carried skeleton aggregates equal ``geo_agg_of(clusters)``
+    within 1e-3 relative, the counts exactly, no object is in two clusters,
+    the jump (absolute marginal kernel) was launched and accepted sometimes;
+    then the jump alone at 512 features (two-effect ratio kernel)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    rt, states, info = chip_smoke.phase_full_width(256, 200, n_clusters=3,
+                                                   geo_prior="cost_based")
+    assert info["launches"]["marginal_abs"] > 0 and info["K"] == 3
+    assert states.geo_agg.shape == (256, 3, 3) and states.geo_agg.is_cuda
+    recomputed = rt.post.geo_agg_of(states.clusters)
+    torch.testing.assert_close(states.geo_agg, recomputed, rtol=1e-3, atol=0)
+    errs = info["carried_vs_recompute_max_abs"]
+    assert errs["cl_counts"] == errs["conf_counts"] == errs["pat_counts"] == 0.0
+    assert 0.0 < errs["jump_accept_rate"] < 1.0
+    jump = chip_smoke.phase_jump_512(n_chains=32, n_steps=20)
+    assert jump["launches"]["marginal_two_eff"] == 40 and jump["F"] == 512
