@@ -11,7 +11,18 @@
    both kernels must have been launched. Then ``main_path_k3``: the same
    through K = 3 with the cost-based geo prior (mean, rate 1e6): results
    under ``K3/``, three cluster columns, a geo-prior column that is not all
-   zero, and the absolute marginal (the jump) launched;
+   zero, and the absolute marginal (the jump) launched. Then
+   ``main_path_mc3``: ``cli.main`` with MC3 on (8 rungs, ``MC3_LADDER``, a
+   swap phase every 50 steps, best of 10 warm-ups per rung) at K = 3: the
+   cold rung's files, ``hot_chains/`` for rungs 1..7, the swap matrix, the
+   heat variant of the marginal launched, the swap acceptance overall
+   (strictly between 0 and 1) and per rung, the ladder's carried state after
+   the last swap against its recompute. Then ``resume``: ``cli.main`` for
+   1000 steps, then ``cli.main(..., resume=True)`` for 2000, of one chain
+   and of an MC3 ladder of four rungs: continuous sample ids in every
+   rung's stats file and the resumed run's carried state equal to its
+   recompute. These two phases run the CLI on JSON configs; its data load
+   returns ``synthetic_data()``;
 3. full width: ``SamplerRuntime.init_chains(CHAINS)``, STEPS steps in chunks of 200,
    an exact refresh; the carried log-likelihood / log-prior / counts must
    equal the recompute; one JSON line with the steps per second; then the
@@ -22,7 +33,12 @@
    carried skeleton aggregates must equal their recompute, no object may be
    in two clusters, every size must lie within its bounds and the jump must
    be accepted sometimes and not always; its time breakdown also holds one
-   ``_update_geo`` (the batched Prim): launches and wall time. Then ``jump_512``:
+   ``_update_geo`` (the batched Prim): launches and wall time. Then
+   ``full_width_mc3``: the K = 3 phase again with the 8 temperatures of
+   ``MC3_LADDER``, each on an eighth of the chains (no swaps): per-chain
+   temperatures, the wide operator through the heat variant, with
+   ``full_width_k3``'s steps/s, kernels per step and busy share beside its
+   own. Then ``jump_512``:
    64 chains, 512 features, K = 2, the jump alone for 50 MH steps, so that
    the two-effect ratio marginal (the log-space jump) is launched by an
    operator; the same invariants;
@@ -39,8 +55,10 @@
    default; the absolute and two-effect variants are timed on the inputs
    the jump gives them at K = 3 (two clusters' effects, ``hc_flip = hc``,
    ``incl = 1``), the likelihood also on the K = 3 states, the two-effect
-   variant also at ``jump_512``'s shapes; one ``kernels`` JSON line,
-   ``launches`` summed over the three driven paths (``launches_by_path``).
+   variant also at ``jump_512``'s shapes, the heat variant also on the
+   ``full_width_mc3`` states at their per-chain temperatures (``"mc3"``);
+   one ``kernels`` JSON line, ``launches`` summed over the four driven
+   paths (``launches_by_path``).
    ``ms``, ``plain_ms`` and ``launch_floor_ms`` time eager calls with
    CUDA events; ``device_ms`` and ``device_floor_ms`` time the same launches
    replayed from a CUDA graph, where the host dispatches nothing;
@@ -57,8 +75,10 @@ import sys
 import tempfile
 import time
 import warnings
+from contextlib import contextmanager
 from pathlib import Path
 
+import numpy as np
 import torch
 
 H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
@@ -68,6 +88,7 @@ CHAINS = 1024                    # bench.py's chain count
 STEPS = 1000
 STEPS_K3 = 600
 GEO_K3 = {"type": "cost_based", "rate": 1e6, "aggregation": "mean"}   # bench.py's geo model
+MC3_LADDER = {"chains": 8, "temperature_diff": 0.1}                    # rungs of the MC3 phases
 LOGLH_TOL_REL = 1e-5             # lgammaf vs torch.lgamma, summation order (of the total)
 MARGINAL_TOL_ABS = 1e-4          # 36 logs summed in another order (per object)
 MARGINAL_TOL_FEATURES = 36       # wider data: the tolerance grows with the logs summed
@@ -79,9 +100,11 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def smoke_config(path: Path, results: Path, n_clusters: int = 1, geo: dict = None) -> Path:
+def smoke_config(path: Path, results: Path, n_clusters: int = 1, geo: dict = None,
+                 mcmc: dict = None, name: str = None) -> Path:
     """A model configuration as a JSON config file (default: K = 1, uniform
-    geo); the data come from ``synthetic_data`` (the data paths are not read)."""
+    geo; ``mcmc`` updates the MCMC section); the data come from
+    ``synthetic_data`` (the data paths are not read)."""
     placeholder = path / "features.csv"
     placeholder.write_text("id\n")
     cfg = {
@@ -106,7 +129,8 @@ def smoke_config(path: Path, results: Path, n_clusters: int = 1, geo: dict = Non
         },
         "results": {"path": str(results), "log_likelihood": False, "log_file": False},
     }
-    cfg_path = path / f"config_K{n_clusters}.json"
+    cfg["mcmc"].update(mcmc or {})
+    cfg_path = path / f"{name or f'config_K{n_clusters}'}.json"
     cfg_path.write_text(json.dumps(cfg))
     return cfg_path
 
@@ -150,7 +174,7 @@ def phase_main_path(tmp: Path, n_clusters: int = 1, geo: dict = None) -> dict:
     for r in runs:
         for prefix, suffix in [("stats", "txt"), ("clusters", "txt"),
                                ("operator_stats", "txt"), ("state", "pickle")]:
-            f = mcmc.get_results_file_path(prefix, r, suffix)
+            f = mcmc.get_results_file_path(prefix, r, suffix=suffix)
             if not f.is_file():
                 raise AssertionError(f"missing results file {f}")
         lines = mcmc.get_results_file_path("stats", r).read_text().splitlines()
@@ -180,6 +204,151 @@ def phase_main_path(tmp: Path, n_clusters: int = 1, geo: dict = None) -> dict:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
     return {"runs": len(runs), "K": n_clusters, "geo": geo or {"type": "uniform"},
             "wall_s": wall, "launches": launches}
+
+
+@contextmanager
+def synthetic_data_for_cli():
+    """``cli.main`` loads the data files its config names; they stay
+    placeholders here (the chip machine has no pandas), and the data come
+    from ``synthetic_data`` instead."""
+    from sbayes_tpu_torch.data.loader import Data
+    from sbayes_tpu_torch.testing import synthetic_data
+
+    saved = Data.__dict__["from_experiment"]
+    Data.from_experiment = classmethod(lambda cls, experiment: synthetic_data())
+    try:
+        yield
+    finally:
+        Data.from_experiment = saved
+
+
+@contextmanager
+def last_call(cls, name: str):
+    """Record the arguments and the result of the last call of method
+    ``name`` of ``cls`` (with its instance) in the yielded dict."""
+    orig = getattr(cls, name)
+    seen = {}
+
+    def wrapped(self, *args, **kw):
+        out = orig(self, *args, **kw)
+        seen.update(runtime=self, args=args, out=out)
+        return out
+
+    setattr(cls, name, wrapped)
+    try:
+        yield seen
+    finally:
+        setattr(cls, name, orig)
+
+
+def stats_column(path: Path, col: str) -> list:
+    lines = path.read_text().splitlines()
+    i = lines[0].split("\t").index(col)
+    return [line.split("\t")[i] for line in lines[1:]]
+
+
+def ladder_temperatures(n_chains: int):
+    """The temperatures of ``MC3_LADDER``'s rungs, each repeated for
+    ``n_chains / rungs`` consecutive chains, on the card."""
+    from sbayes_tpu_torch.config.schema import MC3Config
+    from sbayes_tpu_torch.sampling.runner import temperature_ladder
+
+    temps, _ = temperature_ladder(MC3Config.from_dict({"activate": True, **MC3_LADDER}))
+    return torch.as_tensor(temps, dtype=torch.float32, device=DEVICE).repeat_interleave(
+        n_chains // MC3_LADDER["chains"])
+
+
+def phase_main_path_mc3(tmp: Path) -> dict:
+    """``cli.main`` with ``mcmc.mc3.activate`` at K = 3, cost-based geo: the
+    cold rung's files, ``hot_chains/`` for rungs 1..7 and the swap matrix;
+    the heat variant of the marginal launched; the swap acceptance overall
+    (strictly between 0 and 1) and per rung; the ladder's carried state after
+    the last swap phase against its recompute."""
+    from sbayes_tpu_torch import cli
+    from sbayes_tpu_torch.sampling.runner import SamplerRuntime
+
+    n_rungs = MC3_LADDER["chains"]
+    mc3 = {"activate": True, "swap_interval": 50, **MC3_LADDER}
+    cfg_path = smoke_config(tmp, tmp / "results", 3, GEO_K3, name="config_mc3", mcmc={
+        "runs": 1, "mc3": mc3, "warmup": {"warmup_steps": 200, "warmup_chains": 10}})
+    reset_counters()
+    t0 = time.perf_counter()
+    with synthetic_data_for_cli(), last_call(SamplerRuntime, "run_mc3_chunk") as seen:
+        cli.main(cfg_path, experiment_name="smoke_mc3", device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counters()
+    out = tmp / "results" / "smoke_mc3" / "K3"
+    files = [out / "stats_K3_0.txt"] + [out / "hot_chains" / f"stats_K3_0.chain{c}.txt"
+                                       for c in range(1, n_rungs)]
+    for f in files:
+        if len(f.read_text().splitlines()) != 21:
+            raise AssertionError(f"{f.name}: not 20 samples")
+    if any(float(v) == 0.0 for v in stats_column(files[0], "geo_prior")):
+        raise AssertionError("MC3 cold rung: a geo_prior of 0 under the cost-based prior")
+    swaps = np.loadtxt(out / "mc3_swaps_K3_0.txt")
+    counts = seen["args"][6]                      # (2, n, n) accepts and attempts, cumulative
+    if swaps.shape != (n_rungs, n_rungs) or not swaps.sum() > 0 or (swaps != counts[0]).any():
+        raise AssertionError(f"swap matrix {swaps.shape}, sum {swaps.sum()}")
+    rate = float(counts[0].sum() / counts[1].sum())
+    if not 0.0 < rate < 1.0:
+        raise AssertionError(f"swap acceptance {rate}")
+    need = ["loglh", "marginal", "marginal_heat", "marginal_abs"]
+    if any(launches.get(k, 0) == 0 for k in need):
+        raise AssertionError(f"a kernel of the MC3 path never launched: {launches}")
+    rt = seen["runtime"]
+    states, stats = seen["out"][:2]
+    errs = check_carried_state(rt.consts, states, rt.refresh(states), stats,
+                               rt.op_names.index("cluster_jump_gibbsish"))
+    return {"K": 3, "rungs": n_rungs, "mc3": mc3, "wall_s": wall, "launches": launches,
+            "swap_accept_rate": rate, "swap_attempts": int(counts[1].sum()),
+            "swap_accept_rate_by_rung": {
+                f"{i}<->{i + 1}": float(counts[0, i, i + 1] / max(counts[1, i, i + 1], 1))
+                for i in range(n_rungs - 1)},
+            "carried_vs_recompute_max_abs": errs}
+
+
+def phase_resume(tmp: Path) -> dict:
+    """K = 3, cost-based geo: ``cli.main`` for 1000 steps / 10 samples, then
+    ``cli.main(..., resume=True)`` for 2000 / 20: 20 rows with continuous
+    sample ids and the resumed run's carried state equal to its recompute;
+    the same for an MC3 ladder of four rungs, each resuming from its pickle."""
+    from sbayes_tpu_torch import cli
+    from sbayes_tpu_torch.sampling.runner import SamplerRuntime
+
+    out = {}
+    for label, method, mc3 in (("single", "run_chunk", None),
+                               ("mc3", "run_mc3_chunk", {"activate": True, "chains": 4,
+                                                         "swap_interval": 50,
+                                                         "temperature_diff": 0.1})):
+        mcmc = {"runs": 1, "warmup": {"warmup_steps": 100, "warmup_chains": 4}}
+        if mc3:
+            mcmc["mc3"] = mc3
+        name = f"resume_{label}"
+        first = smoke_config(tmp, tmp / "results", 3, GEO_K3, name=f"{name}_first",
+                             mcmc={**mcmc, "steps": 1000, "samples": 10})
+        second = smoke_config(tmp, tmp / "results", 3, GEO_K3, name=f"{name}_second",
+                              mcmc={**mcmc, "steps": 2000, "samples": 20})
+        t0 = time.perf_counter()
+        with synthetic_data_for_cli():
+            cli.main(first, experiment_name=name, device=DEVICE)
+            with last_call(SamplerRuntime, method) as seen:
+                cli.main(second, experiment_name=name, resume=True, device=DEVICE)
+        torch.cuda.synchronize()
+        res = tmp / "results" / name / "K3"
+        files = [res / "stats_K3_0.txt"] + ([res / "hot_chains" / f"stats_K3_0.chain{c}.txt"
+                                             for c in range(1, mc3["chains"])] if mc3 else [])
+        for f in files:
+            ids = [int(v) for v in stats_column(f, "Sample")]
+            if ids != list(range(100, 2001, 100)):
+                raise AssertionError(f"{name}: {f.name} has samples {ids}")
+        rt = seen["runtime"]
+        states, stats = seen["out"][:2]
+        ref = rt.refresh(states)
+        out[label] = {"wall_s": time.perf_counter() - t0, "rows": len(files) * 20,
+                      "carried_vs_recompute_max_abs": check_carried_state(
+                          rt.consts, states, ref, stats)}
+    return out
 
 
 def check_carried_state(consts, states, ref, stats, jump_idx=None) -> dict:
@@ -228,8 +397,10 @@ def check_carried_state(consts, states, ref, stats, jump_idx=None) -> dict:
 
 
 def phase_full_width(n_chains: int, n_steps: int, n_clusters: int = 1,
-                     geo_prior: str = "uniform") -> tuple:
-    """init_chains(n) + n_steps steps in chunks of 200 + an exact refresh."""
+                     geo_prior: str = "uniform", temps=None) -> tuple:
+    """init_chains(n) + n_steps steps in chunks of 200 + an exact refresh;
+    ``temps`` (n,): per-chain likelihood and prior temperatures (an MC3
+    ladder's, without swaps), else unit temperatures."""
     from sbayes_tpu_torch.config.schema import MCMCConfig
     from sbayes_tpu_torch.model.model import Model
     from sbayes_tpu_torch.sampling.runner import SamplerRuntime, make_generators
@@ -251,7 +422,7 @@ def phase_full_width(n_chains: int, n_steps: int, n_clusters: int = 1,
     chunk = 200
     t0 = time.perf_counter()
     for _ in range(n_steps // chunk):
-        states, stats = rt.run_chunk(gen, op_gen, states, stats, chunk)
+        states, stats = rt.run_chunk(gen, op_gen, states, stats, chunk, temps, temps)
     torch.cuda.synchronize()
     t_run = time.perf_counter() - t0
     launches = counters()
@@ -260,12 +431,14 @@ def phase_full_width(n_chains: int, n_steps: int, n_clusters: int = 1,
     c = model.consts
     jump_idx = rt.op_names.index("cluster_jump_gibbsish") if n_clusters > 1 else None
     errs = check_carried_state(c, states, ref, stats, jump_idx)
-    need = ["loglh", "marginal"] + (["marginal_abs"] if n_clusters > 1 else [])
+    need = (["loglh", "marginal"] + (["marginal_abs"] if n_clusters > 1 else [])
+            + (["marginal_heat"] if temps is not None else []))
     if any(launches.get(k, 0) == 0 for k in need):
         raise AssertionError(f"a kernel was not launched at full width: {launches}")
     accepts, total = stats.accepts.sum(0).float(), (stats.accepts + stats.rejects).sum(0).float()
     info = {"chains": n_chains, "N": c.N, "F": c.F, "S": c.S, "C": c.C, "Gmax": c.Gmax,
             "K": c.K, "geo": geo_prior, "operators": rt.op_names,
+            "temperatures": None if temps is None else sorted(set(temps.tolist())),
             "accept_rate_by_operator": dict(zip(rt.op_names, (accepts / total).tolist())),
             "steps": n_steps, "init_s": t_init, "run_s": t_run,
             "steps_per_s": n_steps / t_run, "chain_steps_per_s": n_chains * n_steps / t_run,
@@ -277,30 +450,32 @@ def phase_full_width(n_chains: int, n_steps: int, n_clusters: int = 1,
     return rt, ref, info
 
 
-def phase_where_time_goes(rt, states, reps: int = 10) -> dict:
+def phase_where_time_goes(rt, states, reps: int = 10, temps=None) -> dict:
     """Per-operator wall time of one MH step of the whole batch (each
     operator alone, synchronised), and over a 50-step window of the schedule
-    the device-busy share and CUDA kernels per step from torch.profiler."""
+    the device-busy share and CUDA kernels per step from torch.profiler;
+    ``temps``: per-chain temperatures, as in ``phase_full_width``."""
     from sbayes_tpu_torch.sampling.runner import make_generators
 
     gen, op_gen = make_generators(11, DEVICE)
+    apply = rt.apply_fn(temps, temps)
     op_ms = {}
     for i, name in enumerate(rt.op_names):
-        st = rt._apply(i, gen, states)[0]
+        st = apply(i, gen, states)[0]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(reps):
-            st = rt._apply(i, gen, st)[0]
+            st = apply(i, gen, st)[0]
         torch.cuda.synchronize()
         op_ms[name] = (time.perf_counter() - t0) / reps * 1e3
     n_steps = 50
     stats = rt.new_stats(states.n_chains)
-    rt.run_chunk(gen, op_gen, states, stats, 5)
+    rt.run_chunk(gen, op_gen, states, stats, 5, temps, temps)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        rt.run_chunk(gen, op_gen, states, stats, n_steps)
+        rt.run_chunk(gen, op_gen, states, stats, n_steps, temps, temps)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
@@ -512,6 +687,28 @@ def jump_kernel_inputs(cond, states) -> dict:
             "inv_t": torch.full((B,), 1.0 / 1.3, device=hc.device)}
 
 
+def mc3_kernel_inputs(rt, states, temps) -> dict:
+    """The inputs the wide operator gives the heat variant under per-chain
+    temperatures ``temps`` (likelihood and prior), from the chains' own
+    state: the heated effect of cluster 0 (counts over T, concentration
+    over Tp), the weights to the power 1/Tp and ``inv_t = 1/T`` per chain."""
+    from sbayes_tpu_torch.model.math import conditional_effect_mean, normalize, per_chain
+
+    c = rt.consts
+    hc = rt.post.has_components(states.clusters)
+    hc_flip = hc.clone()
+    hc_flip[..., 0] = ~hc[..., 0]
+    p_eff = conditional_effect_mean(c.conc_cluster[None], states.cl_counts[:, 0],
+                                    c.unif_conc[None], temps, temps)
+    inv_t = 1.0 / temps
+    return {"clusters": states.clusters, "source": states.source, "p_eff": p_eff,
+            "p_other": normalize(torch.roll(p_eff, 1, dims=0) + 0.1),
+            "conf_eff": normalize(states.conf_counts + c.conc_conf[None]),
+            "wh": (states.weights ** per_chain(inv_t, states.weights)).contiguous(),
+            "hc": hc.float(), "hc_flip": hc_flip.float(), "incl": hc[..., 0].float(),
+            "inv_t": inv_t}
+
+
 def time_marginal_variant(c, inputs: dict, variant: tuple, n_chains: int) -> dict:
     """One marginal variant on ``inputs``: its error against the plain
     version, eager and device time, the plain version's time and the bound."""
@@ -693,13 +890,15 @@ def time_loglh(c, states) -> dict:
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "bytes": n_bytes}
 
 
-def phase_kernels(rt, states, rt_k3, states_k3, launches_by_path: dict,
-                  jump_512: dict) -> list:
+def phase_kernels(rt, states, rt_k3, states_k3, rt_mc3, states_mc3, temps_mc3,
+                  launches_by_path: dict, jump_512: dict) -> list:
     """Each kernel and marginal variant against its plain version, at the
     K = 1 path's shapes and inputs; the likelihood also on the K = 3 states,
-    and the absolute and two-effect variants on the inputs the K = 3 jump
-    gives them. ``launches_by_path``: the launch counts of each driven path;
-    ``jump_512``: the two-effect variant's timing at ``phase_jump_512``'s shapes."""
+    the absolute and two-effect variants on the inputs the K = 3 jump gives
+    them, the heat variant also on an MC3 batch's own states at its per-chain
+    ``temps_mc3``. ``launches_by_path``: the launch counts of each driven
+    path; ``jump_512``: the two-effect variant's timing at
+    ``phase_jump_512``'s shapes."""
     from sbayes_tpu_torch.ops import marginal
 
     c = rt.consts
@@ -711,6 +910,8 @@ def phase_kernels(rt, states, rt_k3, states_k3, launches_by_path: dict,
              for name in ["loglh"] + [marginal.variant_name(*v) for v in marginal.VARIANTS]}
     inputs_k3 = jump_kernel_inputs(rt_k3.cond, states_k3)
     errs_k3 = compare_with_plain(rt_k3.consts, inputs_k3)
+    inputs_mc3 = mc3_kernel_inputs(rt_mc3, states_mc3, temps_mc3)
+    errs_mc3 = compare_with_plain(rt_mc3.consts, inputs_mc3)
 
     # Kernel 1: collapsed likelihood.
     entry = {"name": "loglh", "route": "cuda", "source": "sbayes_tpu_torch/csrc/loglh.cu",
@@ -736,9 +937,15 @@ def phase_kernels(rt, states, rt_k3, states_k3, launches_by_path: dict,
                  "replaces": "sbayes_tpu/ops/pallas_marginal.py:178",
                  "launches": sum(paths[name].values()), "launches_by_path": paths[name],
                  **timed, "inputs": "k3_jump" if of_jump else "k1_gibbsish", **floor}
-        entry["max_abs_err"] = max(entry["max_abs_err"], errs[name], errs_k3[name])
+        entry["max_abs_err"] = max(entry["max_abs_err"], errs[name], errs_k3[name],
+                                   errs_mc3[name])
         if variant == (True, False, True):
             entry["jump_512"] = jump_512
+        if variant == (True, True, False):
+            entry["mc3"] = {**time_marginal_variant(rt_mc3.consts, inputs_mc3, variant,
+                                                    states_mc3.n_chains),
+                            "inputs": "mc3", "K": rt_mc3.consts.K,
+                            "temperatures": sorted(set(temps_mc3.tolist())), **floor}
         out.append(entry)
     return out
 
@@ -763,6 +970,9 @@ def main() -> int:
         print(json.dumps({"phase": "main_path", **main_path}), flush=True)
         main_path_k3 = phase_main_path(Path(tmp), n_clusters=3, geo=GEO_K3)
         print(json.dumps({"phase": "main_path_k3", **main_path_k3}), flush=True)
+        main_path_mc3 = phase_main_path_mc3(Path(tmp))
+        print(json.dumps({"phase": "main_path_mc3", **main_path_mc3}), flush=True)
+        print(json.dumps({"phase": "resume", **phase_resume(Path(tmp))}), flush=True)
 
     rt, states, full = phase_full_width(CHAINS, STEPS)
     full.update({"device": torch.cuda.get_device_name(0), "card": card})
@@ -779,12 +989,26 @@ def main() -> int:
     print(json.dumps({"phase": "full_width_k3", **full_k3}), flush=True)
     print(json.dumps({"phase": "where_time_goes_k3", "card": card, **time_k3}), flush=True)
 
+    temps = ladder_temperatures(CHAINS)
+    rt_mc3, states_mc3, full_mc3 = phase_full_width(CHAINS, STEPS_K3, n_clusters=3,
+                                                    geo_prior="cost_based", temps=temps)
+    time_mc3 = phase_where_time_goes(rt_mc3, states_mc3, temps=temps)
+    full_mc3.update({"device": torch.cuda.get_device_name(0), "card": card,
+                     "kernels_per_step": time_mc3["kernels_per_step"],
+                     "device_busy_share": time_mc3["device_busy_share"],
+                     "op_ms_per_step": time_mc3["op_ms_per_step"],
+                     "update_geo": time_mc3["update_geo"],
+                     "full_width_k3": {k: full_k3[k] for k in (
+                         "steps_per_s", "kernels_per_step", "device_busy_share")}})
+    print(json.dumps({"phase": "full_width_mc3", **full_mc3}), flush=True)
+
     jump_512 = phase_jump_512()
     print(json.dumps({"phase": "jump_512", "card": card, **jump_512}), flush=True)
 
     by_path = {"main_path": main_path["launches"], "main_path_k3": main_path_k3["launches"],
-               "jump_512": jump_512["launches"]}
-    kernels = phase_kernels(rt, states, rt_k3, states_k3, by_path, jump_512["two_eff"])
+               "main_path_mc3": main_path_mc3["launches"], "jump_512": jump_512["launches"]}
+    kernels = phase_kernels(rt, states, rt_k3, states_k3, rt_mc3, states_mc3, temps, by_path,
+                            jump_512["two_eff"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

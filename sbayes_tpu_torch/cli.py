@@ -3,8 +3,10 @@
 Port of ``sbayes_tpu/cli.py``: a positional config file, ``-n/--name
 -r/--resume -K/--numClusters -i/--runID``, plus ``--device`` (default
 ``cuda``; a CUDA device without a card raises). Several runs of one K
-execute as one batched chain ensemble; one run executes alone. Runs execute
-in this process (no process pool): the chain batch is the parallelism.
+execute as one batched chain ensemble; one run executes alone, and so does
+each run under MC3 (its ladder is the batch) or ``-r`` (the runs may resume
+at different steps). Runs execute in this process (no process pool): the
+chain batch is the parallelism.
 """
 from __future__ import annotations
 
@@ -17,25 +19,24 @@ from sbayes_tpu_torch.experiment import Experiment
 from sbayes_tpu_torch.utils import PathLike, update_recursive
 
 
-def _run(config, experiment_name, custom_settings, run_ids, device):
+def _run(config, experiment_name, custom_settings, run_ids, device, resume=False):
     from sbayes_tpu_torch.data.loader import Data
     from sbayes_tpu_torch.sampling.runner import MCMCSetup
 
     experiment = Experiment(config_file=config, experiment_name=experiment_name,
                             custom_settings=custom_settings, log=True, i_run=run_ids[0])
-    if experiment.config.mcmc.mc3.activate:
-        raise NotImplementedError("MC3 is not ported yet (MC3 slice)")
     data = Data.from_experiment(experiment)
     data.logger = None
     mcmc = MCMCSetup(data=data, experiment=experiment, device=device)
     mcmc.log_setup()
-    mcmc.sample_ensemble(run_ids=run_ids)
+    if experiment.config.mcmc.mc3.activate:
+        mcmc.sample_mc3(run=run_ids[0], resume=resume)
+    else:
+        mcmc.sample_ensemble(run_ids=run_ids, resume=resume)
 
 
 def main(config: PathLike, experiment_name: str = None, custom_settings: dict = None,
          resume: bool = False, n_clusters=None, i_run: int = None, device: str = "cuda"):
-    if resume:
-        raise NotImplementedError("resume is not ported yet (resume slice)")
     experiment = Experiment(config_file=config, experiment_name=experiment_name,
                             custom_settings=custom_settings, log=False)
     n_runs = experiment.config.mcmc.runs
@@ -48,10 +49,13 @@ def main(config: PathLike, experiment_name: str = None, custom_settings: dict = 
             f"entry `clusters={experiment.config.model.clusters}` will be ignored.")
     if isinstance(n_clusters, int):
         n_clusters = [n_clusters]
+    one_at_a_time = resume or experiment.config.mcmc.mc3.activate
+    batches = [[r] for r in run_ids] if one_at_a_time else [run_ids]
     for k in n_clusters:
         run_settings = deepcopy(custom_settings) if custom_settings else {}
         update_recursive(run_settings, {"model": {"clusters": int(k)}})
-        _run(config, experiment.experiment_name, run_settings, run_ids, device)
+        for ids in batches:
+            _run(config, experiment.experiment_name, run_settings, ids, device, resume)
 
 
 def _str2bool(v: str) -> bool:
@@ -69,7 +73,7 @@ def cli(args=None):
     parser.add_argument("-n", "--name", nargs="?", type=str,
                         help="Experiment name (results directory; default: date/time).")
     parser.add_argument("-r", "--resume", nargs="?", type=_str2bool, const=True, default=False,
-                        help="Resume a previous run (not ported yet).")
+                        help="Resume a previous run (requires matching name, runID, K).")
     parser.add_argument("-K", "--numClusters", nargs="*", type=int,
                         help="Number of clusters (overrides config; multiple => multiple runs).")
     parser.add_argument("-i", "--runID", nargs="?", type=int,

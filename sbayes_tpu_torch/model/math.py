@@ -97,14 +97,24 @@ def normalize_weights(weights, has_components):
     return w / w.sum(-1, keepdim=True)
 
 
+def per_chain(t, x):
+    """A temperature (or its inverse) ``t`` shaped to broadcast against the
+    chain-batched ``x`` (B, ...): a (B,) tensor is viewed as (B, 1, ...), a
+    Python float (unit temperatures, plain ensembles) passes unchanged."""
+    if isinstance(t, torch.Tensor):
+        return t.view(-1, *([1] * (x.dim() - 1)))
+    return t
+
+
 def conditional_effect_mean(prior_counts, feature_counts, unif_counts=None,
                             prior_temperature=None, temperature=None):
-    """Posterior-mean categorical effect given counts, with the MC3 heating
-    of prior and likelihood counts."""
+    """Posterior-mean categorical effect given counts (B, ...), with the MC3
+    heating of prior and likelihood counts (floats or (B,) tensors)."""
     if prior_temperature is not None:
-        prior_counts = unif_counts + (prior_counts - unif_counts) / prior_temperature
+        prior_counts = (unif_counts + (prior_counts - unif_counts)
+                        / per_chain(prior_temperature, feature_counts))
     if temperature is not None:
-        feature_counts = feature_counts / temperature
+        feature_counts = feature_counts / per_chain(temperature, feature_counts)
     return normalize(feature_counts + prior_counts)
 
 

@@ -382,11 +382,17 @@ class OperatorStatsLogger(ResultsLogger):
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
         self.operators: list[OperatorView] = []
+        self.probed = False      # STEP-TIME from the per-operator timing probe
 
     def write_sample(self, sample: SampleRecord):
         with open(self.path, "w") as f:
-            f.write("# STEP-TIME is the run's mean wall time per step over all "
-                    "operators (no per-operator timing probe).\n")
+            if self.probed:
+                f.write("# STEP-TIME is a per-run probe estimate (each operator timed "
+                        "alone on a copy of the chain batch at run start and mid-run), "
+                        "not an in-run distribution.\n")
+            else:
+                f.write("# STEP-TIME is the run's mean wall time per step over all "
+                        "operators (the timing probe is off).\n")
             f.write(self.get_log_message_header() + "\n")
             for op in self.operators:
                 f.write(self.get_log_message_row(op) + "\n")

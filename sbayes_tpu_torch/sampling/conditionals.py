@@ -9,7 +9,8 @@ objects per chain (``gibbs_resample_source_rows`` for moves within a
 cluster, ``gibbs_resample_source_jump_rows`` for the jump between two).
 Everything is batched over chains: chain-state
 tensors carry a leading axis B, ``i_cluster`` is a (B,) index, gathered
-object indices are (B, m) with N meaning "padding".
+object indices are (B, m) with N meaning "padding". The temperatures are
+Python floats (unit temperatures) or (B,) tensors, one per chain (MC3).
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from sbayes_tpu_torch.model.math import (
     gather_rows,
     normalize,
     normalize_weights,
+    per_chain,
     sample_categorical_onehot,
     source_pick,
     take_cols,
@@ -50,16 +52,32 @@ def _pick_cluster(x, i_cluster):
     return x[_chains(x), i_cluster]
 
 
-class Conditionals:
-    """Gibbs conditionals of a model at fixed (Python float) temperatures."""
+def _temperature(t):
+    """A Python float, or a (B,) float32 tensor of per-chain temperatures."""
+    return t.float() if isinstance(t, torch.Tensor) else float(t)
 
-    def __init__(self, posterior: Posterior, temperature: float = 1.0,
-                 prior_temperature: float = 1.0):
+
+class Conditionals:
+    """Gibbs conditionals of a model at fixed temperatures: Python floats, or
+    (B,) tensors on the model's device, one likelihood and one prior
+    temperature per chain. ``inv_T`` / ``inv_Tp`` are their inverses."""
+
+    def __init__(self, posterior: Posterior, temperature=1.0, prior_temperature=1.0):
         self.post = posterior
         self.consts = posterior.consts
-        self.T = float(temperature)
-        self.Tp = float(prior_temperature)
+        self.T = _temperature(temperature)
+        self.Tp = _temperature(prior_temperature)
+        self.inv_T = 1.0 / self.T
+        self.inv_Tp = 1.0 / self.Tp
         self.sample_from_prior = posterior.sample_from_prior
+
+    def heat_lh(self, x):
+        """``x ** (1/T)`` per chain."""
+        return x ** per_chain(self.inv_T, x)
+
+    def heat_prior(self, x):
+        """``x ** (1/Tp)`` per chain."""
+        return x ** per_chain(self.inv_Tp, x)
 
     # ------------------------------------------------------------------
     # Component likelihoods
@@ -111,7 +129,7 @@ class Conditionals:
             counts = self.post.feature_counts(clusters, source)
         lh_pc = self.likelihood_per_component(clusters, *counts)
         w = normalize_weights(weights, self.post.has_components(clusters))
-        return normalize(lh_pc ** (1.0 / self.T) * w ** (1.0 / self.Tp))
+        return normalize(self.heat_lh(lh_pc) * self.heat_prior(w))
 
     # ------------------------------------------------------------------
     # Mask engine (all objects; subset given as a (B, N) mask)
@@ -146,7 +164,7 @@ class Conditionals:
         lhc = torch.einsum("cgn,bcgfs,nfs->bnfc", c.groups, conf_effect, feats)
         lh = torch.cat([lh0[..., None], lhc], dim=-1)
         lh = torch.where(c.na[None, :, :, None], torch.ones((), device=lh.device), lh)
-        return lh ** (1.0 / self.T)
+        return self.heat_lh(lh)
 
     @staticmethod
     def _masked_logp(p, source, subset, na):
@@ -167,8 +185,8 @@ class Conditionals:
             conf_counts_full = self._conf_counts_of(state_old.source)
         w_f = normalize_weights(state_old.weights, self.post.has_components(clusters_new))
         w_b = normalize_weights(state_old.weights, self.post.has_components(state_old.clusters))
-        w_f = w_f ** (1.0 / self.Tp)
-        w_b = w_b ** (1.0 / self.Tp)
+        w_f = self.heat_prior(w_f)
+        w_b = self.heat_prior(w_b)
         if self.sample_from_prior:
             p = w_f / torch.clamp(w_f.sum(-1, keepdim=True), min=EPS32)
             p_back = w_b / torch.clamp(w_b.sum(-1, keepdim=True), min=EPS32)
@@ -218,7 +236,7 @@ class Conditionals:
         lhc = torch.einsum("bcgm,bcgfs,bmfs->bmfc", g_m, conf_effect, feats_m)
         lh = torch.cat([lh0[..., None], lhc], dim=-1)
         lh = torch.where(na_m[..., None], torch.ones((), device=lh.device), lh)
-        return lh ** (1.0 / self.T)
+        return self.heat_lh(lh)
 
     @staticmethod
     def _rows_logp(p, rows, valid, na_m):
@@ -263,8 +281,8 @@ class Conditionals:
         w_f = normalize_weights(state_old.weights, hc_new_m)
         w_b = normalize_weights(state_old.weights, hc_old_m) if hc_back_from_old else w_f
         if heat:
-            w_f = w_f ** (1.0 / self.Tp)
-            w_b = w_b ** (1.0 / self.Tp)
+            w_f = self.heat_prior(w_f)
+            w_b = self.heat_prior(w_b)
         if self.sample_from_prior:
             p = w_f / torch.clamp(w_f.sum(-1, keepdim=True), min=EPS32)
             p_back = w_b / torch.clamp(w_b.sum(-1, keepdim=True), min=EPS32)
@@ -319,7 +337,7 @@ class Conditionals:
         lh = torch.cat([lh0[..., None], lhc], dim=-1)
         lh = torch.where(na_m[..., None], torch.ones((), device=lh.device), lh)
         w = normalize_weights(weights, self.rows_availability(clusters, obj_idx, hc_conf_m))
-        return normalize(lh ** (1.0 / self.T) * w ** (1.0 / self.Tp))
+        return normalize(self.heat_lh(lh) * self.heat_prior(w))
 
     def delta_counts_rows(self, counts, clusters, obj_idx, valid, src_old_rows,
                           src_new_rows, feats_m):

@@ -4,7 +4,8 @@ Port of ``sbayes_tpu/sampling/kernel.py``: apply one operator to every
 chain of the batch, evaluate only the posterior terms that operator can
 change (from the operator's exact deltas), accept or reject per chain with
 the Gibbs and reject sentinels, and write the deferred source rows of the
-accepted chains.
+accepted chains. The temperatures T, Tp of the ratio are the conditionals'
+(floats, or (B,) tensors of per-chain temperatures).
 """
 from __future__ import annotations
 
@@ -42,6 +43,12 @@ class OperatorStats(NamedTuple):
         rejects[:, op_idx] += 1 - acc
         sss[:, op_idx] += torch.where(accept, step_size, torch.zeros((), device=accept.device))
         return OperatorStats(accepts, rejects, sss, self.non_finite + nf.int())
+
+
+def mh_log_ratio(d_ll, d_prior, log_q, log_q_back, T, Tp):
+    """(B,) MH log acceptance ratio ``d_ll / T + d_prior / Tp - (log_q -
+    log_q_back)``; T, Tp floats or (B,) per-chain temperatures."""
+    return d_ll / T + d_prior / Tp - (log_q - log_q_back)
 
 
 def make_mh_apply_fn(cond: Conditionals, op_specs: Sequence[OperatorSpec]) -> Callable:
@@ -104,7 +111,7 @@ def make_mh_apply_fn(cond: Conditionals, op_specs: Sequence[OperatorSpec]) -> Ca
                                                  res.source_prior_delta, res.ll_delta)
         gibbs = torch.isneginf(res.log_q)
         direct_reject = torch.isneginf(res.log_q_back)
-        mh_ratio = d_ll / T + d_prior / Tp - (res.log_q - res.log_q_back)
+        mh_ratio = mh_log_ratio(d_ll, d_prior, res.log_q, res.log_q_back, T, Tp)
         u = torch.log(torch.rand(mh_ratio.shape, generator=gen, device=mh_ratio.device))
         accept = (~direct_reject) & (gibbs | (u < mh_ratio))
         nf = accept & (~torch.isfinite(cand.log_lh) | ~torch.isfinite(cand.log_prior))

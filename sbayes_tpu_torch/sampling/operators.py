@@ -13,7 +13,8 @@ The membership marginal of the Gibbsish operators and of the jump runs the
 CUDA kernel of ``ops/marginal.py`` on CUDA tensors (``_marginal_impl``,
 ``make_cluster_jump``). Under a cost-based geo prior every cluster operator
 re-derives the carried skeleton aggregates of the clusters it changed
-(``_update_geo``).
+(``_update_geo``). The temperatures are the conditionals': Python floats for
+unit temperatures, else (B,) tensors, one per chain (MC3).
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from sbayes_tpu_torch.model.math import (
     gather_rows,
     normalize,
     normalize_weights,
+    per_chain,
     sample_categorical_onehot,
 )
 from sbayes_tpu_torch.ops.marginal import marginal
@@ -72,9 +74,10 @@ def _random_cluster_pair(gen, n_chains: int, n_clusters: int, device):
 
 
 def _heat_prob(p, temperature):
-    """p**(1/T) / (p**(1/T) + (1-p)**(1/T)) via logits (stable)."""
+    """p**(1/T) / (p**(1/T) + (1-p)**(1/T)) via logits (stable); ``p`` (B, N),
+    ``temperature`` a float or (B,)."""
     logit = torch.log(torch.clamp(p, min=TINY)) - torch.log(torch.clamp(1.0 - p, min=TINY))
-    return torch.sigmoid(logit / temperature)
+    return torch.sigmoid(logit / per_chain(temperature, logit))
 
 
 def _reject_where(rejected, log_q, log_q_back, *deltas):
@@ -93,6 +96,10 @@ class OperatorFactory:
         self.consts = cond.consts
         self.T = cond.T
         self.Tp = cond.Tp
+        # The heat variant of the marginal is the identity at the float T = 1
+        # (plain ensembles); tensor temperatures take it on every chain, the
+        # cold one included, as the JAX package's traced temperatures do.
+        self.unit_T = not isinstance(self.T, torch.Tensor) and self.T == 1.0
         self.sample_from_prior = cond.sample_from_prior
         self.p_grow = p_grow
 
@@ -114,19 +121,22 @@ class OperatorFactory:
         hc = self.cond.post.has_components(state.clusters)
         hc_flip = hc.clone()
         hc_flip[..., 0] = ~hc[..., 0]
-        use_heat = heat_effect_lh and self.T != 1.0
-        unif = c.unif_conc[None]
-        p_eff = normalize(unif + (c.conc_cluster[None] - unif) / self.Tp
-                          + _pick_cluster(cl_counts, i_cluster) / self.T)       # (B, F, S)
+        use_heat = heat_effect_lh and not self.unit_T
+        p_eff = conditional_effect_mean(c.conc_cluster[None], _pick_cluster(cl_counts, i_cluster),
+                                        c.unif_conc[None], self.Tp, self.T)     # (B, F, S)
         conf_eff = normalize(conf_counts + c.conc_conf[None])
         p_rows = p_eff[:, None] if ratio else torch.stack([p_eff, p_eff], dim=1)
         B = p_eff.shape[0]
-        inv_t = (torch.full((B,), 1.0 / self.T, device=p_eff.device) if use_heat else None)
-        out = marginal(c, p_rows.contiguous(), conf_eff, state.weights ** (1.0 / self.Tp),
+        inv_t = None
+        if use_heat:
+            inv_t = (self.cond.inv_T if isinstance(self.T, torch.Tensor)
+                     else torch.full((B,), self.cond.inv_T, device=p_eff.device))
+        out = marginal(c, p_rows.contiguous(), conf_eff, self.cond.heat_prior(state.weights),
                        hc.float(), hc_flip.float(), hc[..., 0].float(), inv_t, ratio=ratio)
         if ratio:
-            return out / self.T
-        return out[..., 0] / self.T, out[..., 1] / self.T
+            return out / per_chain(self.T, out)
+        t = per_chain(self.T, out[..., 0])
+        return out[..., 0] / t, out[..., 1] / t
 
     def _cluster_log_odds(self, state, i_cluster, counts=None, heat_effect_lh=False):
         """(B, N) signed log-odds log_m1 - log_m0 of cluster membership."""
@@ -149,7 +159,7 @@ class OperatorFactory:
         if consider_geo:
             geo = self.cond.post.geo_prior_costs_per_object(state.clusters, i_cluster,
                                                             geo_agg=state.geo_agg)
-            odds = odds + geo / self.Tp / geo_scaler
+            odds = odds + geo / per_chain(self.Tp, geo) / geo_scaler
         p = torch.sigmoid(odds)
         if additive_smoothing > 0:
             a = additive_smoothing
@@ -499,14 +509,15 @@ class OperatorFactory:
         conf_eff = conditional_effect_mean(c.conc_conf[None], conf_counts,
                                            c.unif_conc[None, None, None], self.Tp, self.T)
         hc = self.cond.post.has_components(state.clusters).float()
-        wh = state.weights ** (1.0 / self.Tp)
+        wh = self.cond.heat_prior(state.weights)
         incl = torch.ones(hc.shape[:2], device=hc.device)
         if logspace:
             diff = marginal(c, p_eff, conf_eff, wh, hc, hc, incl, None, ratio=True, two_eff=True)
-            return torch.sigmoid(-diff / self.T)
+            return torch.sigmoid(-diff / per_chain(self.T, diff))
         out = marginal(c, p_eff, conf_eff, wh, hc, hc, incl, None, ratio=False)
-        lh_jump = torch.exp(out[..., 0] / self.T) + EPS32
-        lh_stay = torch.exp(out[..., 1] / self.T) + EPS32
+        t = per_chain(self.T, out[..., 0])
+        lh_jump = torch.exp(out[..., 0] / t) + EPS32
+        lh_stay = torch.exp(out[..., 1] / t) + EPS32
         return lh_jump / (lh_jump + lh_stay)
 
     def make_cluster_jump(self, gibbsish: bool = True, logspace: Optional[bool] = None) -> Callable:
@@ -616,7 +627,7 @@ class OperatorFactory:
         def posterior_probs(state, counts):
             if self.sample_from_prior:
                 w = normalize_weights(state.weights, cond.post.has_components(state.clusters))
-                return normalize(w ** (1.0 / self.Tp))
+                return normalize(cond.heat_prior(w))
             return cond.source_posterior(state.clusters, state.weights, state.source,
                                          counts=counts)
 
@@ -627,7 +638,7 @@ class OperatorFactory:
             old_rows = gather_rows(state.source, obj_idx)
             hc_m = cond.rows_availability(state.clusters, obj_idx, hc_conf_m)
             if self.sample_from_prior:
-                p = normalize(normalize_weights(state.weights, hc_m) ** (1.0 / self.Tp))
+                p = normalize(cond.heat_prior(normalize_weights(state.weights, hc_m)))
             else:
                 p = cond.source_posterior_rows(state.clusters, state.weights, counts_old,
                                                obj_idx, feats_m, na_m, hc_conf_m)
@@ -710,8 +721,9 @@ class OperatorFactory:
             i1, i2 = pair[:, 0], pair[:, 1]
             both = (pat_bits[:, i1] * pat_bits[:, i2]).T                         # (B, P)
             counts = torch.einsum("bp,bpfc->bfc", both, cnt) + consts.conc_weights[None]
-            c1 = counts[ar, :, i1] / self.Tp
-            c2 = counts[ar, :, i2] / self.Tp
+            tp = per_chain(self.Tp, counts[:, :, 0])                           # (B, 1) or float
+            c1 = counts[ar, :, i1] / tp
+            c2 = counts[ar, :, i2] / tp
             a_beta, b_beta = 1.0 + c2, 1.0 + c1
             ga = torch._standard_gamma(a_beta, generator=gen)
             gb = torch._standard_gamma(b_beta, generator=gen)
@@ -729,7 +741,7 @@ class OperatorFactory:
             ll_new = source_lh_by_feature(cnt, w_new)
             lp_new = cond.post.weights_prior_pointwise(w_new)
 
-            p_accept = torch.exp((ll_new + lp_new - ll_old - lp_old + log_q_back - log_q) / self.Tp)
+            p_accept = torch.exp((ll_new + lp_new - ll_old - lp_old + log_q_back - log_q) / tp)
             accept = torch.rand((B, F), generator=gen, device=dev) < p_accept
             weights_final = torch.where(accept[..., None], w_new, w)
             sp_delta = torch.where(accept, ll_new - ll_old, torch.zeros((), device=dev)).sum(-1)

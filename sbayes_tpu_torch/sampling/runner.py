@@ -1,20 +1,25 @@
-"""Host-level MCMC orchestration: warm-up, sampling loop, logging.
+"""Host-level MCMC orchestration: warm-up, sampling loops, MC3, resume, logging.
 
-Port of the default sampling path of ``sbayes_tpu/sampling/runner.py``. All chains (the
-warm-up race and the runs of an ensemble) are one chain axis of the batched
-operators. One operator per step is drawn for the whole batch on the host,
-from a CPU ``torch.Generator``, so dispatch never waits on the device; the
-per-chain randomness comes from a generator on the model's device. The
-carried invariants are recomputed exactly every ``REFRESH_EVERY_CHUNKS``
-chunks.
+Port of ``sbayes_tpu/sampling/runner.py``. All chains (the warm-up race, the
+runs of an ensemble, the rungs of an MC3 ladder) are one chain axis of the
+batched operators. One operator per step is drawn for the whole batch on the
+host, from a CPU ``torch.Generator``, so dispatch never waits on the device;
+the per-chain randomness comes from a generator on the model's device. The
+temperatures are Python floats at 1 (plain runs and ensembles) or (B,)
+tensors, one per chain (MC3). The MC3 swap phase runs on the host, on the
+ladder's carried log-likelihoods and log-priors (one device read per
+phase), with its draws from the operator generator. The carried invariants
+are recomputed exactly every ``REFRESH_EVERY_CHUNKS`` chunks. The STEP-TIME
+column of the operator statistics comes from a per-operator timing probe,
+run at start-up and at the run's midpoint. Resume reads the state pickle,
+else the clusters and stats files with a source imputed by one Gibbs pass.
 
-Not ported here: MC3 (``sample_mc3``), resume, multi-device sharding and the
-per-operator timing probe (the operator-stats STEP-TIME column holds the
-run's mean wall time per step instead).
+Not ported here: multi-device sharding and the trace runner.
 """
 from __future__ import annotations
 
 import math
+import pickle
 import time
 from datetime import timedelta
 from pathlib import Path
@@ -24,7 +29,7 @@ import numpy as np
 import torch
 
 from sbayes_tpu_torch.data.loader import Data
-from sbayes_tpu_torch.model.math import normalize_weights
+from sbayes_tpu_torch.model.math import normalize_weights, sample_categorical_onehot
 from sbayes_tpu_torch.model.model import Model
 from sbayes_tpu_torch.model.posterior import Posterior
 from sbayes_tpu_torch.results.loggers import (
@@ -60,8 +65,63 @@ def _host(x):
     return x.detach().cpu().numpy()
 
 
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def temperature_ladder(mc3) -> tuple[np.ndarray, np.ndarray]:
+    """(likelihood, prior) temperatures of the MC3 rungs, the cold rung
+    first: linear ``1 + diff * i`` or exponential ``(1 + diff) ** i``."""
+    idx = np.arange(mc3.chains)
+    if mc3.exponential_temperatures:
+        return (1 + mc3.temperature_diff) ** idx, (1 + mc3.prior_temperature_diff) ** idx
+    return 1 + mc3.temperature_diff * idx, 1 + mc3.prior_temperature_diff * idx
+
+
+def swap_pairs(n_chains: int, only_adjacent: bool) -> np.ndarray:
+    """(n_pairs, 2) rung pairs a < b that a swap may propose."""
+    if only_adjacent:
+        return np.array([(i, i + 1) for i in range(n_chains - 1)])
+    return np.array([(i, j) for i in range(n_chains - 1) for j in range(i + 1, n_chains)])
+
+
+def swap_phase(ll, lp, temps, prior_temps, pairs, order, log_u, swap_matrix):
+    """One MC3 swap phase: the proposals ``pairs[order]`` in turn on the
+    running (already swapped) log-likelihoods ``ll`` and log-priors ``lp``,
+    each accepted when ``log_u[t]`` is below -((lp[a] - lp[b]) (1/Tp[a] -
+    1/Tp[b]) + (ll[a] - ll[b]) (1/T[a] - 1/T[b])). Adds the accepts and the
+    attempts of each pair to ``swap_matrix`` (2, n, n) in place. Returns
+    (perm, ll, lp, n_accepted): rung r takes the state of chain ``perm[r]``."""
+    perm = np.arange(len(ll))
+    ll = np.array(ll, dtype=np.float64)
+    lp = np.array(lp, dtype=np.float64)
+    n_acc = 0
+    for t, i_pair in enumerate(order):
+        a, b = pairs[i_pair]
+        prior_exp_diff = 1.0 / prior_temps[a] - 1.0 / prior_temps[b]
+        lh_exp_diff = 1.0 / temps[a] - 1.0 / temps[b]
+        mh = -((lp[a] - lp[b]) * prior_exp_diff + (ll[a] - ll[b]) * lh_exp_diff)
+        accept = bool(log_u[t] < mh)
+        if accept:
+            for x in (perm, ll, lp):
+                x[[a, b]] = x[[b, a]]
+            n_acc += 1
+        swap_matrix[0, a, b] += accept
+        swap_matrix[1, a, b] += 1
+    return perm, ll, lp, n_acc
+
+
+def draw_swap_proposals(op_gen, n_pairs: int, attempts: int) -> tuple:
+    """(order, log_u) of one swap phase: ``attempts`` distinct pairs in a
+    random order and one log-uniform per proposal."""
+    order = torch.randperm(n_pairs, generator=op_gen)[:attempts].numpy()
+    log_u = torch.log(torch.rand(attempts, generator=op_gen, dtype=torch.float64)).numpy()
+    return order, log_u
+
+
 class SamplerRuntime:
-    """The batched sampling programs of one model (unit temperatures)."""
+    """The batched sampling programs of one model."""
 
     def __init__(self, model: Model, mcmc_config, sample_from_prior: bool = False):
         self.model = model
@@ -83,6 +143,17 @@ class SamplerRuntime:
     def new_stats(self, n_chains: int) -> OperatorStats:
         return OperatorStats.zeros(n_chains, self.n_ops, self.device)
 
+    def apply_fn(self, temps=None, prior_temps=None):
+        """The MH step ``apply(op_idx, gen, states)`` of the schedule: at unit
+        temperatures (None) or at the per-chain (B,) ``temps`` /
+        ``prior_temps`` on the model's device."""
+        if temps is None and prior_temps is None:
+            return self._apply
+        cond = Conditionals(self.post, 1.0 if temps is None else temps,
+                            1.0 if prior_temps is None else prior_temps)
+        return make_mh_apply_fn(cond, get_operator_schedule(cond, self.mcmc_config.operators,
+                                                            self.p_grow))
+
     def init_chains(self, gen, n_chains: int) -> ChainState:
         """``n_chains`` initial states (best of the configured attempts each),
         with every carried invariant filled."""
@@ -93,17 +164,70 @@ class SamplerRuntime:
             method=init_cfg.method)
         return self.post.fill_state(initializer.generate_sample(gen, n_chains))
 
-    def run_chunk(self, gen, op_gen, states: ChainState, stats: OperatorStats, n_steps: int):
-        """``n_steps`` MH steps of every chain; one operator per step."""
+    def run_chunk(self, gen, op_gen, states: ChainState, stats: OperatorStats, n_steps: int,
+                  temps=None, prior_temps=None):
+        """``n_steps`` MH steps of every chain; one operator per step. ``temps``
+        / ``prior_temps``: None for unit temperatures, else (B,) tensors."""
+        apply = self.apply_fn(temps, prior_temps)
         ops = torch.multinomial(self.op_weights, n_steps, replacement=True, generator=op_gen)
         for op_idx in ops.tolist():
-            states, accept, step_size, nf = self._apply(op_idx, gen, states)
+            states, accept, step_size, nf = apply(op_idx, gen, states)
             stats = stats.record(op_idx, accept, step_size, nf)
         return states, stats
+
+    def run_mc3_chunk(self, gen, op_gen, states: ChainState, stats: OperatorStats, temps,
+                      prior_temps, swap_matrix: np.ndarray, step0: int, n_steps: int,
+                      swap_interval: int, attempts: int, only_adjacent: bool):
+        """``n_steps`` MH steps of an MC3 ladder (one chain per rung, (B,)
+        temperatures) with a swap phase after every step whose global index
+        ``step0 + i + 1`` is a multiple of ``swap_interval``, so that the
+        cadence holds across chunks. Each phase makes ``min(attempts,
+        n_pairs)`` sequential proposals (``swap_phase``) and permutes the
+        states once; operator statistics and temperatures stay with the
+        rung. ``swap_matrix`` (2, n, n) counts in place. Returns (states,
+        stats, n_accepted, n_attempted)."""
+        pairs = swap_pairs(states.n_chains, only_adjacent)
+        attempts = min(attempts, len(pairs))
+        t_host = _host(temps).astype(np.float64)
+        tp_host = _host(prior_temps).astype(np.float64)
+        n_acc = n_att = 0
+        done = 0
+        while done < n_steps:
+            seg = min(swap_interval - (step0 + done) % swap_interval, n_steps - done)
+            states, stats = self.run_chunk(gen, op_gen, states, stats, seg, temps, prior_temps)
+            done += seg
+            if (step0 + done) % swap_interval:
+                continue
+            order, log_u = draw_swap_proposals(op_gen, len(pairs), attempts)
+            ll, lp = _host(torch.stack([states.log_lh, states.log_prior]))
+            perm, _, _, acc = swap_phase(ll, lp, t_host, tp_host, pairs, order, log_u,
+                                         swap_matrix)
+            if acc:
+                states = states.select(torch.as_tensor(perm, device=self.device))
+            n_acc += acc
+            n_att += attempts
+        return states, stats, n_acc, n_att
 
     def refresh(self, states: ChainState) -> ChainState:
         """Exact recompute of every carried invariant."""
         return self.post.fill_state(states)
+
+    def measure_op_step_times(self, gen, states: ChainState, temps=None, prior_temps=None,
+                              n_steps: int = 20) -> np.ndarray:
+        """Wall time [s] of one step of the whole batch for each operator:
+        the operator alone on a copy of ``states`` at its temperatures, one
+        warm-up step, then ``n_steps`` timed steps (synchronised)."""
+        apply = self.apply_fn(temps, prior_temps)
+        times = np.zeros(self.n_ops)
+        for i_op in range(self.n_ops):
+            st = apply(i_op, gen, states)[0]
+            _sync(self.device)
+            t0 = time.perf_counter()
+            for _ in range(n_steps):
+                st = apply(i_op, gen, st)[0]
+            _sync(self.device)
+            times[i_op] = (time.perf_counter() - t0) / n_steps
+        return times
 
     def sample_view(self, state: ChainState, with_likelihood: bool = True):
         """Posterior parts, counts and (optionally) the per-observation
@@ -152,6 +276,26 @@ class SamplerRuntime:
                 f"{_host(states.log_lh).round(2).tolist()}).")
         return states.select(slice(best, best + 1))
 
+    def warmup_ladder(self, gen, op_gen, n_chains: int, warmup_chains: int, temps, prior_temps,
+                      n_steps: int, logger=None) -> ChainState:
+        """Best-of-W warm-up race per MC3 rung: ``n_chains x W`` warm-ups as
+        one batch, each at its rung's temperatures (``temps`` /
+        ``prior_temps`` (n_chains,) repeated W times), an exact refresh, then
+        per rung the warm-up with the highest log-likelihood."""
+        W = max(1, int(warmup_chains))
+        states = self.init_chains(gen, n_chains * W)
+        if n_steps > 0:
+            states, _ = self.run_chunk(gen, op_gen, states, self.new_stats(n_chains * W), n_steps,
+                                       temps.repeat_interleave(W),
+                                       prior_temps.repeat_interleave(W))
+            states = self.refresh(states)
+        ll = _host(states.log_lh).reshape(n_chains, W)
+        sel = torch.as_tensor(ll.argmax(axis=1) + np.arange(n_chains) * W, device=self.device)
+        if logger and W > 1:
+            logger.info(f"MC3 warm-up: best of {W} per rung; selected log-likelihoods "
+                        f"{ll.max(axis=1).round(2).tolist()}")
+        return states.select(sel)
+
 
 class MCMCSetup:
     """Per-(K, run) sampling orchestration and results files."""
@@ -168,40 +312,60 @@ class MCMCSetup:
         self.logger = experiment.logger
         self.runtime = SamplerRuntime(self.model, self.config.mcmc,
                                       sample_from_prior=self.config.mcmc.sample_from_prior)
+        self.swap_attempts = 0
+        self.swap_accepts = 0
+        self.swap_matrix: Optional[np.ndarray] = None
+        self.last_swap_matrix_save = 0
         self.t_start = None
+        self._op_step_times: Optional[np.ndarray] = None
 
     # -------------------- paths / loggers --------------------
 
-    def get_results_file_path(self, prefix: str, run: int, suffix: str = "txt") -> Path:
-        return self.path_results / f"{prefix}_K{self.model.n_clusters}_{run}.{suffix}"
+    def get_results_file_path(self, prefix: str, run: int, chain: int = 0,
+                              suffix: str = "txt") -> Path:
+        """``K{k}/{prefix}_K{k}_{run}.{suffix}``; MC3 rungs above the cold one
+        under ``hot_chains/``, with ``.chain{chain}`` before the suffix."""
+        k = self.model.n_clusters
+        if chain == 0:
+            base_dir, chain_str = self.path_results, ""
+        else:
+            base_dir, chain_str = self.path_results / "hot_chains", f".chain{chain}"
+            base_dir.mkdir(exist_ok=True)
+        return base_dir / f"{prefix}_K{k}_{run}{chain_str}.{suffix}"
 
-    def get_sample_loggers(self, run: int, resume: bool = False) -> list[ResultsLogger]:
+    def get_sample_loggers(self, run: int, resume: bool = False,
+                           chain: int = 0) -> list[ResultsLogger]:
+        """The loggers of one chain: the state pickle always; the stats,
+        clusters and operator-stats files for the cold chain, and for the hot
+        ones with ``log_hot_chains``; the likelihood file for the cold chain."""
         consts = self.model.consts
         results = self.config.results
         loggers: list[ResultsLogger] = [
-            StateDumper(self.get_results_file_path("state", run, "pickle"), consts, self.data,
-                        resume=resume),
+            StateDumper(self.get_results_file_path("state", run, chain, "pickle"), consts,
+                        self.data, resume=resume)]
+        if chain > 0 and not results.log_hot_chains:
+            return loggers
+        loggers += [
             ParametersCSVLogger(
-                self.get_results_file_path("stats", run), consts, self.data, resume=resume,
-                log_source=results.log_source,
+                self.get_results_file_path("stats", run, chain), consts, self.data,
+                resume=resume, log_source=results.log_source,
                 log_contribution_per_cluster=results.log_contribution_per_cluster,
                 float_format=f"%.{results.float_precision}g"),
-            ClustersLogger(self.get_results_file_path("clusters", run), consts, self.data,
+            ClustersLogger(self.get_results_file_path("clusters", run, chain), consts, self.data,
                            resume=resume),
-            OperatorStatsLogger(self.get_results_file_path("operator_stats", run), consts,
+            OperatorStatsLogger(self.get_results_file_path("operator_stats", run, chain), consts,
                                 self.data, resume=resume),
         ]
-        if not self.config.mcmc.sample_from_prior and results.log_likelihood:
-            loggers.append(LikelihoodLogger(self.get_results_file_path("likelihood", run, "h5"),
-                                            consts, self.data, resume=resume))
+        if self._with_likelihood() and chain == 0:
+            loggers.append(LikelihoodLogger(
+                self.get_results_file_path("likelihood", run, chain, "h5"), consts, self.data,
+                resume=resume))
         return loggers
 
     def _with_likelihood(self) -> bool:
         return not self.config.mcmc.sample_from_prior and self.config.results.log_likelihood
 
-    def _check_supported(self, resume: bool):
-        if resume:
-            raise NotImplementedError("resume is not ported yet (resume slice)")
+    def _check_supported(self):
         if self.config.results.log_contribution_per_cluster:
             raise NotImplementedError("log_contribution_per_cluster is not ported yet")
 
@@ -217,24 +381,69 @@ class MCMCSetup:
             f"Ratio of weight steps: {cfg.operators.weights}\n"
             f"Ratio of source steps: {cfg.operators.source}")
 
+    # -------------------- resume --------------------
+
+    def _load_state_pickle(self, path: Path) -> tuple[ChainState, int]:
+        """The checkpointed state (a batch of one, every carried invariant
+        recomputed) and the step it was written at."""
+        with open(path, "rb") as f:
+            d = pickle.load(f)
+        state = ChainState.from_numpy(d, device=self.runtime.device)
+        return self.runtime.refresh(state), int(d.get("i_step", 0))
+
+    def _resume_from_results(self, run: int, chain: int = 0) -> tuple[ChainState, int]:
+        """The last logged sample of the clusters and stats files (no pickle):
+        its clusters and weights, a source drawn from the weights and then
+        one Gibbs pass from its posterior; the step after the last sample."""
+        from sbayes_tpu_torch.results.results import Results
+
+        results = Results.from_csv_files(self.get_results_file_path("clusters", run, chain),
+                                         self.get_results_file_path("stats", run, chain))
+        rt = self.runtime
+        na = self.model.consts.na[None, :, :, None]
+        clusters = torch.as_tensor(results.clusters[:, -1, :], dtype=torch.bool,
+                                   device=rt.device)[None]
+        weights = torch.as_tensor(
+            np.stack([results.weights[f][-1] for f in self.data.features.names]),
+            dtype=torch.float32, device=rt.device)[None]
+        gen = torch.Generator(device=rt.device)
+        gen.manual_seed(run)
+        w = normalize_weights(weights, rt.post.has_components(clusters))
+        source = sample_categorical_onehot(gen, w) & ~na
+        minus_inf = torch.full((1,), float("-inf"), device=rt.device)
+        state = ChainState(clusters, weights, source, minus_inf, minus_inf,
+                           torch.full((1, 4), float("-inf"), device=rt.device))
+        p = rt.cond.source_posterior(clusters, weights, source)
+        state = state._replace(source=sample_categorical_onehot(gen, p) & ~na)
+        return rt.refresh(state), int(results.sample_id[-1] + 1)
+
+    def _resume_state(self, run: int, chain: int = 0) -> tuple[ChainState, int]:
+        path = self.get_results_file_path("state", run, chain, "pickle")
+        if path.exists():
+            return self._load_state_pickle(path)
+        return self._resume_from_results(run, chain)
+
     # -------------------- single-run sampling --------------------
 
     def sample(self, initial_sample: Optional[ChainState] = None, resume: bool = False,
                run: int = 1, seed: int = 0):
-        self._check_supported(resume)
+        self._check_supported()
         cfg = self.config.mcmc
         rt = self.runtime
         gen, op_gen = make_generators(seed + 1000003 * run, rt.device)
         sample_loggers = self.get_sample_loggers(run, resume)
+        i_step_start = 0
         if initial_sample is not None:
             state = initial_sample
+        elif resume:
+            state, i_step_start = self._resume_state(run)
         else:
             t0 = time.time()
             state = rt.warmup(gen, op_gen, cfg.warmup.warmup_chains, cfg.warmup.warmup_steps,
                               self.logger)
             self.logger.info(f"Initialization and warm-up finished after "
                              f"{time.time() - t0:.1f} seconds")
-        self._sample_loop(state, [sample_loggers], [run], gen, op_gen)
+        self._sample_loop(state, [sample_loggers], [run], gen, op_gen, i_step_start)
 
     # -------------------- ensemble sampling (several runs at once) --------------------
 
@@ -242,14 +451,16 @@ class MCMCSetup:
         """All ``run_ids`` as ONE chain batch: one warm-up race of W chains
         per run, then one chain per run; each run keeps its own results
         files. The operator draw is shared across runs (state-independent,
-        so each run remains a valid sampler)."""
+        so each run remains a valid sampler). One run, or a resume (the runs
+        may resume at different steps), samples the runs one after another."""
         run_ids = list(run_ids)
-        self._check_supported(resume)
+        self._check_supported()
         cfg = self.config.mcmc
         rt = self.runtime
         R = len(run_ids)
-        if R == 1:
-            self.sample(run=run_ids[0], seed=seed)
+        if R == 1 or resume:
+            for r in run_ids:
+                self.sample(resume=resume, run=r, seed=seed)
             return
         loggers_by_run = [self.get_sample_loggers(r, resume) for r in run_ids]
         gen, op_gen = make_generators(seed + 101, rt.device)
@@ -269,61 +480,181 @@ class MCMCSetup:
             f"best warm-up log-likelihoods: {ll_rw.max(axis=1).round(2).tolist()}")
         self._sample_loop(states, loggers_by_run, run_ids, gen, op_gen)
 
-    def _sample_loop(self, states: ChainState, loggers_by_run, run_ids, gen, op_gen):
-        """The chunked sampling loop of a batch with one chain per run."""
+    def _sample_loop(self, states: ChainState, loggers_by_run, run_ids, gen, op_gen,
+                     i_step_start: int = 0):
+        """The chunked sampling loop of a batch with one chain per run, from
+        step ``i_step_start`` (a resumed run) to ``mcmc.steps``."""
         rt = self.runtime
         cfg = self.config.mcmc
         steps_per_sample = int(math.ceil(cfg.steps / cfg.samples))
         stats = rt.new_stats(states.n_chains)
         with_lh = self._with_likelihood()
+        self._maybe_measure_op_times(states)
         self.t_start = time.time()
         self.logger.info(f"Sampling from posterior ({len(run_ids)} run(s) as one batch)...")
         log_every = max(1, int(round(cfg.screen_log_interval / steps_per_sample)))
-        i_step = 0
-        for i_sample in range(cfg.samples):
+        i_step = i_step_start
+        for i_sample in range(i_step_start // steps_per_sample, cfg.samples):
             states, stats = rt.run_chunk(gen, op_gen, states, stats, steps_per_sample)
             i_step += steps_per_sample
             if (i_sample + 1) % REFRESH_EVERY_CHUNKS == 0:
                 states = rt.refresh(states)
+            if i_sample + 1 == max(1, cfg.samples // 2):
+                self._maybe_measure_op_times(states, force=True)
             if int(stats.non_finite.sum()) > 0:
                 raise ValueError("Non-finite log-posterior was accepted during MCMC.")
             for i_r, run_loggers in enumerate(loggers_by_run):
                 record = rt.make_record(states.select(slice(i_r, i_r + 1)), i_step=i_step,
                                         with_likelihood=with_lh)
                 self._push_operator_stats(run_loggers, stats, i_r,
-                                          elapsed=time.time() - self.t_start, steps_done=i_step)
+                                          elapsed=time.time() - self.t_start,
+                                          steps_done=i_step - i_step_start)
                 for logger in run_loggers:
                     logger.write_sample(record)
             if (i_sample + 1) % log_every == 0:
-                self._print_screen_log(i_step, float(states.log_lh[0]))
+                self._print_screen_log(i_step, float(states.log_lh[0]), i_step_start)
         for run_loggers in loggers_by_run:
             for logger in run_loggers:
                 logger.close()
         self.logger.info(f"MCMC of {len(run_ids)} run(s) finished after "
                          f"{time.time() - self.t_start:.1f} seconds")
 
+    def _maybe_measure_op_times(self, states, temps=None, prior_temps=None, force: bool = False):
+        """The per-operator timing probe (``results.log_operator_step_times``),
+        at start-up and again at the run's midpoint (``force``), on the
+        equilibrated states; its own generator leaves the sampling streams
+        untouched."""
+        if not self.config.results.log_operator_step_times:
+            return
+        if self._op_step_times is not None and not force:
+            return
+        t0 = time.time()
+        gen = torch.Generator(device=self.runtime.device)
+        gen.manual_seed(0x0B5E)
+        self._op_step_times = self.runtime.measure_op_step_times(gen, states, temps, prior_temps)
+        self.logger.info(
+            "Per-operator step times [ms]: "
+            + ", ".join(f"{n}={1e3 * t:.2f}"
+                        for n, t in zip(self.runtime.op_names, self._op_step_times))
+            + f" (probe took {time.time() - t0:.1f}s)")
+
     def _push_operator_stats(self, sample_loggers, stats, chain_idx: int, elapsed: float,
                              steps_done: int):
         accepts = _host(stats.accepts[chain_idx])
         rejects = _host(stats.rejects[chain_idx])
         sss = _host(stats.step_size_sum[chain_idx])
+        op_times = self._op_step_times
         mean_step_time = elapsed / max(steps_done, 1)
         views = [
             OperatorView(name=self.runtime.op_names[i], accepts=int(accepts[i]),
                          rejects=int(rejects[i]), step_size_sum=float(sss[i]),
-                         mean_step_time_s=mean_step_time,
+                         mean_step_time_s=(float(op_times[i]) if op_times is not None
+                                           else mean_step_time),
                          parameters=self.runtime._op_specs[i].parameters)
             for i in range(self.runtime.n_ops)
         ]
         for logger in sample_loggers:
             if isinstance(logger, OperatorStatsLogger):
                 logger.operators = views
+                logger.probed = op_times is not None
 
-    def _print_screen_log(self, i_step: int, likelihood: float):
-        time_per_million = (time.time() - self.t_start) / max(i_step, 1) * 1_000_000
+    def _print_screen_log(self, i_step: int, likelihood: float, i_step_start: int = 0):
+        time_per_million = ((time.time() - self.t_start) / max(i_step - i_step_start, 1)
+                            * 1_000_000)
         self.logger.info(
             f"{i_step:<12}log-likelihood:  {likelihood:<19.2f}"
             f"{timedelta(seconds=int(time_per_million))} / million steps")
 
+    # -------------------- MC3 --------------------
+
     def sample_mc3(self, resume: bool = False, run: int = 1, seed: int = 0):
-        raise NotImplementedError("MC3 is not ported yet (MC3 slice)")
+        """Metropolis-coupled MCMC: a ladder of ``mc3.chains`` rungs at the
+        temperatures of ``temperature_ladder`` as one chain batch, with a
+        swap phase every ``swap_interval`` steps. Rung 0 (T = 1) writes the
+        run's files, the hot rungs theirs under ``hot_chains/``. Under
+        ``resume`` every rung continues from its own pickle (or its files)."""
+        self._check_supported()
+        cfg = self.config.mcmc
+        mc3 = cfg.mc3
+        rt = self.runtime
+        n_chains = mc3.chains
+        logging_interval = int(math.ceil(cfg.steps / cfg.samples))
+        temps_np, prior_temps_np = temperature_ladder(mc3)
+        temps = torch.as_tensor(temps_np, dtype=torch.float32, device=rt.device)
+        prior_temps = torch.as_tensor(prior_temps_np, dtype=torch.float32, device=rt.device)
+        gen, op_gen = make_generators(seed + 7000003 * run, rt.device)
+
+        t_pre_init = time.time()
+        loggers_by_chain = [self.get_sample_loggers(run, resume, chain=c)
+                            for c in range(n_chains)]
+        i_step_start = 0
+        if resume:
+            resumed = [self._resume_state(run, chain=c) for c in range(n_chains)]
+            states = ChainState.concat([st for st, _ in resumed])
+            # The rungs checkpoint together; min() is conservative if they disagree.
+            i_step_start = min(i0 for _, i0 in resumed)
+        else:
+            states = rt.warmup_ladder(gen, op_gen, n_chains, cfg.warmup.warmup_chains, temps,
+                                      prior_temps, cfg.warmup.warmup_steps, logger=self.logger)
+        stats = rt.new_stats(n_chains)
+        with_lh = self._with_likelihood()
+        self._maybe_measure_op_times(states, temps, prior_temps)
+        self.swap_attempts = 0
+        self.swap_accepts = 0
+        self.swap_matrix = np.zeros((n_chains, n_chains), dtype=int)
+        swap_counts = np.zeros((2, n_chains, n_chains), dtype=np.int64)
+        self.t_start = time.time()
+        self.logger.info(f"Initialization and warm-up time: "
+                         f"{timedelta(seconds=int(self.t_start - t_pre_init))}")
+        self.logger.info("Sampling from posterior...")
+
+        i_step = i_step_start
+        for i_outer in range(i_step_start // logging_interval, cfg.samples):
+            n_steps_chunk = min(logging_interval, cfg.steps - i_outer * logging_interval)
+            if n_steps_chunk <= 0:
+                break
+            states, stats, n_acc, n_att = rt.run_mc3_chunk(
+                gen, op_gen, states, stats, temps, prior_temps, swap_counts, i_step,
+                n_steps_chunk, mc3.swap_interval, int(mc3.swap_attempts),
+                bool(mc3.only_swap_adjacent_chains))
+            i_step += n_steps_chunk
+            self.swap_accepts += n_acc
+            self.swap_attempts += n_att
+            if (i_outer + 1) % REFRESH_EVERY_CHUNKS == 0:
+                states = rt.refresh(states)
+            if i_outer + 1 == max(1, cfg.samples // 2):
+                self._maybe_measure_op_times(states, temps, prior_temps, force=True)
+            if int(stats.non_finite.sum()) > 0:
+                raise ValueError("Non-finite log-posterior was accepted during MCMC.")
+
+            # The swap matrix is saved only when new attempts happened since
+            # the last save.
+            if mc3.log_swap_matrix and self.last_swap_matrix_save < self.swap_attempts:
+                self.swap_matrix = swap_counts[0].copy()
+                path = self.path_results / f"mc3_swaps_K{self.model.n_clusters}_{run}.txt"
+                np.savetxt(path, self.swap_matrix, fmt="%i")
+                self.last_swap_matrix_save = self.swap_attempts
+
+            for c in range(n_chains):
+                record = rt.make_record(states.select(slice(c, c + 1)), i_step=i_step, chain=c,
+                                        with_likelihood=with_lh and c == 0)
+                self._push_operator_stats(loggers_by_chain[c], stats, c,
+                                          elapsed=time.time() - self.t_start,
+                                          steps_done=i_step - i_step_start)
+                for logger in loggers_by_chain[c]:
+                    logger.write_sample(record)
+            self.logger.info(
+                f"swap accept-rate={self.swap_accepts / max(self.swap_attempts, 1):.3f} "
+                f"({self.swap_attempts} attempts)")
+            # Per-rung (adjacent-pair) acceptance, for tuning temperature_diff.
+            rung_rates = " ".join(
+                f"{i}<->{i + 1}:{swap_counts[0, i, i + 1] / max(swap_counts[1, i, i + 1], 1):.2f}"
+                for i in range(n_chains - 1))
+            self.logger.info(f"swap accept-rate per rung: {rung_rates}")
+            self._print_screen_log(i_step, float(states.log_lh[0]), i_step_start)
+
+        for chain_loggers in loggers_by_chain:
+            for logger in chain_loggers:
+                logger.close()
+        self.logger.info(f"MCMC run finished after "
+                         f"{timedelta(seconds=int(time.time() - self.t_start))}")

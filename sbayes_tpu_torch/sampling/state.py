@@ -40,6 +40,11 @@ class ChainState(NamedTuple):
         """The chains ``idx`` (an index tensor or slice) of the batch."""
         return ChainState(*(None if x is None else x[idx] for x in self))
 
+    @classmethod
+    def concat(cls, states) -> "ChainState":
+        """One batch of the chains of ``states`` (batches), in order."""
+        return cls(*(None if xs[0] is None else torch.cat(xs) for xs in zip(*states)))
+
     def where(self, mask, other: "ChainState") -> "ChainState":
         """Per chain: this state where ``mask`` (B,) is True, else ``other``."""
         def pick(a, b):

@@ -18,7 +18,9 @@ def test_kernels_match_plain_on_the_card():
     no family), with 2, 4 and 5 components and with more groups than the
     default shared memory holds; the absolute and two-effect variants on the
     inputs of the K = 3 jump, with their launches on the K = 3 path and in
-    the jump at 512 features."""
+    the jump at 512 features; the heat variant on a batch at the per-chain
+    temperatures of an MC3 ladder, launched there and not at unit
+    temperatures."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     sys.path.insert(0, str(ROOT))
@@ -28,12 +30,20 @@ def test_kernels_match_plain_on_the_card():
     assert info["launches"]["loglh"] > 0 and info["launches"]["marginal"] > 0
     rt_k3, states_k3, info_k3 = chip_smoke.phase_full_width(256, 200, n_clusters=3,
                                                             geo_prior="cost_based")
+    temps = chip_smoke.ladder_temperatures(256)
+    rt_mc3, states_mc3, info_mc3 = chip_smoke.phase_full_width(
+        256, 200, n_clusters=3, geo_prior="cost_based", temps=temps)
     jump = chip_smoke.phase_jump_512(n_chains=32, n_steps=20)
-    by_path = {"k1": info["launches"], "k3": info_k3["launches"], "jump_512": jump["launches"]}
-    rows = chip_smoke.phase_kernels(rt, states, rt_k3, states_k3, by_path, jump["two_eff"])
+    by_path = {"k1": info["launches"], "k3": info_k3["launches"],
+               "mc3": info_mc3["launches"], "jump_512": jump["launches"]}
+    rows = chip_smoke.phase_kernels(rt, states, rt_k3, states_k3, rt_mc3, states_mc3, temps,
+                                    by_path, jump["two_eff"])
     by_name = {r["name"]: r for r in rows}
     assert by_name["marginal_abs"]["launches_by_path"]["k3"] > 0
     assert by_name["marginal_two_eff"]["launches_by_path"]["jump_512"] == 40
+    assert by_name["marginal_heat"]["launches_by_path"]["mc3"] > 0
+    assert by_name["marginal_heat"]["launches_by_path"]["k3"] == 0
+    assert by_name["marginal_heat"]["mc3"]["inputs"] == "mc3"
     assert {r["name"] for r in rows} == {"loglh", "marginal", "marginal_heat",
                                          "marginal_two_eff", "marginal_abs"}
     first = rows[0]
