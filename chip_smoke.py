@@ -41,7 +41,24 @@
    own. Then ``jump_512``:
    64 chains, 512 features, K = 2, the jump alone for 50 MH steps, so that
    the two-effect ratio marginal (the log-space jump) is launched by an
-   operator; the same invariants;
+   operator; the same invariants. Then ``ess``: CHAINS chains at K = 3, with
+   the uniform geo prior and again with ``GEO_K3``, ESS_WARMUP steps and a
+   trace window of ESS_STEPS steps in chunks of 200 (``run_chunk(...,
+   trace=True)``): steps per second, the multichain ESS of the log-posterior,
+   ESS per second and split-R-hat, the trace's last row against the carried
+   log-posterior, CUDA kernels per step of one 50-step window with and
+   without the trace (same draws), and steps per second of 200-step windows
+   without, with, with and without it. ``alt_operators``: on the
+   ``full_width_k3`` states each of the wide operator with the residual and
+   the residual-counts effect, with the EM proposal, and ``alter_weights``
+   alone for ALT_STEPS MH steps (ms per step, launches, the carried state
+   against its recompute), the residual-counts wide also at the
+   ``full_width_mc3`` temperatures (the heat variant on residual rows).
+   ``prior_samples``: PRIOR_SAMPLES samples from the prior at K = 3, their
+   ``log_lh`` (the likelihood kernel) against the plain likelihood. In the
+   CLI block, ``init_methods``: ``cli.main`` at K = 3 with the
+   ``seed_points`` initializer, then with ``random_growth`` and
+   ``log_contribution_per_cluster``;
 4. kernels: each kernel (and each variant of the marginal) against its plain
    PyTorch version at the shapes of phase 3, timed beside the plain version,
    the memory/compute bound and an empty kernel launched the same way
@@ -57,8 +74,10 @@
    ``incl = 1``), the likelihood also on the K = 3 states, the two-effect
    variant also at ``jump_512``'s shapes, the heat variant also on the
    ``full_width_mc3`` states at their per-chain temperatures (``"mc3"``);
-   one ``kernels`` JSON line, ``launches`` summed over the four driven
-   paths (``launches_by_path``).
+   one ``kernels`` JSON line, ``launches`` summed over the driven paths
+   (``launches_by_path``); the ratio and heat variants once more on the
+   residual-counts effect rows of ``alt_operators`` (``"inputs":
+   "residual"``, launches: that path's).
    ``ms``, ``plain_ms`` and ``launch_floor_ms`` time eager calls with
    CUDA events; ``device_ms`` and ``device_floor_ms`` time the same launches
    replayed from a CUDA graph, where the host dispatches nothing;
@@ -89,6 +108,9 @@ STEPS = 1000
 STEPS_K3 = 600
 GEO_K3 = {"type": "cost_based", "rate": 1e6, "aggregation": "mean"}   # bench.py's geo model
 MC3_LADDER = {"chains": 8, "temperature_diff": 0.1}                    # rungs of the MC3 phases
+ESS_WARMUP, ESS_STEPS = 200, 1000
+ALT_STEPS = 50
+PRIOR_SAMPLES = 4096
 LOGLH_TOL_REL = 1e-5             # lgammaf vs torch.lgamma, summation order (of the total)
 MARGINAL_TOL_ABS = 1e-4          # 36 logs summed in another order (per object)
 MARGINAL_TOL_FEATURES = 36       # wider data: the tolerance grows with the logs summed
@@ -101,10 +123,11 @@ def card_line() -> str:
 
 
 def smoke_config(path: Path, results: Path, n_clusters: int = 1, geo: dict = None,
-                 mcmc: dict = None, name: str = None) -> Path:
+                 mcmc: dict = None, name: str = None, results_cfg: dict = None) -> Path:
     """A model configuration as a JSON config file (default: K = 1, uniform
-    geo; ``mcmc`` updates the MCMC section); the data come from
-    ``synthetic_data`` (the data paths are not read)."""
+    geo; ``mcmc`` updates the MCMC section, ``results_cfg`` the results
+    section); the data come from ``synthetic_data`` (the data paths are not
+    read)."""
     placeholder = path / "features.csv"
     placeholder.write_text("id\n")
     cfg = {
@@ -130,6 +153,7 @@ def smoke_config(path: Path, results: Path, n_clusters: int = 1, geo: dict = Non
         "results": {"path": str(results), "log_likelihood": False, "log_file": False},
     }
     cfg["mcmc"].update(mcmc or {})
+    cfg["results"].update(results_cfg or {})
     cfg_path = path / f"{name or f'config_K{n_clusters}'}.json"
     cfg_path.write_text(json.dumps(cfg))
     return cfg_path
@@ -351,6 +375,55 @@ def phase_resume(tmp: Path) -> dict:
     return out
 
 
+def phase_init_methods(tmp: Path) -> dict:
+    """``cli.main`` at K = 3 (cost-based geo, 2 runs as one ensemble) with the
+    ``seed_points`` initializer, then with ``random_growth`` and
+    ``log_contribution_per_cluster``: the results files, cluster sizes
+    within their bounds, the likelihood kernel launched (the initializer's
+    best of attempts), and with the contribution ``post_a* = lh_a* +
+    prior_a*`` in every row."""
+    from sbayes_tpu_torch import cli
+
+    out = {}
+    for method, contrib in (("seed_points", False), ("random_growth", True)):
+        name = f"init_{method}"
+        cfg_path = smoke_config(tmp, tmp / "results", 3, GEO_K3, name=name, mcmc={
+            "runs": 2, "steps": 500, "samples": 10,
+            "initialization": {"method": method},
+            "warmup": {"warmup_steps": 100, "warmup_chains": 4}},
+            results_cfg={"log_contribution_per_cluster": contrib})
+        reset_counters()
+        t0 = time.perf_counter()
+        with synthetic_data_for_cli():
+            cli.main(cfg_path, experiment_name=name, device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counters()
+        if launches.get("loglh", 0) == 0:
+            raise AssertionError(f"{method}: the likelihood kernel never launched: {launches}")
+        res = tmp / "results" / name / "K3"
+        for run in (0, 1):
+            lines = (res / f"stats_K3_{run}.txt").read_text().splitlines()
+            header = lines[0].split("\t")
+            if len(lines) != 11:
+                raise AssertionError(f"{method}: stats file of run {run} has {len(lines)} lines")
+            for line in lines[1:]:
+                row = dict(zip(header, line.split("\t")))
+                sizes = [int(row[f"size_a{i}"]) for i in range(3)]
+                if min(sizes) < 2 or max(sizes) > 50:
+                    raise AssertionError(f"{method}: cluster sizes {sizes}")
+                if not contrib:
+                    continue
+                for i in range(3):
+                    lh, prior, post = (float(row[f"{k}_a{i}"]) for k in ("lh", "prior", "post"))
+                    if not (lh < 0 and abs(post - (lh + prior)) <= 1e-4 + 1e-5 * abs(post)):
+                        raise AssertionError(f"contribution of cluster {i}: {lh}, {prior}, {post}")
+        out[method] = {"wall_s": wall, "launches": launches,
+                       "contribution_columns": [c for c in header if c.rsplit("_a", 1)[0] in
+                                                ("post", "lh", "prior") and "_a" in c]}
+    return out
+
+
 def check_carried_state(consts, states, ref, stats, jump_idx=None) -> dict:
     """The carried invariants of ``states`` against the exact recompute
     ``ref``; raises on a violation, returns the largest differences."""
@@ -396,22 +469,30 @@ def check_carried_state(consts, states, ref, stats, jump_idx=None) -> dict:
     return errs
 
 
+def full_width_runtime(n_clusters: int, geo_prior: str):
+    """The sampler of the south_america-shaped synthetic model at K =
+    ``n_clusters`` with the uniform or the ``GEO_K3`` geo prior."""
+    from sbayes_tpu_torch.config.schema import MCMCConfig
+    from sbayes_tpu_torch.model.model import Model
+    from sbayes_tpu_torch.sampling.runner import SamplerRuntime
+    from sbayes_tpu_torch.testing import synthetic_config, synthetic_data
+
+    cfg = synthetic_config(n_clusters=n_clusters, geo_prior=geo_prior, **(
+        {"rate": GEO_K3["rate"], "aggregation": GEO_K3["aggregation"]}
+        if geo_prior == "cost_based" else {}))
+    model = Model(synthetic_data(), cfg.model, device=DEVICE)
+    return SamplerRuntime(model, MCMCConfig.from_dict({"steps": 1000, "samples": 5}))
+
+
 def phase_full_width(n_chains: int, n_steps: int, n_clusters: int = 1,
                      geo_prior: str = "uniform", temps=None) -> tuple:
     """init_chains(n) + n_steps steps in chunks of 200 + an exact refresh;
     ``temps`` (n,): per-chain likelihood and prior temperatures (an MC3
     ladder's, without swaps), else unit temperatures."""
-    from sbayes_tpu_torch.config.schema import MCMCConfig
-    from sbayes_tpu_torch.model.model import Model
-    from sbayes_tpu_torch.sampling.runner import SamplerRuntime, make_generators
-    from sbayes_tpu_torch.testing import synthetic_config, synthetic_data
+    from sbayes_tpu_torch.sampling.runner import make_generators
 
-    data = synthetic_data()
-    cfg = synthetic_config(n_clusters=n_clusters, geo_prior=geo_prior, **(
-        {"rate": GEO_K3["rate"], "aggregation": GEO_K3["aggregation"]}
-        if geo_prior == "cost_based" else {}))
-    model = Model(data, cfg.model, device=DEVICE)
-    rt = SamplerRuntime(model, MCMCConfig.from_dict({"steps": 1000, "samples": 5}))
+    rt = full_width_runtime(n_clusters, geo_prior)
+    model = rt.model
     gen, op_gen = make_generators(7, DEVICE)
     reset_counters()
     t0 = time.perf_counter()
@@ -581,6 +662,185 @@ def phase_jump_512(n_chains: int = 64, n_steps: int = 50) -> dict:
                 c, inputs, (True, False, True), n_chains)}
 
 
+def schedule_window(rt, states, n_steps: int, trace: bool, profile: bool = False) -> float:
+    """``n_steps`` steps of the schedule from ``states``, the generators seeded
+    the same on every call, so two calls draw the same operators: with
+    ``profile`` the CUDA kernels (memory copies included) per step from
+    torch.profiler, else the steps per second."""
+    from sbayes_tpu_torch.sampling.runner import make_generators
+
+    gen, op_gen = make_generators(23, DEVICE)
+    stats = rt.new_stats(states.n_chains)
+    torch.cuda.synchronize()
+    if not profile:
+        t0 = time.perf_counter()
+        rt.run_chunk(gen, op_gen, states, stats, n_steps, trace=trace)
+        torch.cuda.synchronize()
+        return n_steps / (time.perf_counter() - t0)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        rt.run_chunk(gen, op_gen, states, stats, n_steps, trace=trace)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    return sum(e.count for e in events) / n_steps
+
+
+def phase_ess(geo_prior: str) -> dict:
+    """K = 3, CHAINS chains: ESS_WARMUP steps, then a trace window of
+    ESS_STEPS steps in chunks of 200 with ``trace=True``; the multichain ESS
+    of the log-posterior trace (chains x steps), ESS per second of the
+    window and split-R-hat; the trace's last row equal to the carried
+    ``log_lh + log_prior``, the carried state equal to its recompute; kernels
+    per step with and without the trace over one 50-step window each, and
+    steps per second of 200-step windows without, with, with and without the
+    trace (the same draws in each)."""
+    from sbayes_tpu_torch.results.ess import multichain_ess, split_rhat
+    from sbayes_tpu_torch.sampling.runner import make_generators
+
+    rt = full_width_runtime(3, geo_prior)
+    gen, op_gen = make_generators(17, DEVICE)
+    states = rt.init_chains(gen, CHAINS)
+    stats = rt.new_stats(CHAINS)
+    states, stats = rt.run_chunk(gen, op_gen, states, stats, ESS_WARMUP)
+    torch.cuda.synchronize()
+    reset_counters()
+    chunk, parts = 200, []
+    t0 = time.perf_counter()
+    for _ in range(ESS_STEPS // chunk):
+        states, stats, trace = rt.run_chunk(gen, op_gen, states, stats, chunk, trace=True)
+        parts.append(trace)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counters()
+    x = np.concatenate(parts).T.astype(np.float64)                  # (chains, steps)
+    last = (states.log_lh + states.log_prior).cpu().numpy()
+    if not np.array_equal(parts[-1][-1], last):
+        raise AssertionError("the trace's last row differs from the carried log-posterior")
+    if not np.isfinite(x).all():
+        raise AssertionError("non-finite log-posterior in the trace")
+    ess = multichain_ess(x)
+    if not 0 < ess <= x.size:
+        raise AssertionError(f"multichain ESS {ess} outside (0, {x.size}]")
+    errs = check_carried_state(rt.consts, states, rt.refresh(states), stats,
+                               rt.op_names.index("cluster_jump_gibbsish"))
+    window = 50
+    rt.run_chunk(gen, op_gen, states, stats, 5)                     # warm the profiler path
+    with_trace = schedule_window(rt, states, window, trace=True, profile=True)
+    without = schedule_window(rt, states, window, trace=False, profile=True)
+    if not 0 < with_trace - without <= 2:
+        raise AssertionError(f"the trace adds {with_trace - without} kernels per step")
+    rates = {"with_trace": [], "without_trace": []}
+    for on in (False, True, True, False):
+        rates["with_trace" if on else "without_trace"].append(
+            schedule_window(rt, states, 200, trace=on))
+    return {"geo": geo_prior, "K": 3, "chains": CHAINS, "warmup_steps": ESS_WARMUP,
+            "steps": ESS_STEPS, "run_s": wall, "steps_per_s": ESS_STEPS / wall,
+            "multichain_ess": ess, "ess_per_s": ess / wall, "split_rhat": split_rhat(x),
+            "trace_mean": float(x.mean()), "trace_last_row_equal": True,
+            "kernels_per_step": {"with_trace": with_trace, "without_trace": without},
+            "window_steps_per_s": rates, "launches": launches, "carried_vs_recompute_max_abs": errs}
+
+
+def alt_operator_specs(cond):
+    """The operators no schedule draws, each as a one-operator schedule, at
+    the temperatures of the conditionals ``cond``."""
+    from sbayes_tpu_torch.sampling.operators import OperatorFactory, OperatorSpec
+
+    geo_on = cond.consts.geo.prior_type == "cost_based"
+    factory = OperatorFactory(cond)
+    return {
+        "wide_residual": OperatorSpec("wide_residual", 1.0, factory.make_alter_cluster_wide(
+            geo_on, effect_proposal="residual")),
+        "wide_residual_counts": OperatorSpec(
+            "wide_residual_counts", 1.0, factory.make_alter_cluster_wide(
+                geo_on, effect_proposal="residual_counts")),
+        "wide_em": OperatorSpec("wide_em", 1.0, factory.make_alter_cluster_wide(
+            geo_on, em_proposal=True)),
+        "alter_weights": OperatorSpec("alter_weights", 1.0, factory.make_alter_weights(),
+                                      "weights"),
+    }
+
+
+def run_operator(cond, spec, states, n_steps: int) -> dict:
+    """``n_steps`` MH steps of the one operator ``spec`` from ``states``:
+    ms per step, launches, acceptance and the carried state against its
+    recompute."""
+    from sbayes_tpu_torch.sampling.kernel import OperatorStats, make_mh_apply_fn
+    from sbayes_tpu_torch.sampling.runner import make_generators
+
+    apply = make_mh_apply_fn(cond, [spec])
+    gen, _ = make_generators(29, DEVICE)
+    stats = OperatorStats.zeros(states.n_chains, 1, DEVICE)
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        states, accept, step_size, nf = apply(0, gen, states)
+        stats = stats.record(0, accept, step_size, nf)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counters()
+    errs = check_carried_state(cond.consts, states, cond.post.fill_state(states), stats)
+    accept_rate = float(stats.accepts.sum()) / float((stats.accepts + stats.rejects).sum())
+    return {"steps": n_steps, "ms_per_step": wall / n_steps * 1e3, "launches": launches,
+            "accept_rate": accept_rate, "carried_vs_recompute_max_abs": errs}
+
+
+def phase_alt_operators(rt_k3, states_k3, rt_mc3, states_mc3, temps) -> dict:
+    """Each non-scheduled operator alone for ALT_STEPS steps on the
+    ``full_width_k3`` states; the residual-counts wide operator also on the
+    ``full_width_mc3`` states at their per-chain temperatures. The residual
+    wide steps launch the ratio marginal (heat at per-chain T) twice a step,
+    forward and backward proposal."""
+    from sbayes_tpu_torch.sampling.conditionals import Conditionals
+
+    out = {}
+    for name, spec in alt_operator_specs(rt_k3.cond).items():
+        out[name] = run_operator(rt_k3.cond, spec, states_k3, ALT_STEPS)
+    cond_mc3 = Conditionals(rt_mc3.post, temps, temps)
+    spec = alt_operator_specs(cond_mc3)["wide_residual_counts"]
+    out["wide_residual_counts_mc3"] = run_operator(cond_mc3, spec, states_mc3, ALT_STEPS)
+    need = {"wide_residual": "marginal", "wide_residual_counts": "marginal",
+            "wide_residual_counts_mc3": "marginal_heat"}
+    for name, variant in need.items():
+        if out[name]["launches"].get(variant, 0) != 2 * ALT_STEPS:
+            raise AssertionError(f"{name}: {out[name]['launches']}, expected {2 * ALT_STEPS} "
+                                 f"launches of {variant}")
+    return out
+
+
+def phase_prior_samples(rt) -> dict:
+    """PRIOR_SAMPLES samples from the prior of ``rt``'s model: sizes within
+    the bounds, weights on the simplex, ``log_lh`` (the likelihood kernel)
+    against the plain likelihood of the same samples."""
+    from sbayes_tpu_torch.ops import loglh
+    from sbayes_tpu_torch.sampling.prior_sampling import generate_prior_samples
+    from sbayes_tpu_torch.sampling.runner import make_generators
+
+    c = rt.consts
+    gen, _ = make_generators(31, DEVICE)
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    samples = generate_prior_samples(gen, rt.cond, PRIOR_SAMPLES)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counters()
+    if launches.get("loglh", 0) != 1:
+        raise AssertionError(f"prior samples: {launches}")
+    sizes = samples.clusters.sum(-1)
+    if int(sizes.min()) < c.min_size or int(sizes.max()) > c.max_size:
+        raise AssertionError(f"prior sample sizes {int(sizes.min())}..{int(sizes.max())}")
+    if not bool(((samples.weights.sum(-1) - 1).abs() < 1e-5).all()):
+        raise AssertionError("prior weights off the simplex")
+    want = loglh.log_likelihood_plain(c, samples.clusters, samples.source)
+    rel = float(((samples.log_lh - want).abs() / want.abs()).max())
+    if not rel <= LOGLH_TOL_REL:
+        raise AssertionError(f"prior samples: log_lh vs plain relative error {rel}")
+    return {"samples": PRIOR_SAMPLES, "K": c.K, "wall_s": wall, "launches": launches,
+            "log_lh_max_rel_err": rel, "mean_size": float(sizes.float().mean()),
+            "mean_log_lh": float(samples.log_lh.mean())}
+
+
 def cuda_time_ms(fn, reps: int = 50) -> float:
     """Milliseconds per eager call: CUDA events around ``reps`` calls, so host
     dispatch counts where it is slower than the device."""
@@ -707,6 +967,31 @@ def mc3_kernel_inputs(rt, states, temps) -> dict:
             "wh": (states.weights ** per_chain(inv_t, states.weights)).contiguous(),
             "hc": hc.float(), "hc_flip": hc_flip.float(), "incl": hc[..., 0].float(),
             "inv_t": inv_t}
+
+
+def residual_kernel_inputs(cond, states) -> dict:
+    """The inputs the residual-counts wide operator gives the marginal at the
+    temperatures of ``cond``: the residual-counts effect of cluster 0, the
+    weights to the power 1/Tp and ``inv_t = 1/T`` per chain (1/1.3 at unit
+    temperature, as ``path_kernel_inputs``)."""
+    from sbayes_tpu_torch.model.math import normalize
+    from sbayes_tpu_torch.sampling.operators import OperatorFactory
+
+    c = cond.consts
+    B = states.n_chains
+    hc = cond.post.has_components(states.clusters)
+    hc_flip = hc.clone()
+    hc_flip[..., 0] = ~hc[..., 0]
+    i_cluster = torch.zeros(B, dtype=torch.long, device=DEVICE)
+    p_eff = OperatorFactory(cond).cluster_effect_proposal_residual_counts(
+        states, states.cl_counts, states.conf_counts, i_cluster)
+    inv_t = (cond.inv_T if isinstance(cond.T, torch.Tensor)
+             else torch.full((B,), 1.0 / 1.3, device=DEVICE))
+    return {"clusters": states.clusters, "source": states.source, "p_eff": p_eff,
+            "p_other": normalize(torch.roll(p_eff, 1, dims=0) + 0.1),
+            "conf_eff": normalize(states.conf_counts + c.conc_conf[None]),
+            "wh": cond.heat_prior(states.weights).contiguous(), "hc": hc.float(),
+            "hc_flip": hc_flip.float(), "incl": hc[..., 0].float(), "inv_t": inv_t}
 
 
 def time_marginal_variant(c, inputs: dict, variant: tuple, n_chains: int) -> dict:
@@ -891,15 +1176,19 @@ def time_loglh(c, states) -> dict:
 
 
 def phase_kernels(rt, states, rt_k3, states_k3, rt_mc3, states_mc3, temps_mc3,
-                  launches_by_path: dict, jump_512: dict) -> list:
+                  launches_by_path: dict, jump_512: dict, residual_launches: dict) -> list:
     """Each kernel and marginal variant against its plain version, at the
     K = 1 path's shapes and inputs; the likelihood also on the K = 3 states,
     the absolute and two-effect variants on the inputs the K = 3 jump gives
     them, the heat variant also on an MC3 batch's own states at its per-chain
     ``temps_mc3``. ``launches_by_path``: the launch counts of each driven
     path; ``jump_512``: the two-effect variant's timing at
-    ``phase_jump_512``'s shapes."""
+    ``phase_jump_512``'s shapes. Then the ratio and heat variants again on
+    the residual-counts effect rows (K = 3 states; MC3 states at
+    ``temps_mc3``), with ``residual_launches``: the residual wide operators'
+    launches in ``alt_operators``."""
     from sbayes_tpu_torch.ops import marginal
+    from sbayes_tpu_torch.sampling.conditionals import Conditionals
 
     c = rt.consts
     B = states.n_chains
@@ -947,6 +1236,32 @@ def phase_kernels(rt, states, rt_k3, states_k3, rt_mc3, states_mc3, temps_mc3,
                             "inputs": "mc3", "K": rt_mc3.consts.K,
                             "temperatures": sorted(set(temps_mc3.tolist())), **floor}
         out.append(entry)
+
+    # The wide operator's residual-counts effect rows through the same kernel.
+    cond_mc3 = Conditionals(rt_mc3.post, temps_mc3, temps_mc3)
+    for variant, cond, st in (((True, False, False), rt_k3.cond, states_k3),
+                              ((True, True, False), cond_mc3, states_mc3)):
+        name = marginal.variant_name(*variant)
+        inputs_res = residual_kernel_inputs(cond, st)
+        errs_res = compare_with_plain(cond.consts, inputs_res)
+        timed = time_marginal_variant(cond.consts, inputs_res, variant, st.n_chains)
+        n = residual_launches.get(name, 0)
+        out.append({"name": name, "route": "cuda", "source": "sbayes_tpu_torch/csrc/marginal.cu",
+                    "replaces": "sbayes_tpu/ops/pallas_marginal.py:178", "launches": n,
+                    "launches_by_path": {"alt_operators_residual": n}, **timed,
+                    "max_abs_err": max(timed["max_abs_err"], errs_res[name]),
+                    "inputs": "residual", "K": cond.consts.K,
+                    "temperatures": (sorted(set(temps_mc3.tolist())) if variant[1] else [1.0]),
+                    **floor})
+    return out
+
+
+def add_launches(*launch_counts) -> dict:
+    """The sum of several launch-count dicts."""
+    out = {}
+    for counts in launch_counts:
+        for k, v in counts.items():
+            out[k] = out.get(k, 0) + v
     return out
 
 
@@ -973,6 +1288,8 @@ def main() -> int:
         main_path_mc3 = phase_main_path_mc3(Path(tmp))
         print(json.dumps({"phase": "main_path_mc3", **main_path_mc3}), flush=True)
         print(json.dumps({"phase": "resume", **phase_resume(Path(tmp))}), flush=True)
+        init_methods = phase_init_methods(Path(tmp))
+        print(json.dumps({"phase": "init_methods", **init_methods}), flush=True)
 
     rt, states, full = phase_full_width(CHAINS, STEPS)
     full.update({"device": torch.cuda.get_device_name(0), "card": card})
@@ -1005,10 +1322,27 @@ def main() -> int:
     jump_512 = phase_jump_512()
     print(json.dumps({"phase": "jump_512", "card": card, **jump_512}), flush=True)
 
+    ess = {}
+    for geo_prior in ("uniform", "cost_based"):
+        ess[geo_prior] = phase_ess(geo_prior)
+        print(json.dumps({"phase": "ess", "card": card, **ess[geo_prior]}), flush=True)
+    alt = phase_alt_operators(rt_k3, states_k3, rt_mc3, states_mc3, temps)
+    print(json.dumps({"phase": "alt_operators", "card": card, **alt}), flush=True)
+    prior = phase_prior_samples(rt_k3)
+    print(json.dumps({"phase": "prior_samples", "card": card, **prior}), flush=True)
+
     by_path = {"main_path": main_path["launches"], "main_path_k3": main_path_k3["launches"],
-               "main_path_mc3": main_path_mc3["launches"], "jump_512": jump_512["launches"]}
+               "main_path_mc3": main_path_mc3["launches"], "jump_512": jump_512["launches"],
+               "ess_uniform": ess["uniform"]["launches"],
+               "ess_cost_based": ess["cost_based"]["launches"],
+               "init_seed_points": init_methods["seed_points"]["launches"],
+               "init_random_growth": init_methods["random_growth"]["launches"],
+               "alt_operators": add_launches(*(a["launches"] for a in alt.values())),
+               "prior_samples": prior["launches"]}
+    residual_launches = add_launches(*(alt[k]["launches"] for k in (
+        "wide_residual", "wide_residual_counts", "wide_residual_counts_mc3")))
     kernels = phase_kernels(rt, states, rt_k3, states_k3, rt_mc3, states_mc3, temps, by_path,
-                            jump_512["two_eff"])
+                            jump_512["two_eff"], residual_launches)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """Collapsed conditionals shared by the Gibbs-flavoured operators.
 
-Port of the part of ``sbayes_tpu/sampling/conditionals.py`` that the default
-sampling path uses: per-component likelihoods (also the exact leave-self-out
-form for likelihood logging), the source posterior, and the Gibbs source
+Port of the part of ``sbayes_tpu/sampling/conditionals.py`` that the
+sampling paths use: per-component likelihoods (also the exact leave-self-out
+form for likelihood logging), the source posterior, the expected confounder
+features of the residual effect proposal, and the Gibbs source
 resample in its two forms — a mask over all objects
 (``gibbs_resample_source``, used by the initializer) and gathered rows, m
 objects per chain (``gibbs_resample_source_rows`` for moves within a
@@ -130,6 +131,17 @@ class Conditionals:
         lh_pc = self.likelihood_per_component(clusters, *counts)
         w = normalize_weights(weights, self.post.has_components(clusters))
         return normalize(self.heat_lh(lh_pc) * self.heat_prior(w))
+
+    def expected_confounder_features(self, clusters, weights, conf_counts):
+        """(B, N, F, S) expected feature values under the confounder mixture:
+        heated posterior-mean confounder effects, weighted by each object's
+        heated normalized confounder weights."""
+        c = self.consts
+        w = normalize_weights(weights, self.post.has_components(clusters))
+        w_heated = normalize(self.heat_prior(w))
+        p_conf = conditional_effect_mean(c.conc_conf[None], conf_counts,
+                                         c.unif_conc[None, None, None], self.Tp, self.T)
+        return torch.einsum("cgn,bcgfs,bnfc->bnfs", c.groups, p_conf, w_heated[..., 1:])
 
     # ------------------------------------------------------------------
     # Mask engine (all objects; subset given as a (B, N) mask)

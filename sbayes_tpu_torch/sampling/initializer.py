@@ -1,12 +1,16 @@
-"""Initial samples: annealed EM soft clustering, refinement, best of attempts.
+"""Initial samples: initial clusters, refinement, best of attempts.
 
-Port of the ``em`` method of ``sbayes_tpu/sampling/initializer.py``,
-batched over chains: annealed EM over clusters and confounder groups (with
-the geo term under a cost-based geo prior), a
-discretization with a per-cluster minimum size and a truncated-normal total
-size, a prior source draw followed by a full Gibbs source step, two rounds of
-ML cluster steps with a weights re-estimate between them, and the best of
-``attempts`` by likelihood (the likelihood kernel on CUDA).
+Port of ``sbayes_tpu/sampling/initializer.py``, batched over chains. The
+initial clusters come from one of three methods: ``em`` (annealed EM over
+clusters and confounder groups, with the geo term under a cost-based geo
+prior, and a discretization with a per-cluster minimum size and a
+truncated-normal total size), ``seed_points`` (one random object per
+cluster) or ``random_growth`` (each cluster grown from a random free seed by
+``initial_size - 1`` random steps to a free neighbour; a cluster without a
+free neighbour stops growing, as in the JAX package). Then a prior source
+draw followed by a full Gibbs source step, two rounds of ML cluster steps
+with a weights re-estimate between them, and the best of ``attempts`` by
+likelihood (the likelihood kernel on CUDA).
 """
 from __future__ import annotations
 
@@ -16,7 +20,7 @@ import torch
 
 from sbayes_tpu_torch.model.math import normalize, normalize_weights, sample_categorical_onehot
 from sbayes_tpu_torch.sampling.conditionals import Conditionals
-from sbayes_tpu_torch.sampling.operators import OperatorFactory
+from sbayes_tpu_torch.sampling.operators import OperatorFactory, _gumbel
 from sbayes_tpu_torch.sampling.state import ChainState
 
 
@@ -31,9 +35,7 @@ def _truncnorm_sample(gen, n, mid, lower, upper, scale, device):
 class Initializer:
     def __init__(self, cond: Conditionals, initial_size: int, attempts: int,
                  initial_cluster_steps: bool = True, n_em_steps: int = 50, method: str = "em"):
-        if method != "em":
-            raise NotImplementedError(
-                f"initializer method `{method}` is not ported yet (only `em`)")
+        self.method = method
         self.cond = cond
         self.consts = cond.consts
         self.initial_size = int(initial_size)
@@ -92,6 +94,53 @@ class Initializer:
             z = torch.softmax(lh, dim=1)
         return self._discretize_fuzzy_clusters(z, total_size)
 
+    def generate_clusters_seed_points(self, gen, n: int):
+        """(n, K, N) clusters of one random object each, distinct per chain;
+        the ML cluster steps grow them to the minimum size."""
+        c = self.consts
+        seeds = torch.argsort(torch.rand((n, c.N), generator=gen, device=c.device),
+                              dim=-1)[:, :c.K]
+        clusters = torch.zeros((n, c.K, c.N), dtype=torch.bool, device=c.device)
+        return clusters.scatter_(2, seeds[..., None], True)
+
+    def generate_clusters_random_growth(self, gen, n: int):
+        """(n, K, N) clusters, each grown from a random free seed by
+        ``initial_size - 1`` grow steps: an (n, N) x (N, N) adjacency product
+        and a Gumbel-max pick among the free neighbours. A cluster without a
+        free neighbour stops growing."""
+        c = self.consts
+        dev = c.device
+        ar = torch.arange(n, device=dev)
+        adj = c.adjacency.float()
+        neg_inf = torch.full((), float("-inf"), device=dev)
+        clusters = torch.zeros((n, c.K, c.N), dtype=torch.bool, device=dev)
+        occupied = torch.zeros((n, c.N), dtype=torch.bool, device=dev)
+
+        def pick(candidates):
+            return torch.argmax(torch.where(candidates, _gumbel(gen, (n, c.N), dev), neg_inf),
+                                dim=-1)
+
+        for i_c in range(c.K):
+            seed = pick(~occupied)
+            cluster = torch.zeros((n, c.N), dtype=torch.bool, device=dev)
+            cluster[ar, seed] = True
+            occupied[ar, seed] = True
+            for _ in range(self.initial_size - 1):
+                neigh = ((cluster.float() @ adj.T) > 0) & ~occupied
+                can_grow = neigh.any(-1)
+                j = pick(neigh)
+                cluster[ar, j] |= can_grow
+                occupied[ar, j] |= can_grow
+            clusters[:, i_c] = cluster
+        return clusters
+
+    def generate_initial_clusters(self, gen, n: int):
+        if self.method == "seed_points":
+            return self.generate_clusters_seed_points(gen, n)
+        if self.method == "random_growth":
+            return self.generate_clusters_random_growth(gen, n)
+        return self.generate_clusters_em(gen, n)
+
     def _discretize_fuzzy_clusters(self, z, total_size):
         """Discretize soft assignments with a min-size guarantee."""
         c = self.consts
@@ -116,7 +165,7 @@ class Initializer:
         c = self.consts
         cond = self.cond
         dev = c.device
-        clusters = self.generate_clusters_em(gen, n)
+        clusters = self.generate_initial_clusters(gen, n)
         weights = torch.full((n, c.F, c.C), 1.0 / c.C, device=dev)
         w_normed = normalize_weights(weights, cond.post.has_components(clusters))
         source = sample_categorical_onehot(gen, w_normed) & ~c.na[None, :, :, None]

@@ -1,16 +1,19 @@
-"""The MCMC operators of the default schedule, batched over chains.
+"""The MCMC operators, batched over chains.
 
-Port of the scheduled operators of ``sbayes_tpu/sampling/operators.py``:
+Port of ``sbayes_tpu/sampling/operators.py``: the scheduled operators —
 grow/shrink (naive and Gibbsish), the wide membership resample, the jump of
 one object between two clusters (K >= 2), the initializer's ML cluster
 step, source Gibbs resampling (random subset, groups, all) and the weights
-Gibbs step. Each operator is ``op(gen, state) -> OpResult`` on a
+Gibbs step — and the ones no schedule draws: the wide operator's residual
+effect proposals and its EM proposal, and the single-feature weights move
+``make_alter_weights``. Each operator is ``op(gen, state) -> OpResult`` on a
 batch of chains; one operator runs for the whole batch per step. Sentinel
 transition probabilities force acceptance (Gibbs: log_q = -inf,
 log_q_back = 0) or rejection (log_q = 0, log_q_back = -inf).
 
-The membership marginal of the Gibbsish operators and of the jump runs the
-CUDA kernel of ``ops/marginal.py`` on CUDA tensors (``_marginal_impl``,
+The membership marginal of the Gibbsish operators, of the wide operator
+(whatever its effect proposal) and of the jump runs the CUDA kernel of
+``ops/marginal.py`` on CUDA tensors (``_marginal_impl``,
 ``make_cluster_jump``). Under a cost-based geo prior every cluster operator
 re-derives the carried skeleton aggregates of the clusters it changed
 (``_update_geo``). The temperatures are the conditionals': Python floats for
@@ -27,6 +30,7 @@ from sbayes_tpu_torch.model.math import (
     compact_indices,
     conditional_effect_mean,
     dirichlet_categorical_delta,
+    dirichlet_logpdf,
     gather_cols,
     gather_rows,
     normalize,
@@ -73,6 +77,24 @@ def _random_cluster_pair(gen, n_chains: int, n_clusters: int, device):
     return perm[:, 0], perm[:, 1]
 
 
+def _nanquantile_rows(x, q):
+    """Per-row quantile ``q`` (B,) of ``x`` (B, n) over its non-NaN entries,
+    interpolated linearly between the order statistics at ``q (n_valid - 1)``
+    (numpy's default method); NaN for a row without any. One sort of the
+    rows: ``torch.nanquantile`` with a vector ``q`` takes every q of every row."""
+    v = torch.sort(x, dim=-1).values                                   # NaN last
+    last = (~torch.isnan(x)).sum(-1).to(q.dtype) - 1
+    pos = q * last
+    low, high = torch.floor(pos), torch.ceil(pos)
+    w_high = pos - low
+
+    def at(i):
+        i = torch.clamp(torch.minimum(i, last), min=0).long()
+        return v.gather(-1, i[:, None])[:, 0]
+
+    return at(low) * (1 - w_high) + at(high) * w_high
+
+
 def _heat_prob(p, temperature):
     """p**(1/T) / (p**(1/T) + (1-p)**(1/T)) via logits (stable); ``p`` (B, N),
     ``temperature`` a float or (B,)."""
@@ -112,18 +134,58 @@ class OperatorFactory:
             return self.cond.post.feature_counts(state.clusters, state.source)
         return state.cl_counts, state.conf_counts
 
-    def _marginal_impl(self, state, i_cluster, counts, heat_effect_lh, ratio):
+    # ------------------------------------------------------------------
+    # Cluster-effect proposals: the effect (B, F, S) of cluster ``i_cluster``
+    # that scores membership. 'gibbs' (its posterior mean) is what the
+    # scheduled operators use; 'residual' and 'residual_counts' are
+    # selectable on the wide operator.
+    # ------------------------------------------------------------------
+
+    def _heated_effect(self, counts):
+        c = self.consts
+        return conditional_effect_mean(c.conc_cluster[None], counts, c.unif_conc[None],
+                                       self.Tp, self.T)
+
+    def cluster_effect_proposal_gibbs(self, state, cl_counts, conf_counts, i_cluster):
+        return self._heated_effect(_pick_cluster(cl_counts, i_cluster))
+
+    def cluster_effect_proposal_residual(self, state, cl_counts, conf_counts, i_cluster):
+        """The effect of the features of every object in no cluster."""
+        free = (~state.clusters.any(dim=1)).float()
+        return self._heated_effect(torch.einsum("bn,nfs->bfs", free, self.consts.features))
+
+    def cluster_effect_proposal_residual_counts(self, state, cl_counts, conf_counts, i_cluster):
+        """The effect of the feature counts above the expected confounder
+        mixture, over the free objects and the cluster's own whose residual
+        likelihood lies at or above the quantile ``1 - size / n_free``."""
+        c = self.consts
+        cluster = _pick_cluster(state.clusters, i_cluster)
+        free = (~state.clusters.any(dim=1)) | cluster
+        size, n_free = cluster.sum(-1), free.sum(-1)
+        exp_conf = self.cond.expected_confounder_features(state.clusters, state.weights,
+                                                          conf_counts)
+        residual = torch.clamp(c.features[None] - exp_conf, min=0.0) * free[:, :, None, None]
+        p = self._heated_effect(residual.sum(1))
+        lh = (p[:, None] * residual).sum((2, 3))                               # (B, N)
+        q = 1.0 - size / torch.clamp(n_free, min=1)
+        thresh = _nanquantile_rows(torch.where(free, lh, float("nan")), q)
+        relevant = free & (lh >= thresh[:, None])
+        return self._heated_effect((residual * relevant[:, :, None, None]).sum(1))
+
+    def _marginal_impl(self, state, i_cluster, counts, heat_effect_lh, ratio,
+                       effect_proposal="gibbs"):
         """Collapsed membership marginals of every object for cluster
-        ``i_cluster`` (B,): the signed log-odds (B, N) when ``ratio``, else
-        (log_m0, log_m1). The kernel of ``ops/marginal.py``."""
+        ``i_cluster`` (B,) under the effect ``cluster_effect_proposal_<effect_proposal>``:
+        the signed log-odds (B, N) when ``ratio``, else (log_m0, log_m1). The
+        kernel of ``ops/marginal.py``."""
         c = self.consts
         cl_counts, conf_counts = self._state_counts(state) if counts is None else counts
         hc = self.cond.post.has_components(state.clusters)
         hc_flip = hc.clone()
         hc_flip[..., 0] = ~hc[..., 0]
         use_heat = heat_effect_lh and not self.unit_T
-        p_eff = conditional_effect_mean(c.conc_cluster[None], _pick_cluster(cl_counts, i_cluster),
-                                        c.unif_conc[None], self.Tp, self.T)     # (B, F, S)
+        proposal = getattr(self, f"cluster_effect_proposal_{effect_proposal}")
+        p_eff = proposal(state, cl_counts, conf_counts, i_cluster)            # (B, F, S)
         conf_eff = normalize(conf_counts + c.conc_conf[None])
         p_rows = p_eff[:, None] if ratio else torch.stack([p_eff, p_eff], dim=1)
         B = p_eff.shape[0]
@@ -138,9 +200,11 @@ class OperatorFactory:
         t = per_chain(self.T, out[..., 0])
         return out[..., 0] / t, out[..., 1] / t
 
-    def _cluster_log_odds(self, state, i_cluster, counts=None, heat_effect_lh=False):
+    def _cluster_log_odds(self, state, i_cluster, counts=None, heat_effect_lh=False,
+                          effect_proposal="gibbs"):
         """(B, N) signed log-odds log_m1 - log_m0 of cluster membership."""
-        return self._marginal_impl(state, i_cluster, counts, heat_effect_lh, ratio=True)
+        return self._marginal_impl(state, i_cluster, counts, heat_effect_lh, ratio=True,
+                                   effect_proposal=effect_proposal)
 
     def _log_marginal_with_without(self, state, i_cluster, counts=None, heat_effect_lh=False):
         """(log_m0, log_m1): absolute log-marginals without / with membership."""
@@ -148,14 +212,14 @@ class OperatorFactory:
 
     def _cluster_posterior(self, state, i_cluster, gibbsish=True, counts=None,
                            additive_smoothing=1e-6, heat_effect_lh=False,
-                           consider_geo=False, geo_scaler=1.0):
+                           consider_geo=False, geo_scaler=1.0, effect_proposal="gibbs"):
         """(B, N) membership probability of each object; with
         ``consider_geo`` the log-odds gain the geo-prior change of adding
         the object (from the carried aggregates when the state has them)."""
         B, N = state.clusters.shape[0], self.consts.N
         if self.sample_from_prior or not gibbsish:
             return torch.full((B, N), 0.5, device=state.clusters.device)
-        odds = self._cluster_log_odds(state, i_cluster, counts, heat_effect_lh)
+        odds = self._cluster_log_odds(state, i_cluster, counts, heat_effect_lh, effect_proposal)
         if consider_geo:
             geo = self.cond.post.geo_prior_costs_per_object(state.clusters, i_cluster,
                                                             geo_agg=state.geo_agg)
@@ -329,17 +393,19 @@ class OperatorFactory:
     # ==================================================================
 
     def _make_wide_cluster_probs(self, w_stay: float, eps: float, consider_geo: bool = False,
-                                 geo_scaler: float = 2.0) -> Callable:
+                                 geo_scaler: float = 2.0, effect_proposal: str = "gibbs") -> Callable:
         """(B, N) Bernoulli proposal probabilities of the wide operator:
-        the posterior mixed with the current cluster, rescaled so the
-        expected proposal size matches the current size."""
+        the posterior (under ``effect_proposal``) mixed with the current
+        cluster, rescaled so the expected proposal size matches the current
+        size."""
 
         def cluster_probs(state, i_cluster, avail, counts=None):
             cluster = _pick_cluster(state.clusters, i_cluster)
             availf = avail.float()
             p_raw = self._cluster_posterior(state, i_cluster, counts=counts,
                                             additive_smoothing=0.0, heat_effect_lh=True,
-                                            consider_geo=consider_geo, geo_scaler=geo_scaler)
+                                            consider_geo=consider_geo, geo_scaler=geo_scaler,
+                                            effect_proposal=effect_proposal)
             p_raw = p_raw * availf
             p = (p_raw + EPS32) / torch.clamp((p_raw + EPS32 * availf).sum(-1, keepdim=True),
                                               min=TINY) * availf
@@ -359,17 +425,93 @@ class OperatorFactory:
 
         return cluster_probs
 
+    def _make_em_cluster_probs(self, consider_geo: bool, w_stay: float, eps: float,
+                               n_em_steps: int = 10) -> Callable:
+        """(B, N) Bernoulli proposal probabilities of the EM proposal: soft-EM
+        responsibilities (B, Gt, N) over the K clusters and every confounder
+        group (Gt = K + (C-1) Gmax, rows of unavailable groups at -inf before
+        the softmax over groups), annealed at temperature (n_steps / (1 +
+        i))^2 and seeded at step 0 with the cluster's Gibbs effect; then the
+        stay mixture and the expected-size rescale of the wide operator.
+        The first rescale divides by the total responsibility mass (N), as
+        the JAX package and sBayes do."""
+        c = self.consts
+        N, K = c.N, c.K
+        ga = torch.cat([torch.ones((K, N), dtype=torch.bool, device=c.device),
+                        ((c.groups > 0) & c.group_valid[..., None]).reshape(-1, N)])
+        prior_counts = 0.5 * c.applicable.float()
+        feats_filled = torch.where(c.na[..., None], torch.ones((), device=c.device), c.features)
+        neg_inf = torch.full((), NEG_INF, device=c.device)
+
+        def cluster_probs(state, i_cluster, avail, counts=None):
+            if self.sample_from_prior:
+                return avail.float() * 0.5
+            B = state.n_chains
+            ar = torch.arange(B, device=avail.device)
+            cluster = _pick_cluster(state.clusters, i_cluster)
+            cl_counts, conf_counts = self._state_counts(state) if counts is None else counts
+            p_clust = self.cluster_effect_proposal_gibbs(state, cl_counts, conf_counts, i_cluster)
+            z = ga.float().expand(B, -1, -1).clone()
+            z[:, :K] = state.clusters.float()
+            z[ar, i_cluster] = torch.where(avail, 1.0, z[ar, i_cluster])
+            z = z / torch.clamp(z.sum(1, keepdim=True), min=TINY)
+            for i_step in range(n_em_steps):
+                p = normalize(torch.einsum("bgn,nfs->bgfs", z, c.features) + prior_counts)
+                if i_step == 0:
+                    p[ar, i_cluster] = p_clust
+                log_pw = torch.einsum("bgfs,nfs->bgn", torch.log(torch.clamp(p, min=TINY)),
+                                      feats_filled)
+                log_lh = log_pw / (n_em_steps / (1.0 + i_step)) ** 2
+                if consider_geo:
+                    geo_log = -(torch.softmax(N * z, dim=2) @ c.cost_matrix) / c.geo.scale / 2.0
+                    geo_log[:, K:] = torch.log(torch.clamp(torch.exp(geo_log[:, :K]).mean(1),
+                                                           min=TINY))[:, None]
+                    log_lh = geo_log + log_lh
+                log_lh = torch.where(ga, log_lh, neg_inf)
+                log_lh[ar, i_cluster] = torch.where(avail, log_lh[ar, i_cluster], neg_inf)
+                z = torch.softmax(log_lh, dim=1)
+
+            availf = avail.float()
+            z_cl = torch.where(avail, z[ar, i_cluster], 0.0)
+            z_cl = z_cl / torch.clamp(z_cl.sum(-1, keepdim=True), min=TINY)
+            z_eps = (z_cl + eps) * availf
+            z_eps = z_eps / torch.clamp(z_eps.sum(-1, keepdim=True), min=TINY)
+            stay = (cluster & avail).float()
+            stay_n = stay / torch.clamp(stay.sum(-1, keepdim=True), min=TINY)
+            p = (1 - w_stay) * z_eps + w_stay * stay_n
+            old_size = stay.sum(-1, keepdim=True)
+            prev_exp = z.sum((1, 2))[:, None]
+            done = torch.zeros_like(old_size, dtype=torch.bool)
+            for _ in range(10):
+                p2 = torch.clamp(p * old_size / torch.clamp(prev_exp, min=TINY), eps,
+                                 1 - eps) * availf
+                p2 = torch.where(done, p, p2)
+                prev_exp = p2.sum(-1, keepdim=True)
+                done = done | (prev_exp > 0.975 * old_size)
+                p = p2
+            return torch.where(avail, p, 0.0)
+
+        return cluster_probs
+
     def make_alter_cluster_wide(self, consider_geo: bool = False, w_stay: float = 0.15,
-                                eps: float = None, geo_scaler: float = 2.0) -> Callable:
+                                eps: float = None, geo_scaler: float = 2.0,
+                                effect_proposal: str = "gibbs", em_proposal: bool = False,
+                                n_em_steps: int = 10) -> Callable:
         """Resample the full membership of one cluster (redraw until the
         proposal differs, at most 100 rounds) with a gathered-rows source
-        resample over the changed objects."""
+        resample over the changed objects. The proposal probabilities come
+        from the collapsed posterior under ``effect_proposal``, or with
+        ``em_proposal`` from ``n_em_steps`` steps of soft EM."""
         cond = self.cond
         K, N = self.consts.K, self.consts.N
         min_size, max_size = self.consts.min_size, self.consts.max_size
         if eps is None:
             eps = 0.01 / N
-        cluster_probs = self._make_wide_cluster_probs(w_stay, eps, consider_geo, geo_scaler)
+        if em_proposal:
+            cluster_probs = self._make_em_cluster_probs(consider_geo, w_stay, eps, n_em_steps)
+        else:
+            cluster_probs = self._make_wide_cluster_probs(w_stay, eps, consider_geo, geo_scaler,
+                                                          effect_proposal)
 
         def op(gen, state):
             B = state.n_chains
@@ -748,6 +890,43 @@ class OperatorFactory:
             return OpResult(state._replace(weights=weights_final),
                             torch.full((B,), NEG_INF, device=dev), torch.zeros(B, device=dev),
                             accept.float().mean(-1), source_prior_delta=sp_delta)
+
+        return op
+
+    # ==================================================================
+    # AlterWeights: a Dirichlet move of two components of one feature
+    # ==================================================================
+
+    def make_alter_weights(self, step_precision: float = 15.0) -> Callable:
+        """Per chain, a random feature and a random ordered pair of distinct
+        components: their share of the feature's weight is redrawn from a
+        Dirichlet centred on the current share (concentration ``1 +
+        step_precision * share``), the draw clipped to [1e-7, 1 - 1e-7] and
+        renormalised."""
+        C, F = self.consts.C, self.consts.F
+
+        def op(gen, state):
+            B = state.n_chains
+            dev = state.weights.device
+            ar = torch.arange(B, device=dev)
+            f_id = torch.randint(0, F, (B,), generator=gen, device=dev)
+            i1, i2 = _random_cluster_pair(gen, B, C, dev)
+            w = state.weights
+            w_curr = torch.stack([w[ar, f_id, i1], w[ar, f_id, i2]], dim=-1)   # (B, 2)
+            w_sum = w_curr.sum(-1, keepdim=True)
+            w_t = w_curr / w_sum
+            alpha = 1 + step_precision * w_t
+            g = torch._standard_gamma(alpha, generator=gen)
+            w_new_t = torch.clamp(g / g.sum(-1, keepdim=True), 1e-7, 1 - 1e-7)
+            w_new_t = w_new_t / w_new_t.sum(-1, keepdim=True)
+            log_q = dirichlet_logpdf(w_new_t, alpha)
+            log_q_back = dirichlet_logpdf(w_t, 1 + step_precision * w_new_t)
+            w_new = w_new_t * w_sum
+            weights = w.clone()
+            weights[ar, f_id, i1] = w_new[:, 0]
+            weights[ar, f_id, i2] = w_new[:, 1]
+            step_size = (weights - w).abs().sum((1, 2))
+            return OpResult(state._replace(weights=weights), log_q, log_q_back, step_size)
 
         return op
 

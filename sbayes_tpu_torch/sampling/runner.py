@@ -13,8 +13,11 @@ are recomputed exactly every ``REFRESH_EVERY_CHUNKS`` chunks. The STEP-TIME
 column of the operator statistics comes from a per-operator timing probe,
 run at start-up and at the run's midpoint. Resume reads the state pickle,
 else the clusters and stats files with a source imputed by one Gibbs pass.
+``run_chunk(..., trace=True)`` also returns the per-step log-posterior trace
+(the input of ``results/ess.py``), and ``cluster_contribution`` scores each
+cluster in isolation for the ``log_contribution_per_cluster`` columns.
 
-Not ported here: multi-device sharding and the trace runner.
+Not ported here: multi-device sharding.
 """
 from __future__ import annotations
 
@@ -165,14 +168,23 @@ class SamplerRuntime:
         return self.post.fill_state(initializer.generate_sample(gen, n_chains))
 
     def run_chunk(self, gen, op_gen, states: ChainState, stats: OperatorStats, n_steps: int,
-                  temps=None, prior_temps=None):
+                  temps=None, prior_temps=None, trace: bool = False):
         """``n_steps`` MH steps of every chain; one operator per step. ``temps``
-        / ``prior_temps``: None for unit temperatures, else (B,) tensors."""
+        / ``prior_temps``: None for unit temperatures, else (B,) tensors.
+        Returns (states, stats), and with ``trace`` also the (n_steps, B)
+        log-posterior ``log_lh + log_prior`` after each step as a numpy array:
+        one launch per step into a tensor on the device, one read per chunk."""
         apply = self.apply_fn(temps, prior_temps)
         ops = torch.multinomial(self.op_weights, n_steps, replacement=True, generator=op_gen)
-        for op_idx in ops.tolist():
+        log_post = (torch.empty((n_steps, states.n_chains), device=self.device) if trace
+                    else None)
+        for i, op_idx in enumerate(ops.tolist()):
             states, accept, step_size, nf = apply(op_idx, gen, states)
             stats = stats.record(op_idx, accept, step_size, nf)
+            if trace:
+                torch.add(states.log_lh, states.log_prior, out=log_post[i])
+        if trace:
+            return states, stats, _host(log_post)
         return states, stats
 
     def run_mc3_chunk(self, gen, op_gen, states: ChainState, stats: OperatorStats, temps,
@@ -241,10 +253,48 @@ class SamplerRuntime:
             obs_lh = (w * lh_exact).sum(-1)
         return parts, cl_counts, conf_counts, obs_lh
 
+    def cluster_contribution(self, states: ChainState) -> tuple:
+        """(B, K) log-likelihood and (B, K) log-prior of each cluster in
+        isolation: the source-marginalised mixture likelihood with
+        posterior-mean effects when the other clusters are emptied, and the
+        single-cluster size prior plus that cluster's geo prior plus the
+        weights prior (the source prior needs a source and is left out)."""
+        c = self.consts
+        B, K, N = states.clusters.shape
+        cl_counts, conf_counts = self.post.feature_counts(states.clusters, states.source)
+        only = torch.eye(K, dtype=torch.bool, device=self.device)            # (K, K)
+        clusters_i = (states.clusters[:, None] & only[None, :, :, None]).reshape(B * K, K, N)
+        counts_i = (cl_counts[:, None] * only[None, :, :, None, None]).reshape(
+            B * K, K, *cl_counts.shape[2:])
+        lh_pc = self.cond.likelihood_per_component(clusters_i, counts_i,
+                                                   conf_counts.repeat_interleave(K, 0))
+        w = normalize_weights(states.weights.repeat_interleave(K, 0),
+                              self.post.has_components(clusters_i))
+        obs = (w * lh_pc).sum(-1)
+        lh = torch.where(~c.na[None], torch.log(torch.clamp(obs, min=1e-35)),
+                         torch.zeros((), device=self.device)).sum((-1, -2)).view(B, K)
+
+        size = states.clusters.sum(-1).float()                                 # (B, K)
+        if c.size_prior_type == "uniform_size":
+            n = torch.tensor(float(c.N), device=self.device)
+            size_prior = -(torch.lgamma(n + 1.0) - torch.lgamma(size + 1.0)
+                           - torch.lgamma(n - size + 1.0))
+        elif c.size_prior_type == "quadratic":
+            size_prior = -torch.log(size ** 2)
+        else:  # uniform_area
+            size_prior = torch.zeros_like(size)
+        prior = (size_prior + self.post.geo_prior_per_cluster(states.clusters)
+                 + self.post.weights_prior(states.weights)[:, None])
+        return lh, prior
+
     def make_record(self, state_c: ChainState, i_step: int, chain: int = 0,
-                    with_likelihood: bool = True) -> SampleRecord:
+                    with_likelihood: bool = True,
+                    with_cluster_contribution: bool = False) -> SampleRecord:
         """The logged sample of ONE chain (``state_c``: a batch of one)."""
         parts, cl_counts, conf_counts, obs_lh = self.sample_view(state_c, with_likelihood)
+        contrib_lh = contrib_prior = None
+        if with_cluster_contribution:
+            contrib_lh, contrib_prior = (_host(x[0]) for x in self.cluster_contribution(state_c))
         return SampleRecord(
             i_step=i_step,
             clusters=_host(state_c.clusters[0]),
@@ -259,6 +309,8 @@ class SamplerRuntime:
             cluster_counts=_host(cl_counts[0]),
             conf_counts=_host(conf_counts[0]),
             observation_lh=_host(obs_lh[0]) if obs_lh is not None else None,
+            cluster_contribution_lh=contrib_lh,
+            cluster_contribution_prior=contrib_prior,
             chain=chain,
         )
 
@@ -365,10 +417,6 @@ class MCMCSetup:
     def _with_likelihood(self) -> bool:
         return not self.config.mcmc.sample_from_prior and self.config.results.log_likelihood
 
-    def _check_supported(self):
-        if self.config.results.log_contribution_per_cluster:
-            raise NotImplementedError("log_contribution_per_cluster is not ported yet")
-
     def log_setup(self):
         cfg = self.config.mcmc
         self.logger.info(self.model.get_setup_message())
@@ -427,7 +475,6 @@ class MCMCSetup:
 
     def sample(self, initial_sample: Optional[ChainState] = None, resume: bool = False,
                run: int = 1, seed: int = 0):
-        self._check_supported()
         cfg = self.config.mcmc
         rt = self.runtime
         gen, op_gen = make_generators(seed + 1000003 * run, rt.device)
@@ -454,7 +501,6 @@ class MCMCSetup:
         so each run remains a valid sampler). One run, or a resume (the runs
         may resume at different steps), samples the runs one after another."""
         run_ids = list(run_ids)
-        self._check_supported()
         cfg = self.config.mcmc
         rt = self.runtime
         R = len(run_ids)
@@ -489,6 +535,7 @@ class MCMCSetup:
         steps_per_sample = int(math.ceil(cfg.steps / cfg.samples))
         stats = rt.new_stats(states.n_chains)
         with_lh = self._with_likelihood()
+        with_contrib = self.config.results.log_contribution_per_cluster
         self._maybe_measure_op_times(states)
         self.t_start = time.time()
         self.logger.info(f"Sampling from posterior ({len(run_ids)} run(s) as one batch)...")
@@ -505,7 +552,8 @@ class MCMCSetup:
                 raise ValueError("Non-finite log-posterior was accepted during MCMC.")
             for i_r, run_loggers in enumerate(loggers_by_run):
                 record = rt.make_record(states.select(slice(i_r, i_r + 1)), i_step=i_step,
-                                        with_likelihood=with_lh)
+                                        with_likelihood=with_lh,
+                                        with_cluster_contribution=with_contrib)
                 self._push_operator_stats(run_loggers, stats, i_r,
                                           elapsed=time.time() - self.t_start,
                                           steps_done=i_step - i_step_start)
@@ -573,7 +621,6 @@ class MCMCSetup:
         swap phase every ``swap_interval`` steps. Rung 0 (T = 1) writes the
         run's files, the hot rungs theirs under ``hot_chains/``. Under
         ``resume`` every rung continues from its own pickle (or its files)."""
-        self._check_supported()
         cfg = self.config.mcmc
         mc3 = cfg.mc3
         rt = self.runtime
@@ -636,8 +683,10 @@ class MCMCSetup:
                 self.last_swap_matrix_save = self.swap_attempts
 
             for c in range(n_chains):
-                record = rt.make_record(states.select(slice(c, c + 1)), i_step=i_step, chain=c,
-                                        with_likelihood=with_lh and c == 0)
+                record = rt.make_record(
+                    states.select(slice(c, c + 1)), i_step=i_step, chain=c,
+                    with_likelihood=with_lh and c == 0,
+                    with_cluster_contribution=self.config.results.log_contribution_per_cluster)
                 self._push_operator_stats(loggers_by_chain[c], stats, c,
                                           elapsed=time.time() - self.t_start,
                                           steps_done=i_step - i_step_start)

@@ -34,11 +34,17 @@ def test_kernels_match_plain_on_the_card():
     rt_mc3, states_mc3, info_mc3 = chip_smoke.phase_full_width(
         256, 200, n_clusters=3, geo_prior="cost_based", temps=temps)
     jump = chip_smoke.phase_jump_512(n_chains=32, n_steps=20)
+    alt = chip_smoke.phase_alt_operators(rt_k3, states_k3, rt_mc3, states_mc3, temps)
     by_path = {"k1": info["launches"], "k3": info_k3["launches"],
                "mc3": info_mc3["launches"], "jump_512": jump["launches"]}
+    residual_launches = chip_smoke.add_launches(*(alt[k]["launches"] for k in (
+        "wide_residual", "wide_residual_counts", "wide_residual_counts_mc3")))
     rows = chip_smoke.phase_kernels(rt, states, rt_k3, states_k3, rt_mc3, states_mc3, temps,
-                                    by_path, jump["two_eff"])
-    by_name = {r["name"]: r for r in rows}
+                                    by_path, jump["two_eff"], residual_launches)
+    by_name = {r["name"]: r for r in rows if r.get("inputs") != "residual"}
+    residual = {r["name"]: r for r in rows if r.get("inputs") == "residual"}
+    assert residual["marginal"]["launches"] == 4 * chip_smoke.ALT_STEPS
+    assert residual["marginal_heat"]["launches"] == 2 * chip_smoke.ALT_STEPS
     assert by_name["marginal_abs"]["launches_by_path"]["k3"] > 0
     assert by_name["marginal_two_eff"]["launches_by_path"]["jump_512"] == 40
     assert by_name["marginal_heat"]["launches_by_path"]["mc3"] > 0
