@@ -1,6 +1,16 @@
 """Chip smoke test of the PyTorch port (``sbayes_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py revision <root> <out.npz>   # one revision's kernel outputs
+    python3 chip_smoke.py compare <a.npz> <b.npz>      # two revisions' bits
+
+The last two hold both kernels of two revisions of the port against each
+other: ``revision`` imports ``sbayes_tpu_torch`` from ``<root>`` (a ``git
+archive`` of the revision), draws the inputs of the likelihood and of every
+marginal variant from a seed at REVISION_SHAPES, saves the outputs and
+prints the device time per launch; ``compare`` fails unless the main
+shapes' outputs are bit-equal (elsewhere it reports the differences). Run
+the revisions in turns in one call (a, b, b, a).
 
 1. prints the card's name and power limit, builds every CUDA kernel of
    ``sbayes_tpu_torch/csrc`` (one nvcc per source, all started together);
@@ -46,8 +56,9 @@
    trace window of ESS_STEPS steps in chunks of 200 (``run_chunk(...,
    trace=True)``): steps per second, the multichain ESS of the log-posterior,
    ESS per second and split-R-hat, the trace's last row against the carried
-   log-posterior, CUDA kernels per step of one 50-step window with and
-   without the trace (same draws), and steps per second of 200-step windows
+   log-posterior, CUDA kernels per step with and without the trace (same
+   draws; the median of three 20-step windows), and steps per second of
+   100-step windows
    without, with, with and without it. ``alt_operators``: on the
    ``full_width_k3`` states each of the wide operator with the residual and
    the residual-counts effect, with the EM proposal, and ``alter_weights``
@@ -55,7 +66,18 @@
    against its recompute), the residual-counts wide also at the
    ``full_width_mc3`` temperatures (the heat variant on residual rows).
    ``prior_samples``: PRIOR_SAMPLES samples from the prior at K = 3, their
-   ``log_lh`` (the likelihood kernel) against the plain likelihood. In the
+   ``log_lh`` (the likelihood kernel) against the plain likelihood.
+   ``scale``: ``benchmarks/scale10k.py``'s workload (10,000 objects x 5,000
+   features x 5 states, K = 5, uniform geo prior, sizes 10-3000), packed
+   source and feature tiles asserted, SCALE_CHAINS chains from the EM
+   initializer, SCALE_CHUNKS chunks of SCALE_CHUNK steps of the full
+   schedule: steps per second, peak device memory, ms per step of each
+   operator alone, the source sweep always accepted, the wide operator's
+   moves above its rows cap, the carried state against its recompute; the
+   same once more from an in-bounds start (``in_bounds``: K random disjoint
+   clusters of the EM's target size, 200 objects, a source pass over all
+   objects), with sizes held strictly within the bounds; both kernels
+   against their plain versions on SCALE_KERNEL_CHAINS chains. In the
    CLI block, ``init_methods``: ``cli.main`` at K = 3 with the
    ``seed_points`` initializer, then with ``random_growth`` and
    ``log_contribution_per_cluster``;
@@ -75,7 +97,9 @@
    variant also at ``jump_512``'s shapes, the heat variant also on the
    ``full_width_mc3`` states at their per-chain temperatures (``"mc3"``);
    one ``kernels`` JSON line, ``launches`` summed over the driven paths
-   (``launches_by_path``); the ratio and heat variants once more on the
+   (``launches_by_path``), with rows at the scale shape (``"inputs":
+   "scale"``: SCALE_KERNEL_CHAINS chains, all SCALE_CHAINS under
+   ``all_chains``); the ratio and heat variants once more on the
    residual-counts effect rows of ``alt_operators`` (``"inputs":
    "residual"``, launches: that path's).
    ``ms``, ``plain_ms`` and ``launch_floor_ms`` time eager calls with
@@ -111,6 +135,10 @@ MC3_LADDER = {"chains": 8, "temperature_diff": 0.1}                    # rungs o
 ESS_WARMUP, ESS_STEPS = 200, 1000
 ALT_STEPS = 50
 PRIOR_SAMPLES = 4096
+# benchmarks/scale10k.py's workload (BASELINE.json configs[4]); steps cut, not width
+SCALE_SHAPE = {"n_objects": 10_000, "n_features": 5_000, "n_states": 5, "n_families": 10}
+SCALE_CHAINS, SCALE_CHUNK, SCALE_CHUNKS = 16, 20, 3
+SCALE_KERNEL_CHAINS = 2          # the plain marginal's (B, N, F, S) temporaries stay 2 GB
 LOGLH_TOL_REL = 1e-5             # lgammaf vs torch.lgamma, summation order (of the total)
 MARGINAL_TOL_ABS = 1e-4          # 36 logs summed in another order (per object)
 MARGINAL_TOL_FEATURES = 36       # wider data: the tolerance grows with the logs summed
@@ -163,6 +191,7 @@ def reset_counters():
     from sbayes_tpu_torch.ops import loglh, marginal
 
     loglh.launches.count = 0
+    loglh.launches.variants.clear()
     marginal.launches.count = 0
     marginal.launches.variants.clear()
 
@@ -171,6 +200,8 @@ def counters() -> dict:
     from sbayes_tpu_torch.ops import loglh, marginal
 
     out = {"loglh": loglh.launches.count}
+    if loglh.launches.variants.get("packed"):
+        out["loglh_packed"] = loglh.launches.variants["packed"]
     for key, n in marginal.launches.variants.items():
         out[marginal.variant_name(*key)] = n
     return out
@@ -424,9 +455,12 @@ def phase_init_methods(tmp: Path) -> dict:
     return out
 
 
-def check_carried_state(consts, states, ref, stats, jump_idx=None) -> dict:
+def check_carried_state(consts, states, ref, stats, jump_idx=None, init_sizes=None) -> dict:
     """The carried invariants of ``states`` against the exact recompute
-    ``ref``; raises on a violation, returns the largest differences."""
+    ``ref``; raises on a violation, returns the largest differences.
+    ``init_sizes`` (B, K): the sizes the run started from; a cluster that
+    the EM initializer left out of its bounds (both packages, ROADMAP C.4)
+    may only have moved towards them."""
     # (absolute, relative) tolerance: the counts are exact integers; the f32
     # running totals take one rounding per accepted move.
     tol = {"log_lh": (1e-3, 1e-4), "log_prior": (1e-3, 1e-4), "cl_counts": (0.0, 0.0),
@@ -456,7 +490,11 @@ def check_carried_state(consts, states, ref, stats, jump_idx=None) -> dict:
     if int((states.clusters.sum(1) > 1).sum()) != 0:
         raise AssertionError("an object is in two clusters")
     sizes = states.clusters.sum(-1)
-    if int(sizes.min()) < consts.min_size or int(sizes.max()) > consts.max_size:
+    low, high = consts.min_size, consts.max_size
+    if init_sizes is not None:
+        low = torch.clamp(init_sizes, max=low)
+        high = torch.clamp(init_sizes, min=high)
+    if bool((sizes < low).any()) or bool((sizes > high).any()):
         raise AssertionError(f"cluster sizes {int(sizes.min())}..{int(sizes.max())} leave "
                              f"[{consts.min_size}, {consts.max_size}]")
     errs["size_min"], errs["size_max"] = int(sizes.min()), int(sizes.max())
@@ -662,11 +700,257 @@ def phase_jump_512(n_chains: int = 64, n_steps: int = 50) -> dict:
                 c, inputs, (True, False, True), n_chains)}
 
 
-def schedule_window(rt, states, n_steps: int, trace: bool, profile: bool = False) -> float:
+def scale_runtime():
+    """The scale workload of ``benchmarks/scale10k.py``: 10,000 objects x 5,000
+    features x 5 states, universal + 10 families, K = 5, uniform geo prior,
+    sizes 10-3000, EM initialization (1 attempt, 3 EM steps, 200 objects per
+    cluster); (runtime, data seconds, model seconds)."""
+    from sbayes_tpu_torch.model.model import Model
+    from sbayes_tpu_torch.sampling.runner import SamplerRuntime
+    from sbayes_tpu_torch.testing import synthetic_config
+    from sbayes_tpu_torch.testing_scale import synthetic_data_large
+
+    t0 = time.perf_counter()
+    data = synthetic_data_large(**SCALE_SHAPE, seed=0)
+    t_data = time.perf_counter() - t0
+    cfg = synthetic_config(n_clusters=5, geo_prior="uniform")
+    cfg.model.prior.objects_per_cluster.min = 10
+    cfg.model.prior.objects_per_cluster.max = 3000
+    init = cfg.mcmc.initialization
+    init.attempts, init.em_steps, init.objects_per_cluster = 1, 3, 200
+    t0 = time.perf_counter()
+    model = Model(data, cfg.model, device=DEVICE)
+    torch.cuda.synchronize()
+    return SamplerRuntime(model, cfg.mcmc), t_data, time.perf_counter() - t0
+
+
+def scale_operator_times(rt, states, cap: int, reps: int = 3) -> dict:
+    """Each operator alone for ``reps`` MH steps of the whole batch: ms per
+    step; the sweep's acceptance (always) and the wide operator's moves
+    above the rows cap (rejected: step_size is their flip count)."""
+    from sbayes_tpu_torch.sampling.operators import OperatorFactory
+    from sbayes_tpu_torch.sampling.runner import make_generators
+
+    if not OperatorFactory(rt.cond).source_sweep:
+        raise AssertionError(f"no source sweep at {rt.consts.F} features")
+    gen, _ = make_generators(31, DEVICE)
+    apply = rt.apply_fn()
+    out, over_cap, sweep = {}, 0, {"tries": 0, "accepts": 0}
+    for i, name in enumerate(rt.op_names):
+        st = apply(i, gen, states)[0]
+        torch.cuda.synchronize()
+        steps = []
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            st, accept, step_size, _ = apply(i, gen, st)
+            steps.append((accept, step_size))
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) / reps * 1e3
+        if name.startswith("gibbs_sample_sources"):
+            sweep["tries"] += sum(a.numel() for a, _ in steps)
+            sweep["accepts"] += sum(int(a.sum()) for a, _ in steps)
+        if name == "gibbsish_sample_cluster_wide_geo":
+            over_cap = sum(int((ss > cap).sum()) for _, ss in steps)
+            wide_tries = sum(ss.numel() for _, ss in steps)
+    if sweep["tries"] == 0 or sweep["accepts"] != sweep["tries"]:
+        raise AssertionError(f"the source sweep was not always accepted: {sweep}")
+    return {"op_ms_per_step": out, "reps": reps, "sweep_accepts": sweep,
+            "wide_rows_cap": cap, "wide_over_cap": over_cap, "wide_tries": wide_tries}
+
+
+def in_bounds_start(rt, states, gen, size: int):
+    """From ``states``: K random disjoint clusters of ``size`` objects per
+    chain, the source of the objects that left every cluster moved from the
+    cluster component to their first confounder's, then one Gibbs pass over
+    every object's source; every carried invariant recomputed."""
+    from sbayes_tpu_torch.sampling.operators import OperatorFactory
+
+    c = rt.consts
+    if not bool(c.hc_conf.any(-1).all()):
+        raise AssertionError("an object has no confounder component")
+    order = torch.argsort(torch.rand((states.n_chains, c.N), generator=gen, device=c.device),
+                          dim=-1)
+    clusters = torch.stack([(order >= k * size) & (order < (k + 1) * size)
+                            for k in range(c.K)], dim=1)
+    fallback = (1 + c.hc_conf.to(torch.uint8).argmax(-1)).to(states.source.dtype)  # (N,)
+    stray = (states.source == 0) & ~clusters.any(1)[:, :, None]
+    source = torch.where(stray, fallback[None, :, None], states.source)
+    states = rt.refresh(states._replace(clusters=clusters, source=source))
+    states = OperatorFactory(rt.cond).make_gibbs_sample_source("all", max_size=c.N)(
+        gen, states).state
+    return rt.refresh(states)
+
+
+def wide_cap_check(rt, states, cap: int = 1, n_steps: int = 3) -> dict:
+    """The wide operator alone with a rows cap of ``cap`` for ``n_steps`` MH
+    steps: every move that changes more rows is rejected (its step_size is
+    its flip count), there is at least one, and the carried state equals
+    its recompute."""
+    from sbayes_tpu_torch.sampling.kernel import OperatorStats, make_mh_apply_fn
+    from sbayes_tpu_torch.sampling.operators import OperatorFactory, OperatorSpec
+    from sbayes_tpu_torch.sampling.runner import make_generators
+
+    wide = OperatorFactory(rt.cond, wide_rows_cap=cap).make_alter_cluster_wide(
+        consider_geo=False)
+    apply = make_mh_apply_fn(rt.cond, [OperatorSpec("wide_capped", 1.0, wide)])
+    gen, _ = make_generators(37, DEVICE)
+    stats = OperatorStats.zeros(states.n_chains, 1, rt.consts.device)
+    over = accepted_over = 0
+    for _ in range(n_steps):
+        states, accept, step_size, nf = apply(0, gen, states)
+        stats = stats.record(0, accept, step_size, nf)
+        over += int((step_size > cap).sum())
+        accepted_over += int((accept & (step_size > cap)).sum())
+    if over == 0 or accepted_over:
+        raise AssertionError(f"rows cap {cap}: {over} moves above it, {accepted_over} accepted")
+    errs = check_carried_state(rt.consts, states, rt.refresh(states), stats)
+    return {"cap": cap, "steps": n_steps, "moves_above_cap": over,
+            "tries": n_steps * states.n_chains, "carried_vs_recompute_max_abs": errs}
+
+
+def scale_run(rt, gen, op_gen, states, init_sizes=None) -> tuple:
+    """SCALE_CHUNKS chunks of SCALE_CHUNK steps of the full schedule from
+    ``states`` and the exact refresh a logged sample takes (from the carried
+    counts: the likelihood kernel runs at init); the carried state against
+    it (sizes within the bounds, or moved towards them from ``init_sizes``),
+    the sweep never rejected: (states, summary, launches of the steps and
+    the refresh)."""
+    c = rt.consts
+    torch.cuda.reset_peak_memory_stats()
+    stats = rt.new_stats(states.n_chains)
+    reset_counters()
+    t0 = time.perf_counter()
+    for _ in range(SCALE_CHUNKS):
+        states, stats = rt.run_chunk(gen, op_gen, states, stats, SCALE_CHUNK)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    ref = rt.refresh(states)                    # what a logged sample takes
+    launches = counters()
+    peak_run = torch.cuda.max_memory_allocated()
+    if not launches.get("marginal"):
+        raise AssertionError(f"the marginal was not launched at the scale shape: {launches}")
+    errs = check_carried_state(c, states, ref, stats, init_sizes=init_sizes)
+    tries = (stats.accepts + stats.rejects).sum(0)
+    for i, name in enumerate(rt.op_names):
+        if name.startswith("gibbs_sample_sources") and int(stats.rejects[:, i].sum()):
+            raise AssertionError(f"{name} rejected a sweep")
+    n_steps = SCALE_CHUNK * SCALE_CHUNKS
+    return states, {
+        "steps": n_steps, "run_s": t_run, "steps_per_s": n_steps / t_run,
+        "chain_steps_per_s": states.n_chains * n_steps / t_run, "peak_run_gb": peak_run / 1e9,
+        "launches": launches, "launches_per_step": {k: v / n_steps for k, v in launches.items()},
+        "operator_draws": dict(zip(rt.op_names, tries.tolist())),
+        "accept_rate_by_operator": dict(zip(rt.op_names, (
+            stats.accepts.sum(0).float() / tries.clamp(min=1).float()).tolist())),
+        "sizes": states.clusters.sum(-1).tolist(), "carried_vs_recompute_max_abs": errs}, launches
+
+
+def phase_scale() -> tuple:
+    """The scale workload on SCALE_CHAINS chains: init, SCALE_CHUNKS chunks of
+    SCALE_CHUNK steps of the full schedule (``run_chunk``), an exact refresh;
+    the carried state against it (counts exactly), the sweep always
+    accepted, sizes within bounds (a cluster the EM initializer left out of
+    them may only move towards them), no object in two clusters; steps/s, peak
+    device memory, ms per step of each operator, both kernels' launches.
+    Then the same from an in-bounds start (``in_bounds_start``), where the
+    sizes must stay within the bounds. Then both kernels against their plain
+    versions on SCALE_KERNEL_CHAINS of the chains (both starts). Returns
+    (phase info, kernel rows)."""
+    from sbayes_tpu_torch.ops import marginal
+    from sbayes_tpu_torch.sampling.operators import OperatorFactory
+    from sbayes_tpu_torch.sampling.runner import make_generators
+
+    rt, t_data, t_model = scale_runtime()
+    c = rt.consts
+    if not c.source_packed or c.feature_chunk != 500:
+        raise AssertionError(f"scale layout: packed {c.source_packed}, chunk {c.feature_chunk}")
+    cap = OperatorFactory(rt.cond).wide_rows_cap
+    gen, op_gen = make_generators(29, DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    states = rt.init_chains(gen, SCALE_CHAINS)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    peak_init = torch.cuda.max_memory_allocated()
+    init_launches = counters()
+    init_sizes = states.clusters.sum(-1)
+    em_states = states
+    states, run, launches = scale_run(rt, gen, op_gen, states, init_sizes=init_sizes)
+    launches = add_launches(init_launches, launches)
+    if not launches.get("loglh_packed"):                # the initializer's likelihoods
+        raise AssertionError(f"the packed likelihood was not launched at init: {launches}")
+    peak_run = run.pop("peak_run_gb")
+    info = {"chains": SCALE_CHAINS, "N": c.N, "F": c.F, "S": c.S, "C": c.C, "K": c.K,
+            "Gmax": c.Gmax, "source_packed": c.source_packed, "feature_chunk": c.feature_chunk,
+            "data_s": t_data, "model_s": t_model, "init_s": t_init, **run,
+            "peak_memory_gb": {"init": peak_init / 1e9, "run": peak_run},
+            "launches": launches, "init_sizes": init_sizes.tolist(),
+            **scale_operator_times(rt, states, cap)}
+
+    # The same from an in-bounds start: the jump, the wide operator (and its
+    # rows cap) and grow/shrink move clusters of the size the EM aims at,
+    # and the sizes stay strictly within the bounds.
+    size = rt.mcmc_config.initialization.objects_per_cluster
+    start = in_bounds_start(rt, em_states, gen, size)
+    del em_states
+    states_ib, run_ib, launches_ib = scale_run(rt, gen, op_gen, start)
+    info["in_bounds"] = {"objects_per_cluster": size, **run_ib,
+                         **scale_operator_times(rt, states_ib, cap),
+                         "wide_cap_check": wide_cap_check(rt, states_ib)}
+    few_ib = states_ib.select(torch.arange(SCALE_KERNEL_CHAINS, device=c.device))
+    info["in_bounds"]["kernels_vs_plain"] = compare_with_plain(c, path_kernel_inputs(rt, few_ib))
+    del start, states_ib, few_ib
+
+    # Both kernels at the scale shape: against their plain versions on a few
+    # chains, and timed there and on all of them.
+    few = states.select(torch.arange(SCALE_KERNEL_CHAINS, device=states.clusters.device))
+    inputs = path_kernel_inputs(rt, few)
+    info["kernels_vs_plain"] = compare_with_plain(c, inputs)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = [{"name": "loglh", "route": "cuda", "source": "sbayes_tpu_torch/csrc/loglh.cu",
+             "replaces": "sbayes_tpu/ops/pallas_kernels.py:82", "inputs": "scale",
+             "launches": launches["loglh"] + launches_ib["loglh"],
+             "launches_by_path": {"scale": launches["loglh"],
+                                  "scale_in_bounds": launches_ib["loglh"]},
+             "max_abs_err": max(info["kernels_vs_plain"]["loglh_abs"],
+                                info["in_bounds"]["kernels_vs_plain"]["loglh_abs"]),
+             "max_rel_err": max(info["kernels_vs_plain"]["loglh_rel"],
+                                info["in_bounds"]["kernels_vs_plain"]["loglh_rel"]),
+             **time_loglh(c, few, reps=3, launches=2),
+             "all_chains": time_loglh(c, states, reps=3, launches=2)}]
+    all_inputs = path_kernel_inputs(rt, states)
+    for variant in marginal.VARIANTS:
+        name = marginal.variant_name(*variant)
+        timed = time_marginal_variant(c, inputs, variant, SCALE_KERNEL_CHAINS, reps=5)
+        args, kw = marginal_variant_args(all_inputs, *variant)
+        n_bytes = marginal.bytes_moved(c, SCALE_CHAINS, variant[0], variant[2], variant[1])
+        b_ms, b_by = bound_ms(n_bytes, marginal.operations(c, SCALE_CHAINS, variant[0],
+                                                           variant[2], variant[1]))
+        run = lambda: marginal.marginal(c, *args, **kw)  # noqa: E731
+        rows.append({"name": name, "route": "cuda",
+                     "source": "sbayes_tpu_torch/csrc/marginal.cu",
+                     "replaces": "sbayes_tpu/ops/pallas_marginal.py:178", "inputs": "scale",
+                     "launches": launches.get(name, 0) + launches_ib.get(name, 0),
+                     "launches_by_path": {"scale": launches.get(name, 0),
+                                          "scale_in_bounds": launches_ib.get(name, 0)},
+                     **timed,
+                     "max_abs_err": max(timed["max_abs_err"], info["kernels_vs_plain"][name],
+                                        info["in_bounds"]["kernels_vs_plain"][name]),
+                     "object_tile": marginal.object_tile(SCALE_KERNEL_CHAINS, c.N, n_sm),
+                     "all_chains": {"chains": SCALE_CHAINS, "ms": cuda_time_ms(run, 5),
+                                    "device_ms": device_time_ms(run, 5, 5),
+                                    "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
+                                    "object_tile": marginal.object_tile(SCALE_CHAINS, c.N,
+                                                                        n_sm)}})
+    return info, rows
+
+
+def schedule_window(rt, states, n_steps: int, trace: bool, profile: bool = False) -> tuple:
     """``n_steps`` steps of the schedule from ``states``, the generators seeded
     the same on every call, so two calls draw the same operators: with
     ``profile`` the CUDA kernels (memory copies included) per step from
-    torch.profiler, else the steps per second."""
+    torch.profiler, else the steps per second; and the end states."""
     from sbayes_tpu_torch.sampling.runner import make_generators
 
     gen, op_gen = make_generators(23, DEVICE)
@@ -674,14 +958,19 @@ def schedule_window(rt, states, n_steps: int, trace: bool, profile: bool = False
     torch.cuda.synchronize()
     if not profile:
         t0 = time.perf_counter()
-        rt.run_chunk(gen, op_gen, states, stats, n_steps, trace=trace)
+        end = rt.run_chunk(gen, op_gen, states, stats, n_steps, trace=trace)[0]
         torch.cuda.synchronize()
-        return n_steps / (time.perf_counter() - t0)
+        return n_steps / (time.perf_counter() - t0), end
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        rt.run_chunk(gen, op_gen, states, stats, n_steps, trace=trace)
+        end = rt.run_chunk(gen, op_gen, states, stats, n_steps, trace=trace)[0]
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-    return sum(e.count for e in events) / n_steps
+    return sum(e.count for e in events) / n_steps, end
+
+
+def same_states(a, b) -> bool:
+    """Bit-equal chain states (every tensor field)."""
+    return all(torch.equal(x, y) for x, y in zip(a, b) if isinstance(x, torch.Tensor))
 
 
 def phase_ess(geo_prior: str) -> dict:
@@ -690,9 +979,9 @@ def phase_ess(geo_prior: str) -> dict:
     of the log-posterior trace (chains x steps), ESS per second of the
     window and split-R-hat; the trace's last row equal to the carried
     ``log_lh + log_prior``, the carried state equal to its recompute; kernels
-    per step with and without the trace over one 50-step window each, and
-    steps per second of 200-step windows without, with, with and without the
-    trace (the same draws in each)."""
+    per step of a 50-step window with and without the trace (each profiled
+    twice), and steps per second of 200-step windows without, with, with and
+    without the trace (the same draws in each)."""
     from sbayes_tpu_torch.results.ess import multichain_ess, split_rhat
     from sbayes_tpu_torch.sampling.runner import make_generators
 
@@ -722,21 +1011,38 @@ def phase_ess(geo_prior: str) -> dict:
         raise AssertionError(f"multichain ESS {ess} outside (0, {x.size}]")
     errs = check_carried_state(rt.consts, states, rt.refresh(states), stats,
                                rt.op_names.index("cluster_jump_gibbsish"))
+    # Kernels per step of the same 50 steps with and without the trace. Each
+    # window is profiled twice: the draws repeat bit for bit (the end states
+    # are compared), so the kernels do too, and a count below the other is a
+    # window whose records the profiler lost (PERF.md, section 7). The larger
+    # count of each pair is the window's; both are reported.
     window = 50
     rt.run_chunk(gen, op_gen, states, stats, 5)                     # warm the profiler path
-    with_trace = schedule_window(rt, states, window, trace=True, profile=True)
-    without = schedule_window(rt, states, window, trace=False, profile=True)
+    profiled, ends = {}, {}
+    for on in (True, False):
+        runs = [schedule_window(rt, states, window, trace=on, profile=True) for _ in range(2)]
+        if not same_states(runs[0][1], runs[1][1]):
+            raise AssertionError(f"two {window}-step windows with the same draws ended apart "
+                                 f"(trace {on})")
+        profiled[on] = [k for k, _ in runs]
+        ends[on] = runs[0][1]
+    if not same_states(ends[True], ends[False]):
+        raise AssertionError("the trace changed the states of a window")
+    with_trace, without = max(profiled[True]), max(profiled[False])
     if not 0 < with_trace - without <= 2:
-        raise AssertionError(f"the trace adds {with_trace - without} kernels per step")
+        raise AssertionError(f"the trace adds {with_trace - without} kernels per step "
+                             f"(windows: {profiled})")
     rates = {"with_trace": [], "without_trace": []}
     for on in (False, True, True, False):
         rates["with_trace" if on else "without_trace"].append(
-            schedule_window(rt, states, 200, trace=on))
+            schedule_window(rt, states, 200, trace=on)[0])
     return {"geo": geo_prior, "K": 3, "chains": CHAINS, "warmup_steps": ESS_WARMUP,
             "steps": ESS_STEPS, "run_s": wall, "steps_per_s": ESS_STEPS / wall,
             "multichain_ess": ess, "ess_per_s": ess / wall, "split_rhat": split_rhat(x),
             "trace_mean": float(x.mean()), "trace_last_row_equal": True,
-            "kernels_per_step": {"with_trace": with_trace, "without_trace": without},
+            "kernels_per_step": {"with_trace": with_trace, "without_trace": without,
+                                 "windows": {"with_trace": profiled[True],
+                                             "without_trace": profiled[False]}},
             "window_steps_per_s": rates, "launches": launches, "carried_vs_recompute_max_abs": errs}
 
 
@@ -844,7 +1150,7 @@ def phase_prior_samples(rt) -> dict:
 def cuda_time_ms(fn, reps: int = 50) -> float:
     """Milliseconds per eager call: CUDA events around ``reps`` calls, so host
     dispatch counts where it is slower than the device."""
-    for _ in range(5):
+    for _ in range(min(reps, 5)):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -994,7 +1300,8 @@ def residual_kernel_inputs(cond, states) -> dict:
             "hc_flip": hc_flip.float(), "incl": hc[..., 0].float(), "inv_t": inv_t}
 
 
-def time_marginal_variant(c, inputs: dict, variant: tuple, n_chains: int) -> dict:
+def time_marginal_variant(c, inputs: dict, variant: tuple, n_chains: int,
+                          reps: int = 50) -> dict:
     """One marginal variant on ``inputs``: its error against the plain
     version, eager and device time, the plain version's time and the bound."""
     from sbayes_tpu_torch.ops import marginal
@@ -1008,8 +1315,10 @@ def time_marginal_variant(c, inputs: dict, variant: tuple, n_chains: int) -> dic
     ratio, heat, two_eff = variant
     n_bytes = marginal.bytes_moved(c, n_chains, ratio, two_eff, heat)
     b_ms, b_by = bound_ms(n_bytes, marginal.operations(c, n_chains, ratio, two_eff, heat))
-    return {"max_abs_err": err, "ms": cuda_time_ms(run), "device_ms": device_time_ms(run),
-            "plain_ms": cuda_time_ms(lambda: marginal.marginal_plain(c, *args, **kw), reps=10),
+    return {"max_abs_err": err, "ms": cuda_time_ms(run, reps),
+            "device_ms": device_time_ms(run, min(reps, 20), min(reps, 20)),
+            "plain_ms": cuda_time_ms(lambda: marginal.marginal_plain(c, *args, **kw),
+                                     reps=min(reps, 10)),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "bytes": n_bytes,
             "chains": n_chains, "F": c.F}
 
@@ -1044,17 +1353,26 @@ def random_kernel_inputs(c, n_chains: int, seed: int) -> dict:
 
 def compare_with_plain(c, inputs: dict) -> dict:
     """Both kernels and every marginal variant against their plain versions
-    on ``inputs``; raises beyond a tolerance, returns the largest errors."""
+    on ``inputs``; the likelihood on both source forms (the packed kernel
+    bit-equal to the bool one: the same terms in fixed point); raises beyond
+    a tolerance, returns the largest errors."""
+    from sbayes_tpu_torch.model.math import pack_source, source_is_packed, source_onehot
     from sbayes_tpu_torch.ops import loglh, marginal
 
-    got = loglh.log_likelihood(c, inputs["clusters"], inputs["source"])
-    want = loglh.log_likelihood_plain(c, inputs["clusters"], inputs["source"])
-    again = [loglh.log_likelihood(c, inputs["clusters"], inputs["source"]) for _ in range(4)]
+    src = inputs["source"]
+    forms = {"packed": src if source_is_packed(src) else pack_source(src),
+             "bool": source_onehot(src, c.C)}
+    got = {k: loglh.log_likelihood(c, inputs["clusters"], v) for k, v in forms.items()}
+    want = loglh.log_likelihood_plain(c, inputs["clusters"], src)
+    again = [loglh.log_likelihood(c, inputs["clusters"], forms["packed"]) for _ in range(4)]
     torch.cuda.synchronize()
-    if not all(torch.equal(got, other) for other in again):
-        raise AssertionError("loglh kernel: launches on the same inputs differ in bits")
+    if not all(torch.equal(got["packed"], other) for other in again + [got["bool"]]):
+        raise AssertionError("loglh kernel: launches on the same inputs (either source form) "
+                             "differ in bits")
+    got = got["bool"]
     errs = {"loglh_abs": float((got - want).abs().max()),
-            "loglh_rel": float(((got - want).abs() / want.abs()).max())}
+            "loglh_rel": float(((got - want).abs() / want.abs()).max()),
+            "loglh_packed_equals_bool": True}
     if not errs["loglh_rel"] <= LOGLH_TOL_REL:
         raise AssertionError(f"loglh kernel vs plain (N, F, S = {c.N, c.F, c.S}): relative "
                              f"error {errs['loglh_rel']} > {LOGLH_TOL_REL}")
@@ -1159,20 +1477,24 @@ def many_groups_check(n_chains: int = 2) -> dict:
             "errors": compare_with_plain(c, random_kernel_inputs(c, n_chains, seed=9))}
 
 
-def time_loglh(c, states) -> dict:
-    """The likelihood kernel on ``states``: eager and device time, the plain
-    version's time, the bound."""
+def time_loglh(c, states, reps: int = 50, launches: int = 20) -> dict:
+    """The likelihood kernel on ``states`` (either source form): eager and
+    device time, the plain version's time, the bound."""
+    from sbayes_tpu_torch.model.math import source_is_packed
     from sbayes_tpu_torch.ops import loglh
 
     def run():
         return loglh.log_likelihood(c, states.clusters, states.source)
 
-    n_bytes = loglh.bytes_moved(c, states.n_chains)
-    b_ms, b_by = bound_ms(n_bytes, loglh.operations(c, states.n_chains))
-    return {"ms": cuda_time_ms(run), "device_ms": device_time_ms(run),
+    packed = source_is_packed(states.source)
+    n_bytes = loglh.bytes_moved(c, states.n_chains, packed)
+    b_ms, b_by = bound_ms(n_bytes, loglh.operations(c, states.n_chains, packed))
+    return {"ms": cuda_time_ms(run, reps), "device_ms": device_time_ms(run, launches,
+                                                                     min(reps, 20)),
             "plain_ms": cuda_time_ms(lambda: loglh.log_likelihood_plain(
-                c, states.clusters, states.source), reps=10),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "bytes": n_bytes}
+                c, states.clusters, states.source), reps=min(reps, 10)),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "bytes": n_bytes,
+            "source_form": "packed" if packed else "bool", "chains": states.n_chains}
 
 
 def phase_kernels(rt, states, rt_k3, states_k3, rt_mc3, states_mc3, temps_mc3,
@@ -1265,11 +1587,67 @@ def add_launches(*launch_counts) -> dict:
     return out
 
 
+# Shapes of the revision check: the main path's, and two where the kernels
+# tile (jump_512's marginal, the likelihood's feature tiles at 400 features).
+REVISION_SHAPES = {"main": dict(n_chains=1024, n_features=36, n_clusters=1),
+                   "jump_512": dict(n_chains=64, n_features=512, n_clusters=2),
+                   "tiled_400": dict(n_chains=64, n_features=400, n_clusters=1)}
+
+
+def revision_outputs(root: str, out: str) -> None:
+    """Both kernels of the ``sbayes_tpu_torch`` under ``root`` (a ``git
+    archive`` of a revision, or this one) on inputs drawn from a seed at
+    REVISION_SHAPES: every output saved to ``out`` (.npz) and the device time
+    per launch printed."""
+    sys.path.insert(0, str(Path(root).resolve()))
+    import sbayes_tpu_torch
+    from sbayes_tpu_torch.model.model import Model
+    from sbayes_tpu_torch.ops import loglh, marginal
+    from sbayes_tpu_torch.testing import synthetic_config, synthetic_data
+
+    saved, times = {}, {}
+    for shape, kw in REVISION_SHAPES.items():
+        c = Model(synthetic_data(n_features=kw["n_features"]),
+                  synthetic_config(n_clusters=kw["n_clusters"]).model, device=DEVICE).consts
+        inputs = random_kernel_inputs(c, kw["n_chains"], seed=3)
+        calls = {"loglh": lambda: loglh.log_likelihood(c, inputs["clusters"], inputs["source"])}
+        for variant in marginal.VARIANTS:
+            args, vkw = marginal_variant_args(inputs, *variant)
+            calls[marginal.variant_name(*variant)] = (
+                lambda args=args, vkw=vkw: marginal.marginal(c, *args, **vkw))
+        for name, call in calls.items():
+            saved[f"{shape}:{name}"] = call().cpu().numpy()
+            times[f"{shape}:{name}"] = device_time_ms(call)
+    np.savez(out, **saved)
+    print(json.dumps({"package": sbayes_tpu_torch.__file__, "device_ms": times,
+                      "card": card_line()}), flush=True)
+
+
+def compare_revisions(a: str, b: str) -> int:
+    """Bit equality of two ``revision_outputs`` files; non-zero unless every
+    output at the main shapes is bit-equal."""
+    xa, xb = np.load(a), np.load(b)
+    if set(xa.files) != set(xb.files):
+        raise SystemExit(f"different outputs: {sorted(xa.files)} / {sorted(xb.files)}")
+    equal = {k: bool(np.array_equal(xa[k], xb[k])) for k in sorted(xa.files)}
+    diff = {k: float(np.abs(xa[k] - xb[k]).max()) for k in sorted(xa.files)}
+    print(json.dumps({"bit_equal": equal, "max_abs_diff": diff}), flush=True)
+    return 0 if all(v for k, v in equal.items() if k.startswith("main:")) else 1
+
+
 def main() -> int:
+    if len(sys.argv) == 4 and sys.argv[1] == "compare":
+        return compare_revisions(sys.argv[2], sys.argv[3])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
     warnings.simplefilter("ignore")
+    if len(sys.argv) == 4 and sys.argv[1] == "revision":
+        revision_outputs(sys.argv[2], sys.argv[3])
+        return 0
+    if len(sys.argv) > 1:
+        print(__doc__, file=sys.stderr)
+        return 2
     from sbayes_tpu_torch.ops import _cuda
 
     card = card_line()
@@ -1330,6 +1708,9 @@ def main() -> int:
     print(json.dumps({"phase": "alt_operators", "card": card, **alt}), flush=True)
     prior = phase_prior_samples(rt_k3)
     print(json.dumps({"phase": "prior_samples", "card": card, **prior}), flush=True)
+    scale, scale_rows = phase_scale()
+    print(json.dumps({"phase": "scale", "card": card, **scale}), flush=True)
+    torch.cuda.empty_cache()
 
     by_path = {"main_path": main_path["launches"], "main_path_k3": main_path_k3["launches"],
                "main_path_mc3": main_path_mc3["launches"], "jump_512": jump_512["launches"],
@@ -1338,11 +1719,12 @@ def main() -> int:
                "init_seed_points": init_methods["seed_points"]["launches"],
                "init_random_growth": init_methods["random_growth"]["launches"],
                "alt_operators": add_launches(*(a["launches"] for a in alt.values())),
-               "prior_samples": prior["launches"]}
+               "prior_samples": prior["launches"], "scale": scale["launches"],
+               "scale_in_bounds": scale["in_bounds"]["launches"]}
     residual_launches = add_launches(*(alt[k]["launches"] for k in (
         "wide_residual", "wide_residual_counts", "wide_residual_counts_mc3")))
     kernels = phase_kernels(rt, states, rt_k3, states_k3, rt_mc3, states_mc3, temps, by_path,
-                            jump_512["two_eff"], residual_launches)
+                            jump_512["two_eff"], residual_launches) + scale_rows
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -58,6 +58,19 @@
 //  * Features are walked in tiles when the counts pass the shared-memory
 //    budget. One feature's counts have to fit a block's shared memory
 //    (about 57,800 cells of rows x (S + 1)); the entry point refuses more.
+//    Tiles are independent (a count belongs to one feature), so with more
+//    than one tile the grid is (chain, tile): each block counts one tile and
+//    writes its fixed-point sum, and a second kernel adds a chain's sums.
+//    Integer sums do not depend on their order, so the bits are those of
+//    one block walking all tiles; at the scale shape (16 chains, 63 tiles)
+//    that is 1,008 blocks where one block per chain kept 16 of 132 SMs busy.
+//  * The source comes in either form of the chain state (template PACKED):
+//    the bool one-hot (B, N, F, C), C bytes a cell scanned for the set
+//    component, or the packed int8 component index (B, N, F), one byte a
+//    cell and no scan; the sentinel C (NA / no component) counts nothing.
+//    At the scale shape (10,000 x 5,000 x 5, C = 3) the packed source is
+//    50 MB a chain against 150 MB; the counts of 25 rows leave about 80
+//    features per tile, so the source is read where it lies.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -84,9 +97,9 @@ struct Tiling {
 // both fit the budget. Else the counts alone are tiled, as many features as
 // the budget holds, and the source is read from device memory. One
 // feature's counts may pass the budget up to what a block can have at all.
-Tiling tiling(int K, int N, int F, int S, int C, int G) {
+Tiling tiling(int K, int N, int F, int S, int C, int G, bool packed) {
   const long long count_bytes = (long long)(K + (C - 1) * G) * (S + 1) * 4;  // per feature
-  const long long both = align16(count_bytes * F) + (long long)N * F * C;
+  const long long both = align16(count_bytes * F) + (long long)N * F * (packed ? 1 : C);
   if (both <= kSmemBudget) return Tiling{F, (int)both, true};
   long long ft = kSmemBudget / count_bytes;
   if (ft < 1) ft = 1;
@@ -141,15 +154,17 @@ __device__ __forceinline__ int cluster_of(const uint8_t* __restrict__ cl_b, int 
 // any other; at the main shapes the kernel for any count takes 31.7 us where
 // the one for 3 components takes 21.9 us (H100; PERF.md, section 6).
 // STAGED: the source slab is copied to shared memory first (then
-// f_tile = F), else it is read from device memory.
-template <int CT, bool STAGED>
+// f_tile = F), else it is read from device memory. PACKED: the source is the
+// int8 component index (B, N, F), sentinel C, else the bool one-hot.
+template <int CT, bool STAGED, bool PACKED>
 __global__ void __launch_bounds__(kThreads)
 loglh_kernel(const uint8_t* __restrict__ clusters,    // (B, K, N)
-             const uint8_t* __restrict__ source,      // (B, N, F, C)
+             const uint8_t* __restrict__ source,      // (B, N, F, C) or packed (B, N, F)
              const int8_t* __restrict__ feat_idx_t,   // (F, N), S = NA
              const int32_t* __restrict__ group_idx,   // (C-1, N), -1 = none
              const float* __restrict__ conc_table,    // (R, F, S + 1): a per state, then sum_s a
              float* __restrict__ out,                 // (B,)
+             long long* __restrict__ partial,         // (B, gridDim.y) when gridDim.y > 1
              int K, int N, int F, int S, int C_any, int G, int f_tile, int lpo_log2) {
   // R = 1 + (C-1) G model rows: the cluster prior (shared by the K clusters),
   // then the groups of each confounder. Offsets within a chain and within
@@ -159,28 +174,30 @@ loglh_kernel(const uint8_t* __restrict__ clusters,    // (B, K, N)
   __shared__ long long warp_sums[kThreads / 32];
   constexpr int CR = CT > 0 ? CT : 1;  // registers per object and component
   const int C = CT > 0 ? CT : C_any;
+  const int CB = PACKED ? 1 : C;  // source bytes per (object, feature) cell
   const int lpo = 1 << lpo_log2;
   const int items = N << lpo_log2;
   const int b = blockIdx.x;
   const int rows = K + (C - 1) * G;
   const int S1 = S + 1;
   int* counts = reinterpret_cast<int*>(smem);  // (rows, ft, S + 1): cells, then their sum n
-  uint8_t* ssrc = smem + align16(4LL * rows * f_tile * S1);  // (N, F, C) when STAGED
+  uint8_t* ssrc = smem + align16(4LL * rows * f_tile * S1);  // (N, F, CB) when STAGED
   const uint8_t* cl_b = clusters + (size_t)b * K * N;
-  const uint8_t* src_b = source + (size_t)b * N * F * C;
+  const uint8_t* src_b = source + (size_t)b * N * F * CB;
   const uint8_t* src_rows = STAGED ? ssrc : src_b;  // where the loop reads the source
 
   if (STAGED) {
     if (threadIdx.x == 0) sbt::barrier_init(&bar);
     __syncthreads();
-    const uint32_t tx = sbt::stage_rows(ssrc, src_b, 1, N * F * C, (size_t)N * F * C, &bar);
+    const uint32_t tx = sbt::stage_rows(ssrc, src_b, 1, N * F * CB, (size_t)N * F * CB, &bar);
     if (threadIdx.x == 0) sbt::barrier_arrive_expect(&bar, tx);
   }
 
   long long acc = 0;
-  for (int f0 = 0; f0 < F; f0 += f_tile) {
+  const int f_first = blockIdx.y * f_tile;
+  for (int f0 = f_first; f0 < F; f0 += f_tile * gridDim.y) {
     const int ft = min(f_tile, F - f0);
-    if (f0 > 0) __syncthreads();  // every thread has left the previous tile
+    if (f0 > f_first) __syncthreads();  // every thread has left the previous tile
     for (int i = threadIdx.x; i < rows * ft * S1; i += blockDim.x) counts[i] = 0;
     if (STAGED) sbt::barrier_wait(&bar, 0);  // one tile: the slab arrives once
     __syncthreads();
@@ -209,15 +226,20 @@ loglh_kernel(const uint8_t* __restrict__ clusters,    // (B, K, N)
         }
       }
       const int8_t* fi = feat_idx_t + (f0 + j) * N + n;
-      const uint8_t* src = src_rows + ((size_t)n * F + f0 + j) * C;
-      for (int fl = j; fl < ft; fl += lpo, fi += N << lpo_log2, src += C << lpo_log2) {
+      const uint8_t* src = src_rows + ((size_t)n * F + f0 + j) * CB;
+      for (int fl = j; fl < ft; fl += lpo, fi += N << lpo_log2, src += CB << lpo_log2) {
         const int s = *fi;
         int first = 0, n_set = 0;
+        if (PACKED) {
+          first = *reinterpret_cast<const int8_t*>(src);
+          n_set = first >= 0 && first < C;
+        } else {
 #pragma unroll
-        for (int c = (CT > 0 ? CT : C) - 1; c >= 0; --c) {
-          if (src[c]) {
-            first = c;
-            ++n_set;
+          for (int c = (CT > 0 ? CT : C) - 1; c >= 0; --c) {
+            if (src[c]) {
+              first = c;
+              ++n_set;
+            }
           }
         }
         if (s >= S || n_set == 0) continue;  // NA, or attributed to nothing: counts nowhere
@@ -252,7 +274,7 @@ loglh_kernel(const uint8_t* __restrict__ clusters,    // (B, K, N)
           const int c = r < K ? 0 : 1 + (r - K) / G;
           const bool hit = r < K ? cl_b[r * N + n] != 0
                                  : group_idx[(c - 1) * N + n] == (r - K) % G;
-          if (!hit || !src[c]) continue;
+          if (!hit || !(PACKED ? first == c : src[c] != 0)) continue;
           const int model_row = r < K ? 0 : r - K + 1;
           acc += observe(counts + (r * ft + fl) * S1, conc_table + (model_row * F + f) * S1, s, S);
         }
@@ -266,16 +288,28 @@ loglh_kernel(const uint8_t* __restrict__ clusters,    // (B, K, N)
   if (threadIdx.x < 32) {
     long long v = (threadIdx.x < (blockDim.x >> 5)) ? warp_sums[threadIdx.x] : 0;
     for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-    if (threadIdx.x == 0) out[b] = (float)((double)v / (double)kFixedPoint);
+    if (threadIdx.x == 0) {
+      if (gridDim.y == 1) out[b] = (float)((double)v / (double)kFixedPoint);
+      else partial[(size_t)b * gridDim.y + blockIdx.y] = v;
+    }
   }
 }
 
-template <int CT, bool STAGED>
+// The chain's likelihood from the fixed-point sums of its tiles.
+__global__ void loglh_finish(const long long* __restrict__ partial, float* __restrict__ out,
+                             int B, int tiles) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  long long v = 0;
+  for (int t = 0; t < tiles; ++t) v += partial[(size_t)b * tiles + t];
+  out[b] = (float)((double)v / (double)kFixedPoint);
+}
+
+template <int CT, bool STAGED, bool PACKED>
 int launch(const void* clusters, const void* source, const void* feat_idx_t,
-           const void* group_idx,
-           const void* conc_table, void* out, int B, int K, int N, int F, int S, int C, int G,
-           const Tiling& t, cudaStream_t stream) {
-  auto kernel = loglh_kernel<CT, STAGED>;
+           const void* group_idx, const void* conc_table, void* out, void* partial, int B, int K,
+           int N, int F, int S, int C, int G, const Tiling& t, cudaStream_t stream) {
+  auto kernel = loglh_kernel<CT, STAGED, PACKED>;
   if (t.smem > kSmemBudget) {  // one feature's counts alone pass the budget
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          t.smem);
@@ -287,37 +321,57 @@ int launch(const void* clusters, const void* source, const void* feat_idx_t,
   while (lpo_log2 < 5 && ((long long)N << (lpo_log2 + 1)) <= kThreads) ++lpo_log2;
   const long long items = (long long)N << lpo_log2;
   const int threads = items >= kThreads ? kThreads : (int)((items + 31) / 32) * 32;
-  kernel<<<B, threads, t.smem, stream>>>(
+  const int tiles = (F + t.f_tile - 1) / t.f_tile;
+  kernel<<<dim3(B, tiles), threads, t.smem, stream>>>(
       static_cast<const uint8_t*>(clusters), static_cast<const uint8_t*>(source),
       static_cast<const int8_t*>(feat_idx_t), static_cast<const int32_t*>(group_idx),
-      static_cast<const float*>(conc_table), static_cast<float*>(out), K, N, F, S, C, G,
-      t.f_tile, lpo_log2);
+      static_cast<const float*>(conc_table), static_cast<float*>(out),
+      static_cast<long long*>(partial), K, N, F, S, C, G, t.f_tile, lpo_log2);
+  if (tiles > 1)
+    loglh_finish<<<(B + 255) / 256, 256, 0, stream>>>(static_cast<const long long*>(partial),
+                                                       static_cast<float*>(out), B, tiles);
   return (int)cudaGetLastError();
+}
+
+template <int CT, bool PACKED>
+int launch_staging(const void* clusters, const void* source, const void* feat_idx_t,
+                   const void* group_idx, const void* conc_table, void* out, void* partial,
+                   int B, int K, int N, int F, int S, int C, int G, const Tiling& t,
+                   cudaStream_t st) {
+  return t.staged ? launch<CT, true, PACKED>(clusters, source, feat_idx_t, group_idx, conc_table,
+                                             out, partial, B, K, N, F, S, C, G, t, st)
+                  : launch<CT, false, PACKED>(clusters, source, feat_idx_t, group_idx,
+                                              conc_table, out, partial, B, K, N, F, S, C, G, t,
+                                              st);
 }
 
 }  // namespace
 
 // Features per shared-memory tile for these shapes (all of them = no tiling).
-extern "C" int sbt_loglh_feature_tile(int K, int N, int F, int S, int C, int G) {
-  return tiling(K, N, F, S, C, G).f_tile;
+extern "C" int sbt_loglh_feature_tile(int K, int N, int F, int S, int C, int G, int packed) {
+  return tiling(K, N, F, S, C, G, packed != 0).f_tile;
 }
 
-// Returns the cudaError_t of the launch (0 = launched).
+// Returns the cudaError_t of the launch (0 = launched). packed: the source
+// is the int8 (B, N, F) component index, else the bool (B, N, F, C).
+// partial: B x ceil(F / tile) int64 of scratch when the features take more
+// than one tile (sbt_loglh_feature_tile), else unused.
 extern "C" int sbt_loglh(const void* clusters, const void* source, const void* feat_idx_t,
-                         const void* group_idx, const void* conc_table, void* out, int B, int K,
-                         int N, int F, int S, int C, int G, void* stream) {
+                         const void* group_idx, const void* conc_table, void* out, void* partial,
+                         int B, int K, int N, int F, int S, int C, int G, int packed,
+                         void* stream) {
   const long long limit = 1LL << 31;
   if ((long long)N * F * C >= limit || (1LL + (long long)(C - 1) * G) * F * (S + 1) >= limit)
     return (int)cudaErrorInvalidValue;
-  const Tiling t = tiling(K, N, F, S, C, G);
-  if (t.smem < 0) return (int)cudaErrorInvalidValue;
+  const Tiling t = tiling(K, N, F, S, C, G, packed != 0);
+  if (t.smem < 0 || (t.f_tile < F && partial == nullptr)) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define SBT_LAUNCH(CT)                                                                        \
-  return t.staged ? launch<CT, true>(clusters, source, feat_idx_t, group_idx, conc_table, out, B, \
-                                     K, N, F, S, C, G, t, st)                                     \
-                  : launch<CT, false>(clusters, source, feat_idx_t, group_idx, conc_table, out,   \
-                                      B, K, N, F, S, C, G, t, st)
+  return packed ? launch_staging<CT, true>(clusters, source, feat_idx_t, group_idx, conc_table, \
+                                           out, partial, B, K, N, F, S, C, G, t, st)            \
+                : launch_staging<CT, false>(clusters, source, feat_idx_t, group_idx, conc_table, \
+                                            out, partial, B, K, N, F, S, C, G, t, st)
   switch (C) {
     case 2: SBT_LAUNCH(2);
     case 3: SBT_LAUNCH(3);

@@ -27,10 +27,11 @@
 // gathers through L1/L2. This one is held by instruction throughput: B*N*F
 // elements of about 100 instructions each, a third of them the one logf.
 //
-// Design: one block per chain. The chain's effect tables (p_eff, conf_eff)
-// and weights go to shared memory once (stage.cuh: bulk copies where the
-// rows are 16-byte aligned, plain loads otherwise), so device memory and L2
-// see each table once per chain instead of once per object. Lanes run over
+// Design: one block per chain (or per chain and object tile, below). The
+// chain's effect tables (p_eff, conf_eff) and weights go to shared memory
+// once per block (stage.cuh: bulk copies where the rows are 16-byte
+// aligned, plain loads otherwise), so device memory and L2 see each table
+// once per block instead of once per object. Lanes run over
 // objects, 2^lpo_log2 neighbouring lanes share an object and split its
 // features; the feature loop reads only shared memory and one coalesced
 // byte of the feature-major state index (F, N). What belongs to the object
@@ -45,6 +46,17 @@
 // warp-shuffle sum joins the lanes of an object. Features are walked in
 // tiles when the tables pass the shared-memory budget; the partial sums
 // then accumulate in `out`.
+//
+// Object tiles: with fewer chains than SMs, one block per chain leaves most
+// of the card idle (64 chains x 512 features: 56 us against a 1.5 us bound;
+// at the scale shape, 16 chains x 10,000 objects x 5,000 features, 16 of
+// 132 SMs). The wrapper then splits each chain's objects into tiles
+// (ops/marginal.py: object_tile), and the grid is (chain, object tile):
+// every block stages its chain's tables as before and walks only its own
+// objects, the lanes per object chosen for the tile. This follows the JAX
+// kernel's own grid, (N // nb, t). Per object nothing changes but the lanes
+// that split its features; with as many chains as SMs the tile is all N
+// objects and the launch is the one-block-per-chain launch, bit for bit.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -100,7 +112,8 @@ marginal_kernel(const int8_t* __restrict__ feat_idx_t,  // (F, N), S = NA
                 const float* __restrict__ incl,         // (B, N)
                 const float* __restrict__ inv_t,        // (B,) when HEAT
                 float* __restrict__ out,                // (B, N) or (B, N, 2)
-                int N, int F, int S, int C_any, int G, int f_tile, int lpo_log2) {
+                int N, int F, int S, int C_any, int G, int f_tile, int lpo_log2,
+                int obj_tile) {
   constexpr int E = (TWO || !RATIO) ? 2 : 1;
   constexpr int CR = CT > 0 ? CT : 1;  // registers per object and component
   const int C = CT > 0 ? CT : C_any;
@@ -117,7 +130,8 @@ marginal_kernel(const int8_t* __restrict__ feat_idx_t,  // (F, N), S = NA
   const float* w = wh + (size_t)b * F * C;
   const float it = HEAT ? inv_t[b] : 1.f;
   const int lpo = 1 << lpo_log2;
-  const int items = N << lpo_log2;
+  const int n0 = blockIdx.y * obj_tile;  // the block's objects: [n0, n0 + obj_tile) within N
+  const int items = min(obj_tile, N - n0) << lpo_log2;
 
   if (threadIdx.x == 0) sbt::barrier_init(&bar);
   __syncthreads();
@@ -137,7 +151,7 @@ marginal_kernel(const int8_t* __restrict__ feat_idx_t,  // (F, N), S = NA
     for (int base = 0; base < items; base += blockDim.x) {
       const int item = base + threadIdx.x;
       const bool valid = item < items;
-      const int n = valid ? item >> lpo_log2 : 0;
+      const int n = n0 + (valid ? item >> lpo_log2 : 0);
       const int j = item & (lpo - 1);
       const size_t o = (size_t)b * N + n;
       const bool in_cluster = incl[o] > 0.5f;
@@ -235,12 +249,13 @@ marginal_kernel(const int8_t* __restrict__ feat_idx_t,  // (F, N), S = NA
 struct Args {
   const void *feat_idx_t, *group_idx, *p_eff, *conf_eff, *wh, *hc, *hcf, *incl, *inv_t;
   void* out;
-  int B, N, F, S, C, G;
+  int B, N, F, S, C, G, obj_tile;
   cudaStream_t stream;
 };
 
 template <bool RATIO, bool HEAT, bool TWO, int CT>
 int launch(const Args& a) {
+  if (a.obj_tile < 1 || a.obj_tile > a.N) return (int)cudaErrorInvalidValue;
   constexpr int E = (TWO || !RATIO) ? 2 : 1;
   const int f_tile = feature_tile(a.F, a.S, a.C, a.G, E);
   const int smem = tile_floats(f_tile, a.S, a.C, a.G, E) * 4;
@@ -250,19 +265,20 @@ int launch(const Args& a) {
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
-  // Lanes per object: the largest power of two that keeps the chain's
+  // Lanes per object: the largest power of two that keeps the block's
   // objects within one pass of the block.
   int lpo_log2 = 0;
-  while (lpo_log2 < 5 && ((long long)a.N << (lpo_log2 + 1)) <= kMaxThreads) ++lpo_log2;
-  const long long items = (long long)a.N << lpo_log2;
+  while (lpo_log2 < 5 && ((long long)a.obj_tile << (lpo_log2 + 1)) <= kMaxThreads) ++lpo_log2;
+  const long long items = (long long)a.obj_tile << lpo_log2;
   const int threads = items >= kMaxThreads ? kMaxThreads : (int)((items + 31) / 32) * 32;
-  kernel<<<a.B, threads, smem, a.stream>>>(
+  const dim3 grid(a.B, (a.N + a.obj_tile - 1) / a.obj_tile);
+  kernel<<<grid, threads, smem, a.stream>>>(
       static_cast<const int8_t*>(a.feat_idx_t), static_cast<const int32_t*>(a.group_idx),
       static_cast<const float*>(a.p_eff), static_cast<const float*>(a.conf_eff),
       static_cast<const float*>(a.wh), static_cast<const float*>(a.hc),
       static_cast<const float*>(a.hcf), static_cast<const float*>(a.incl),
       static_cast<const float*>(a.inv_t), static_cast<float*>(a.out), a.N, a.F, a.S, a.C, a.G,
-      f_tile, lpo_log2);
+      f_tile, lpo_log2, a.obj_tile);
   return (int)cudaGetLastError();
 }
 
@@ -283,15 +299,16 @@ extern "C" int sbt_marginal_feature_tile(int F, int S, int C, int G, int n_effec
   return feature_tile(F, S, C, G, n_effect_rows);
 }
 
-// Returns the cudaError_t of the launch (0 = launched).
+// Returns the cudaError_t of the launch (0 = launched). obj_tile: objects
+// per block (N: one block per chain).
 extern "C" int sbt_marginal(const void* feat_idx_t, const void* group_idx, const void* p_eff,
                             const void* conf_eff, const void* wh, const void* hc,
                             const void* hcf, const void* incl, const void* inv_t, void* out,
                             int B, int N, int F, int S, int C, int G, int ratio, int heat,
-                            int two_eff, void* stream) {
+                            int two_eff, int obj_tile, void* stream) {
   if (B == 0 || N == 0) return 0;
   const Args a{feat_idx_t, group_idx, p_eff, conf_eff, wh, hc, hcf, incl, inv_t, out,
-               B, N, F, S, C, G, static_cast<cudaStream_t>(stream)};
+               B, N, F, S, C, G, obj_tile, static_cast<cudaStream_t>(stream)};
   if (ratio) {
     if (heat) return two_eff ? launch_components<true, true, true>(a)
                              : launch_components<true, true, false>(a);

@@ -13,8 +13,15 @@ the requested device once. These tensors are added for the CUDA kernels
 * ``conc_table`` (R, F, S + 1): what the collapsed likelihood needs of the
   model alone, in one table (``concentration_table``).
 
-The TPU layout fields (pre-tiled feature tiles, feature chunking, packed
-source) are not ported: on the GPU both kernels read the state index directly.
+Two rules of the JAX package pick the layout at scale, each a function with
+the JAX thresholds as defaults and an explicit argument of
+``build_model_constants`` (tests set it): ``source_packed``, the chain
+state's source as the packed int8 (N, F) index (``auto_source_packed``), and
+``feature_chunk``, the width of the feature tiles over which the full-width
+(B, N, F, ...) computations run (``auto_feature_chunk``). The TPU's
+pre-tiled feature layouts and its bf16 one-hot features are not ported: on
+the GPU both kernels read the state index directly, and the features stay
+f32.
 """
 from __future__ import annotations
 
@@ -165,6 +172,9 @@ class ModelConstants:
     static_pat: Any                 # int64 (N,) static availability pattern id
     pat_bits: Any                   # f32 (P, C) availability bits per pattern
 
+    source_packed: bool = False     # chain states hold the int8 (B, N, F) source
+    feature_chunk: Optional[int] = None  # feature-tile width, None = no tiling
+
     @property
     def K(self):
         return self.shapes.n_clusters
@@ -190,9 +200,33 @@ class ModelConstants:
         return int(self.groups.shape[1])
 
 
+def auto_source_packed(n_objects: int, n_features: int, n_components: int,
+                       byte_threshold: int = 16 * 1024 * 1024) -> bool:
+    """Whether chain states store the packed int8 (N, F) source: only at
+    scale, where one chain's bool (N, F, C) source passes ``byte_threshold``
+    bytes, and while the sentinel C fits int8 (the JAX package's rule)."""
+    return n_components < 127 and n_objects * n_features * n_components > byte_threshold
+
+
+def auto_feature_chunk(n_objects: int, n_features: int, cell_threshold: int = 4_000_000,
+                       target: int = 512) -> Optional[int]:
+    """Feature-tile width for large models: the divisor of F closest to
+    ``target`` once N * F passes ``cell_threshold`` (None: no tiling, and
+    for small models; the JAX package's rule)."""
+    if n_objects * n_features <= cell_threshold:
+        return None
+    divisors = [d for d in range(1, n_features + 1) if n_features % d == 0]
+    best = min(divisors, key=lambda d: abs(d - target))
+    return best if best < n_features else None
+
+
 def build_model_constants(data: Data, config: ModelConfig, n_clusters: Optional[int] = None,
-                          device="cuda") -> ModelConstants:
-    """Assemble ModelConstants from loaded data and a model config."""
+                          device="cuda", source_packed: Optional[bool] = None,
+                          feature_chunk: Optional[int] = None) -> ModelConstants:
+    """Assemble ModelConstants from loaded data and a model config.
+    ``source_packed`` / ``feature_chunk`` override ``auto_source_packed`` /
+    ``auto_feature_chunk`` (None: the rule; a ``feature_chunk`` of 0, or of
+    F or more, turns tiling off)."""
     device = resolve_device(device)
     features = data.features
     confounders = data.confounders
@@ -298,6 +332,14 @@ def build_model_constants(data: Data, config: ModelConfig, n_clusters: Optional[
     feat_idx = np.where(values.any(-1), values.argmax(-1), S).astype(np.int8)
 
     sp_cfg = config.prior.objects_per_cluster
+    if source_packed is None:
+        source_packed = auto_source_packed(N, F, C)
+    if source_packed and C >= 127:
+        raise ValueError(f"{C} components do not fit the packed int8 source")
+    if feature_chunk is None:
+        feature_chunk = auto_feature_chunk(N, F)
+    elif not 0 < feature_chunk < F:
+        feature_chunk = None
 
     def t(x, dtype):
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
@@ -333,4 +375,6 @@ def build_model_constants(data: Data, config: ModelConfig, n_clusters: Optional[
         max_size=int(min(sp_cfg.max, N)),
         static_pat=t(static_pat, torch.int64),
         pat_bits=t(pat_bits, torch.float32),
+        source_packed=bool(source_packed),
+        feature_chunk=feature_chunk,
     )

@@ -10,8 +10,21 @@ returns an all-zero row there and a scatter drops the write, which is what
 XLA does for out-of-bounds indices and what torch would raise on. Both work
 on a flattened (B*N, row) view with one spare row, so neither needs a
 data-dependent shape (and thus no host-device sync).
+
+The source (the component of every observation) comes in two forms, as in
+the JAX package: the bool one-hot (B, N, F, C), all zero at NA cells, and
+the packed int8 (B, N, F) component index with the sentinel C for "NA / no
+component" (``ModelConstants.source_packed``: a third of the bytes at C = 3,
+chosen at scale). The ``source_*`` helpers, ``gather_rows``,
+``scatter_rows`` and ``compute_feature_counts`` take either; operators
+compute with one-hot ROWS in both. ``feature_tiles`` cuts the feature axis
+into the tiles of ``ModelConstants.feature_chunk``, over which the
+full-width (B, N, F, ...) computations run at scale.
 """
 from __future__ import annotations
+
+import functools
+import operator
 
 import torch
 
@@ -71,23 +84,88 @@ def dirichlet_logpdf(x, alpha, where=None):
     return kernel - lognorm
 
 
-def compute_feature_counts(clusters, source, features, conf_groups):
+def feature_tiles(n_features: int, f_chunk=None) -> list:
+    """Slices of the feature axis: tiles of ``f_chunk`` features (the last
+    one shorter when ``f_chunk`` does not divide F), or one slice of all of
+    them when ``f_chunk`` is None or not below F."""
+    if f_chunk is None or f_chunk >= n_features:
+        return [slice(0, n_features)]
+    return [slice(f0, min(f0 + f_chunk, n_features)) for f0 in range(0, n_features, f_chunk)]
+
+
+def add_tiles(parts):
+    """The sum of per-tile results in tile order (one tile: itself, bit for bit)."""
+    return functools.reduce(operator.add, parts)
+
+
+def cat_tiles(parts, dim: int):
+    """Per-tile results joined along the feature axis ``dim``."""
+    return torch.cat(parts, dim=dim) if len(parts) > 1 else parts[0]
+
+
+def source_is_packed(src) -> bool:
+    """True for the packed int8 (..., N, F) index form."""
+    return src.dtype == torch.int8
+
+
+def source_comp(src, i: int, dtype=None):
+    """The component-membership mask ``source[..., i]`` of either form, as
+    ``dtype`` (bool when None)."""
+    m = (src == i) if source_is_packed(src) else src[..., i]
+    return m if dtype is None else m.to(dtype)
+
+
+def source_onehot(src, n_components: int):
+    """The bool one-hot (..., F, C) form (the identity on it); the sentinel
+    C gives an all-zero row."""
+    if not source_is_packed(src):
+        return src
+    return src[..., None] == torch.arange(n_components, dtype=src.dtype, device=src.device)
+
+
+def pack_source(src_bool):
+    """Bool one-hot (..., F, C) -> packed int8 (..., F); all-zero rows (NA)
+    map to the sentinel C."""
+    c = src_bool.shape[-1]
+    idx = src_bool.to(torch.uint8).argmax(-1)
+    return torch.where(src_bool.any(-1), idx, c).to(torch.int8)
+
+
+def source_n_changed(a, b):
+    """(B,) the source step-size statistic of the JAX package: the bit flips
+    of the bool one-hot form, two per reassigned cell (the NA mask is the
+    data's, so a cell is one-hot in both states or empty in both)."""
+    dims = tuple(range(1, a.dim()))
+    if source_is_packed(a):
+        return 2.0 * (a != b).sum(dims).float()
+    return (a ^ b).sum(dims).float()
+
+
+def compute_feature_counts(clusters, source, features, conf_groups, f_chunk=None):
     """Sufficient-statistic counts of every mixture component.
 
-    clusters (B, K, N) bool; source (B, N, F, C) bool; features (N, F, S);
-    conf_groups (C-1, Gmax, N). Returns cluster counts (B, K, F, S) and
-    confounder counts (B, C-1, Gmax, F, S) — integer-valued f32, exact.
+    clusters (B, K, N) bool; source (B, N, F, C) bool or packed (B, N, F)
+    int8; features (N, F, S); conf_groups (C-1, Gmax, N); with ``f_chunk``
+    the features are walked in tiles of that many (tile-sized (B, N, f, S)
+    intermediates, the same counts). Returns cluster counts (B, K, F, S)
+    and confounder counts (B, C-1, Gmax, F, S) — integer-valued f32, exact.
     """
     dtype = features.dtype
-    fx0 = features[None] * source[..., 0, None].to(dtype)                 # (B, N, F, S)
-    cl = torch.einsum("bkn,bnfs->bkfs", clusters.to(dtype), fx0)
-    conf = [torch.einsum("gn,bnfs->bgfs", conf_groups[i_c],
-                         features[None] * source[..., 1 + i_c, None].to(dtype))
-            for i_c in range(conf_groups.shape[0])]
-    if not conf:
+    n_conf = conf_groups.shape[0]
+    cl_tiles, conf_tiles = [], []
+    for sl in feature_tiles(features.shape[1], f_chunk):
+        feats = features[None, :, sl]
+        src = source[:, :, sl]
+        cl_tiles.append(torch.einsum("bkn,bnfs->bkfs", clusters.to(dtype),
+                                     feats * source_comp(src, 0, dtype)[..., None]))
+        conf_tiles.append([torch.einsum("gn,bnfs->bgfs", conf_groups[i_c],
+                                        feats * source_comp(src, 1 + i_c, dtype)[..., None])
+                           for i_c in range(n_conf)])
+    cl = cat_tiles(cl_tiles, dim=2)
+    if not n_conf:
         B, _, F, S = cl.shape
         return cl, cl.new_zeros((B, 0, conf_groups.shape[1], F, S))
-    return cl, torch.stack(conf, dim=1)
+    return cl, cat_tiles([torch.stack(t, dim=1) for t in conf_tiles], dim=3)
 
 
 def normalize_weights(weights, has_components):
@@ -126,7 +204,7 @@ def sample_categorical_onehot(gen, p):
     cdf = torch.cumsum(p, dim=-1)
     u = torch.rand(p.shape[:-1], generator=gen, device=p.device, dtype=p.dtype) * cdf[..., -1]
     idx = torch.clamp((u[..., None] >= cdf).sum(-1), max=c - 1)
-    return torch.nn.functional.one_hot(idx, c).bool()
+    return idx[..., None] == torch.arange(c, device=p.device)
 
 
 def compact_indices(mask, size: int, fill: int):
@@ -151,19 +229,30 @@ def batch_take(x, idx):
     return x.reshape(B * n, *x.shape[2:])[lin].reshape(*idx.shape, *x.shape[2:])
 
 
-def gather_rows(src, idx):
+def gather_rows(src, idx, n_components=None):
     """``src[b, idx[b]]`` rows (B, m, ...) of a chain-batched ``src`` (B, N,
-    ...); ``idx == N`` (padding) yields an all-zero row."""
+    ...); ``idx == N`` (padding) yields an all-zero row. A packed source
+    (B, N, F) gives its rows in the one-hot bool form (B, m, F, C), C =
+    ``n_components`` (which it needs); padding gives the sentinel's all-zero
+    row."""
     N = src.shape[1]
     valid = idx < N
     rows = batch_take(src, torch.clamp(idx, max=N - 1))
+    if source_is_packed(src):
+        if n_components is None:
+            raise ValueError("gather_rows of a packed source needs n_components")
+        return source_onehot(torch.where(valid[..., None], rows, n_components), n_components)
     shape = valid.shape + (1,) * (rows.dim() - 2)
     return rows & valid.view(shape) if rows.dtype == torch.bool else rows * valid.view(shape)
 
 
 def scatter_rows(src, idx, rows):
     """A copy of ``src`` (B, N, ...) with ``rows`` (B, m, ...) written at the
-    per-chain DISTINCT indices ``idx`` (B, m); ``idx == N`` drops the write."""
+    per-chain DISTINCT indices ``idx`` (B, m); ``idx == N`` drops the write.
+    A packed source (B, N, F) takes one-hot bool rows (B, m, F, C) and packs
+    them."""
+    if source_is_packed(src) and rows.dim() == src.dim() + 1:
+        rows = pack_source(rows)
     B, N = src.shape[:2]
     tail = src.shape[2:]
     flat = torch.cat([src.reshape(B * N, *tail), src.new_zeros((1, *tail))])
@@ -190,6 +279,10 @@ def take_cols(mat, idx):
 
 
 def source_pick(p, source):
-    """``(p * source).sum(-1)``: the probability each observation's chosen
-    component picked (0 at NA cells)."""
+    """``(p * source_onehot).sum(-1)``: the probability each observation's
+    chosen component picked from ``p`` (..., N, F, C); 0 at NA cells. Either
+    source form: a packed index is compared with each component on the fly
+    (the sentinel matches none), which picks the same floats."""
+    if source_is_packed(source):
+        source = source_onehot(source, p.shape[-1])
     return (p * source).sum(-1)

@@ -12,12 +12,14 @@ from sbayes_tpu_torch.model.posterior import Posterior
 
 
 class Model:
-    def __init__(self, data: Data, config: ModelConfig, n_clusters=None, device="cuda"):
+    def __init__(self, data: Data, config: ModelConfig, n_clusters=None, device="cuda",
+                 source_packed=None, feature_chunk=None):
         self.data = data
         self.config = config
         self.confounders = data.confounders
-        self.consts: ModelConstants = build_model_constants(data, config, n_clusters=n_clusters,
-                                                            device=device)
+        self.consts: ModelConstants = build_model_constants(
+            data, config, n_clusters=n_clusters, device=device, source_packed=source_packed,
+            feature_chunk=feature_chunk)
         self.device = self.consts.device
         self.shapes = self.consts.shapes
         self.n_clusters = self.shapes.n_clusters

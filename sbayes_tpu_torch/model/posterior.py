@@ -11,6 +11,11 @@ batched Prim of ``ops/mst.py``, the complete graph, or the Delaunay graph on
 the host). The triples are carried in ``ChainState.geo_agg`` (B, K, 3) and
 re-derived only for the clusters an operator changed, so the MH step maps
 the carried triples (``geo_prior_from_agg``) instead of running K MSTs.
+
+The source may be bool one-hot or packed int8 (``ModelConstants.
+source_packed``); with ``ModelConstants.feature_chunk`` the counts, pattern
+counts and the source prior run over feature tiles (JAX ``feature_tile`` /
+``lax.map``), so no (B, N, F, ...) intermediate is built at scale.
 """
 from __future__ import annotations
 
@@ -21,10 +26,17 @@ import torch
 
 from sbayes_tpu_torch.model.constants import ModelConstants
 from sbayes_tpu_torch.model.math import (
+    add_tiles,
+    cat_tiles,
     compute_feature_counts,
     dirichlet_categorical_logpdf,
     dirichlet_logpdf,
+    feature_tiles,
     normalize_weights,
+    pack_source,
+    source_comp,
+    source_is_packed,
+    source_onehot,
     source_pick,
 )
 from sbayes_tpu_torch.ops import loglh
@@ -62,7 +74,13 @@ class Posterior:
     def feature_counts(self, clusters, source):
         """(B, K, F, S) cluster counts and (B, C-1, Gmax, F, S) confounder counts."""
         c = self.consts
-        return compute_feature_counts(clusters, source, c.features, c.groups)
+        return compute_feature_counts(clusters, source, c.features, c.groups, c.feature_chunk)
+
+    def source_form(self, source):
+        """``source`` (either form) in the form the model's states hold."""
+        if self.consts.source_packed:
+            return source if source_is_packed(source) else pack_source(source)
+        return source_onehot(source, self.consts.C)
 
     def log_likelihood_from_counts(self, cluster_counts, conf_counts):
         c = self.consts
@@ -123,7 +141,11 @@ class Posterior:
         c = self.consts
         P = c.pat_bits.shape[0]
         pat_oh = torch.nn.functional.one_hot(self.source_patterns(clusters), P).float()
-        return torch.einsum("bnp,bnfc->bpfc", pat_oh, source.float())
+        tiles = [torch.stack([torch.einsum("bnp,bnf->bpf", pat_oh,
+                                           source_comp(source[:, :, sl], i, torch.float32))
+                              for i in range(c.C)], dim=-1)
+                 for sl in feature_tiles(c.F, c.feature_chunk)]
+        return cat_tiles(tiles, dim=2)
 
     # ---------------- priors ----------------
 
@@ -278,11 +300,16 @@ class Posterior:
     def source_prior(self, clusters, weights, source):
         """(B,) log P(source | weights)."""
         c = self.consts
-        w = normalize_weights(weights, self.has_components(clusters))
-        p = source_pick(w, source)                              # (B, N, F)
-        valid = ~c.na[None]
-        return torch.where(valid, torch.log(torch.where(valid, p, torch.ones_like(p))),
-                           torch.zeros_like(p)).sum((-1, -2))
+        hc = self.has_components(clusters)
+
+        def tile(sl):
+            w = normalize_weights(weights[:, sl], hc)
+            p = source_pick(w, source[:, :, sl])                # (B, N, f)
+            valid = ~c.na[None, :, sl]
+            return torch.where(valid, torch.log(torch.where(valid, p, torch.ones_like(p))),
+                               torch.zeros_like(p)).sum((-1, -2))
+
+        return add_tiles([tile(sl) for sl in feature_tiles(c.F, c.feature_chunk)])
 
     # ---------------- bundles ----------------
 

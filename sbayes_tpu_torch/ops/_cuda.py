@@ -27,9 +27,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: name -> argument types (pointers, ints, then the stream)
 SIGNATURES = {
-    "sbt_loglh": [_P] * 6 + [_I] * 7 + [_P],
-    "sbt_loglh_feature_tile": [_I] * 6,
-    "sbt_marginal": [_P] * 10 + [_I] * 9 + [_P],
+    "sbt_loglh": [_P] * 7 + [_I] * 8 + [_P],
+    "sbt_loglh_feature_tile": [_I] * 7,
+    "sbt_marginal": [_P] * 10 + [_I] * 10 + [_P],
     "sbt_marginal_feature_tile": [_I] * 5,
     "sbt_empty": [_P],
 }
@@ -117,6 +117,14 @@ class LaunchCounter:
         self.count += 1
         if variant is not None:
             self.variants[variant] = self.variants.get(variant, 0) + 1
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream_of(t) -> int:

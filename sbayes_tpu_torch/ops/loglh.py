@@ -13,7 +13,9 @@ the model-only inputs come in one table (``ModelConstants.conc_table``).
 
 Bound on an H100: memory. The kernel reads each chain's source and
 memberships once (the shared feature index and concentration tables stay in
-L2), see ``bytes_moved`` and ``operations``.
+L2), see ``bytes_moved`` and ``operations``. The source is either form of the
+chain state: bool one-hot (B, N, F, C) or packed int8 (B, N, F) (one byte a
+cell, the sentinel C counting nothing); both give the same result.
 """
 from __future__ import annotations
 
@@ -27,9 +29,11 @@ launches = _cuda.LaunchCounter("loglh")
 
 
 def log_likelihood_plain(consts, clusters, source):
-    """(B,) collapsed log-likelihood: counts, then the Dirichlet-categorical
-    log-pdf summed over cluster and confounder-group rows."""
-    cl, conf = compute_feature_counts(clusters, source, consts.features, consts.groups)
+    """(B,) collapsed log-likelihood: counts (over the model's feature tiles),
+    then the Dirichlet-categorical log-pdf summed over cluster and
+    confounder-group rows."""
+    cl, conf = compute_feature_counts(clusters, source, consts.features, consts.groups,
+                                      consts.feature_chunk)
     lh_cl = dirichlet_categorical_logpdf(cl, consts.conc_cluster[None, None]).sum((-1, -2))
     lh_conf = dirichlet_categorical_logpdf(conf, consts.conc_conf[None]).sum((-1, -2, -3))
     return lh_cl + lh_conf
@@ -48,7 +52,8 @@ def log_rising(a, c):
 
 
 def log_likelihood(consts, clusters, source):
-    """clusters (B, K, N) bool, source (B, N, F, C) bool -> (B,) f32.
+    """clusters (B, K, N) bool, source (B, N, F, C) bool or packed (B, N, F)
+    int8 -> (B,) f32.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
     if not clusters.is_cuda:
@@ -57,52 +62,63 @@ def log_likelihood(consts, clusters, source):
 
 
 def log_likelihood_cuda(consts, clusters, source):
-    """Launch ``csrc/loglh.cu`` on the current stream."""
+    """Launch ``csrc/loglh.cu`` on the current stream (the packed variant
+    for an int8 source)."""
     B, K, N = clusters.shape
     F, S, C, G = consts.F, consts.S, consts.C, consts.Gmax
-    if source.shape != (B, N, F, C):
-        raise ValueError(f"source shape {tuple(source.shape)} != {(B, N, F, C)}")
-    if clusters.dtype != torch.bool or source.dtype != torch.bool:
-        raise TypeError("clusters and source must be bool tensors")
+    packed = source.dtype == torch.int8
+    want = (B, N, F) if packed else (B, N, F, C)
+    if source.shape != want:
+        raise ValueError(f"source shape {tuple(source.shape)} != {want}")
+    if clusters.dtype != torch.bool or source.dtype not in (torch.bool, torch.int8):
+        raise TypeError("clusters must be bool, the source bool or packed int8")
     if not (clusters.device == source.device == consts.feat_idx.device):
         raise ValueError("clusters, source and the model constants must share one CUDA device")
     clusters = clusters.contiguous()
     source = source.contiguous()
     out = torch.empty(B, dtype=torch.float32, device=clusters.device)
     lib = _cuda.library()
+    # One block per (chain, feature tile); the tiles' fixed-point sums meet
+    # in ``partial``.
+    tiles = -(-F // feature_tile(consts, packed))
+    partial = (torch.empty((B, tiles), dtype=torch.int64, device=clusters.device)
+               if tiles > 1 else None)
     rc = lib.sbt_loglh(
         clusters.data_ptr(), source.data_ptr(), consts.feat_idx_t.data_ptr(),
         consts.group_idx.data_ptr(), consts.conc_table.data_ptr(), out.data_ptr(),
-        B, K, N, F, S, C, G, _cuda.stream_of(out))
+        None if partial is None else partial.data_ptr(),
+        B, K, N, F, S, C, G, int(packed), _cuda.stream_of(out))
     _cuda.check(rc, "loglh")
-    launches.add()
+    launches.add("packed" if packed else "bool")
     return out
 
 
-def bytes_moved(consts, B: int) -> int:
+def bytes_moved(consts, B: int, packed: bool = False) -> int:
     """Bytes the function must move: each input cell it needs read once, the
     output written once. The source of NA cells and the concentrations of
-    the padding groups up to Gmax are never needed. The shared table holds,
+    the padding groups up to Gmax are never needed; an observed cell's
+    source is C bytes, or 1 in the ``packed`` form. The shared table holds,
     for the cluster prior and each real group, a concentration per cell and
     their sum per feature."""
     N, F, S, C, K = consts.N, consts.F, consts.S, consts.C, consts.K
     observed = int((consts.feat_idx < S).sum())
-    per_chain = K * N + observed * C + 4
+    per_chain = K * N + observed * (1 if packed else C) + 4
     n_groups = sum(int(n) for n in consts.n_groups)
     shared = N * F + 4 * (C - 1) * N + 4 * (1 + n_groups) * F * (S + 1)
     return B * per_chain + shared
 
 
-def operations(consts, B: int) -> int:
+def operations(consts, B: int, packed: bool = False) -> int:
     """Operations per call, a lower bound: one add per source byte, and per
     (row, feature) 3 S + 4 adds and lgamma calls, each lgamma counted as one
     operation, whatever evaluates it."""
     rows = consts.K + (consts.C - 1) * consts.Gmax
-    return B * (consts.N * consts.F * consts.C + rows * consts.F * (3 * consts.S + 4))
+    per_cell = 1 if packed else consts.C
+    return B * (consts.N * consts.F * per_cell + rows * consts.F * (3 * consts.S + 4))
 
 
-def feature_tile(consts) -> int:
+def feature_tile(consts, packed: bool = False) -> int:
     """Features per shared-memory tile of the kernel for this model (F = the
     kernel does not tile); asks the built library."""
     return _cuda.library().sbt_loglh_feature_tile(consts.K, consts.N, consts.F, consts.S,
-                                                  consts.C, consts.Gmax)
+                                                  consts.C, consts.Gmax, int(packed))

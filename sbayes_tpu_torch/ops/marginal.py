@@ -22,7 +22,8 @@ log per element), else both absolute log-marginals (B, N, 2) = [without,
 with]; ``heat`` raises lh_0 to ``inv_t[b]``; ``two_eff`` takes two distinct
 effect rows in the ratio form. The caller divides by the temperature.
 
-Bound on an H100: memory (``bytes_moved``).
+Bound on an H100: memory (``bytes_moved``). With fewer chains than the
+card has SMs the kernel's grid also splits the objects (``object_tile``).
 """
 from __future__ import annotations
 
@@ -111,6 +112,17 @@ def marginal(consts, p_eff, conf_eff, wh, hc, hc_flip, incl, inv_t=None,
                          ratio, two_eff)
 
 
+def object_tile(n_chains: int, n_objects: int, n_sm: int) -> int:
+    """Objects per block of the kernel's (chain, object tile) grid: all of
+    them (one block per chain) when the chains fill the card's ``n_sm``
+    SMs, else tiles enough that chains x tiles is at least two blocks per
+    SM."""
+    if n_chains >= n_sm:
+        return n_objects
+    tiles = min(-(-2 * n_sm // n_chains), n_objects)
+    return -(-n_objects // tiles)
+
+
 def marginal_cuda(consts, p_eff, conf_eff, wh, hc, hc_flip, incl, inv_t=None,
                   ratio=True, two_eff=False):
     """Launch ``csrc/marginal.cu`` on the current stream."""
@@ -136,7 +148,7 @@ def marginal_cuda(consts, p_eff, conf_eff, wh, hc, hc_flip, incl, inv_t=None,
         args["hc"].data_ptr(), args["hc_flip"].data_ptr(), args["incl"].data_ptr(),
         args["inv_t"].data_ptr() if inv_t is not None else None, out.data_ptr(),
         B, N, F, S, C, G, int(ratio), int(inv_t is not None), int(two_eff),
-        _cuda.stream_of(out))
+        object_tile(B, N, _cuda.sm_count(out.device)), _cuda.stream_of(out))
     _cuda.check(rc, "marginal")
     launches.add((bool(ratio), inv_t is not None, bool(two_eff)))
     return out

@@ -41,7 +41,7 @@ class SampleRecord:
     i_step: int
     clusters: NDArray            # bool (K, N)
     weights: NDArray             # f32 (F, C)
-    source: NDArray              # bool (N, F, C)
+    source: NDArray              # bool (N, F, C), or the packed int8 (N, F) (C = NA)
     log_lh: float
     log_prior: float
     # prior decomposition
@@ -237,7 +237,10 @@ class ParametersCSVLogger(ResultsLogger):
                         row[f"{conf}_{g}_{f}_{s}"] = conf_effect[i_g, i_f, i_s]
 
         if self.log_source:
-            mean_source = sample.source.mean(axis=0)  # (F, C)
+            source = sample.source
+            if source.dtype == np.int8:  # the packed form: expanded here only
+                source = source[..., None] == np.arange(c.C)
+            mean_source = source.mean(axis=0)  # (F, C)
             for i_f, f in enumerate(feature_names):
                 for i_c, comp in enumerate(["clusters", *c.conf_names]):
                     row[f"source_{comp}_{f}"] = mean_source[i_f, i_c]

@@ -12,6 +12,12 @@ Everything is batched over chains: chain-state
 tensors carry a leading axis B, ``i_cluster`` is a (B,) index, gathered
 object indices are (B, m) with N meaning "padding". The temperatures are
 Python floats (unit temperatures) or (B,) tensors, one per chain (MC3).
+
+The source may be bool one-hot or packed int8 (the model's form); gathered
+rows are one-hot in both. The full-width computations (component
+likelihoods, the source posterior, the mask engine) take a feature slice
+``sl`` and run over the model's feature tiles at scale, as the JAX package
+tiles them (``_FeatureSlice``).
 """
 from __future__ import annotations
 
@@ -20,13 +26,19 @@ from typing import NamedTuple, Optional
 import torch
 
 from sbayes_tpu_torch.model.math import (
+    add_tiles,
+    cat_tiles,
     conditional_effect_mean,
+    feature_tiles,
     gather_cols,
     gather_rows,
     normalize,
     normalize_weights,
+    pack_source,
     per_chain,
     sample_categorical_onehot,
+    source_comp,
+    source_is_packed,
     source_pick,
     take_cols,
 )
@@ -36,8 +48,11 @@ EPS32 = 1.1920929e-07  # float32 machine epsilon
 TINY = 1e-35
 
 
+ALL = slice(None)
+
+
 class SourceResample(NamedTuple):
-    source: torch.Tensor            # (B, N, F, C) new source (mask engine) or the OLD one (rows)
+    source: torch.Tensor            # new source (mask engine) or the OLD one (rows), either form
     log_q: torch.Tensor             # (B,) forward log-probability
     log_q_back: torch.Tensor        # (B,) backward log-probability
     source_prior_delta: Optional[torch.Tensor] = None  # (B,) rows engine only
@@ -84,52 +99,60 @@ class Conditionals:
     # Component likelihoods
     # ------------------------------------------------------------------
 
-    def likelihood_per_component(self, clusters, cl_counts, conf_counts):
-        """(B, N, F, C) likelihood of each observation under each component
-        from the posterior-mean effects; NA observations get 1."""
+    def likelihood_per_component(self, clusters, cl_counts, conf_counts, sl=ALL):
+        """(B, N, f, C) likelihood of each observation of the features ``sl``
+        under each component from the posterior-mean effects (the counts
+        cover all F); NA observations get 1."""
         c = self.consts
-        feats = c.features
-        cl_eff = normalize(cl_counts + c.conc_cluster[None, None])
+        feats = c.features[:, sl]
+        cl_eff = normalize(cl_counts[:, :, sl] + c.conc_cluster[None, None, sl])
         lh0 = torch.einsum("bkn,bkfs,nfs->bnf", clusters.float(), cl_eff, feats)
-        conf_eff = normalize(conf_counts + c.conc_conf[None])
+        conf_eff = normalize(conf_counts[:, :, :, sl] + c.conc_conf[None, :, :, sl])
         lhc = torch.einsum("cgn,bcgfs,nfs->bnfc", c.groups, conf_eff, feats)
         lh = torch.cat([lh0[..., None], lhc], dim=-1)
-        return torch.where(c.na[None, :, :, None], torch.ones((), device=lh.device), lh)
+        return torch.where(c.na[None, :, sl, None], torch.ones((), device=lh.device), lh)
 
     def likelihood_per_component_exact(self, clusters, source):
         """(B, N, F, C) leave-self-out component likelihoods: each
         observation is scored under effects estimated without its own
-        contribution (for the likelihood logger)."""
+        contribution (for the likelihood logger); over the model's feature
+        tiles."""
         c = self.consts
-        feats = c.features
         cl_counts, conf_counts = self.post.feature_counts(clusters, source)
         member = clusters.any(dim=1)                                      # (B, N)
-        own0 = feats[None] * source[..., 0, None].float()                # (B, N, F, S)
-        per_obj_cl = (torch.einsum("bkn,bkfs->bnfs", clusters.float(),
-                                   cl_counts + c.conc_cluster[None, None])
-                      - member[:, :, None, None] * own0)
-        eff0 = per_obj_cl / torch.clamp(per_obj_cl.sum(-1, keepdim=True), min=EPS32)
-        zero = torch.zeros((), device=feats.device)
-        lh0 = torch.where(member[:, :, None], (eff0 * feats[None]).sum(-1), zero)
-        lhs = [lh0[..., None]]
-        base_conf = conf_counts + c.conc_conf[None]
-        for i_c in range(c.C - 1):
-            in_group = c.groups[i_c].sum(0) > 0                           # (N,)
-            own = feats[None] * source[..., 1 + i_c, None].float()
-            per_obj = (torch.einsum("gn,bgfs->bnfs", c.groups[i_c], base_conf[:, i_c])
-                       - in_group[None, :, None, None] * own)
-            eff = per_obj / torch.clamp(per_obj.sum(-1, keepdim=True), min=EPS32)
-            lhs.append(torch.where(in_group[None, :, None], (eff * feats[None]).sum(-1),
-                                   zero)[..., None])
-        lh = torch.cat(lhs, dim=-1)
-        return torch.where(c.na[None, :, :, None], torch.ones((), device=lh.device), lh)
+        zero = torch.zeros((), device=c.features.device)
 
-    def source_posterior(self, clusters, weights, source, counts=None):
-        """(B, N, F, C) posterior over the component of every observation."""
+        def tile(sl):
+            feats = c.features[:, sl]
+            src = source[:, :, sl]
+            own0 = feats[None] * source_comp(src, 0, torch.float32)[..., None]   # (B, N, f, S)
+            per_obj_cl = (torch.einsum("bkn,bkfs->bnfs", clusters.float(),
+                                       cl_counts[:, :, sl] + c.conc_cluster[None, None, sl])
+                          - member[:, :, None, None] * own0)
+            eff0 = per_obj_cl / torch.clamp(per_obj_cl.sum(-1, keepdim=True), min=EPS32)
+            lh0 = torch.where(member[:, :, None], (eff0 * feats[None]).sum(-1), zero)
+            lhs = [lh0[..., None]]
+            base_conf = conf_counts[:, :, :, sl] + c.conc_conf[None, :, :, sl]
+            for i_c in range(c.C - 1):
+                in_group = c.groups[i_c].sum(0) > 0                       # (N,)
+                own = feats[None] * source_comp(src, 1 + i_c, torch.float32)[..., None]
+                per_obj = (torch.einsum("gn,bgfs->bnfs", c.groups[i_c], base_conf[:, i_c])
+                           - in_group[None, :, None, None] * own)
+                eff = per_obj / torch.clamp(per_obj.sum(-1, keepdim=True), min=EPS32)
+                lhs.append(torch.where(in_group[None, :, None], (eff * feats[None]).sum(-1),
+                                       zero)[..., None])
+            lh = torch.cat(lhs, dim=-1)
+            return torch.where(c.na[None, :, sl, None], torch.ones((), device=lh.device), lh)
+
+        return cat_tiles([tile(sl) for sl in feature_tiles(c.F, c.feature_chunk)], dim=2)
+
+    def source_posterior(self, clusters, weights, source, counts=None, sl=ALL):
+        """(B, N, f, C) posterior over the component of every observation of
+        the features ``sl``."""
         if counts is None:
             counts = self.post.feature_counts(clusters, source)
-        lh_pc = self.likelihood_per_component(clusters, *counts)
-        w = normalize_weights(weights, self.post.has_components(clusters))
+        lh_pc = self.likelihood_per_component(clusters, *counts, sl=sl)
+        w = normalize_weights(weights[:, sl], self.post.has_components(clusters))
         return normalize(self.heat_lh(lh_pc) * self.heat_prior(w))
 
     def expected_confounder_features(self, clusters, weights, conf_counts):
@@ -153,29 +176,33 @@ class Conditionals:
             torch.zeros(source.shape[0], 0, source.shape[1], dtype=torch.bool,
                         device=source.device), source)[1]
 
-    def _clgu(self, clusters, source, subset, i_cluster, conf_counts_full):
-        """(B, N, F, C) heated component likelihoods with the subset's own
-        contribution removed from the effect estimates (the cluster effect
-        counts members outside the subset; each confounder effect uses its
-        full counts minus the subset's)."""
+    def _clgu(self, clusters, source, subset, i_cluster, conf_counts_full, sl=ALL):
+        """(B, N, f, C) heated component likelihoods of the features ``sl``
+        with the subset's own contribution removed from the effect estimates
+        (the cluster effect counts members outside the subset; each
+        confounder effect uses its full counts minus the subset's).
+        ``source``: the features ``sl`` of the source, either form;
+        ``conf_counts_full`` covers all F."""
         c = self.consts
-        feats = c.features
+        feats = c.features[:, sl]
+        unif = c.unif_conc[sl]
         sub = subset.float()
         keep = _pick_cluster(clusters, i_cluster).float() * (1.0 - sub)   # (B, N)
-        cl_keep = torch.einsum("bn,bnf,nfs->bfs", keep, source[..., 0].float(), feats)
+        cl_keep = torch.einsum("bn,bnf,nfs->bfs", keep, source_comp(source, 0, torch.float32),
+                               feats)
         cluster_effect = conditional_effect_mean(
-            c.conc_cluster[None], cl_keep, c.unif_conc[None], self.Tp, self.T)
+            c.conc_cluster[None, sl], cl_keep, unif[None], self.Tp, self.T)
         lh0 = torch.einsum("bfs,nfs->bnf", cluster_effect, feats)
         changeable = torch.stack([
             torch.einsum("gn,bn,bnf,nfs->bgfs", c.groups[i_c], sub,
-                         source[..., 1 + i_c].float(), feats)
+                         source_comp(source, 1 + i_c, torch.float32), feats)
             for i_c in range(c.C - 1)], dim=1)
         conf_effect = conditional_effect_mean(
-            c.conc_conf[None], conf_counts_full - changeable, c.unif_conc[None, None, None],
-            self.Tp, self.T)
+            c.conc_conf[None, :, :, sl], conf_counts_full[:, :, :, sl] - changeable,
+            unif[None, None, None], self.Tp, self.T)
         lhc = torch.einsum("cgn,bcgfs,nfs->bnfc", c.groups, conf_effect, feats)
         lh = torch.cat([lh0[..., None], lhc], dim=-1)
-        lh = torch.where(c.na[None, :, :, None], torch.ones((), device=lh.device), lh)
+        lh = torch.where(c.na[None, :, sl, None], torch.ones((), device=lh.device), lh)
         return self.heat_lh(lh)
 
     @staticmethod
@@ -191,26 +218,35 @@ class Conditionals:
         ``subset`` (B, N): forward and backward share the likelihoods,
         weights heated by 1/Tp, backward weights from the OLD clusters (the
         JAX package's ``_resample_engine`` as ``gibbs_resample_source`` calls
-        it)."""
+        it), over the model's feature tiles; the new source keeps the old
+        one's form."""
         c = self.consts
         if conf_counts_full is None:
             conf_counts_full = self._conf_counts_of(state_old.source)
-        w_f = normalize_weights(state_old.weights, self.post.has_components(clusters_new))
-        w_b = normalize_weights(state_old.weights, self.post.has_components(state_old.clusters))
-        w_f = self.heat_prior(w_f)
-        w_b = self.heat_prior(w_b)
-        if self.sample_from_prior:
-            p = w_f / torch.clamp(w_f.sum(-1, keepdim=True), min=EPS32)
-            p_back = w_b / torch.clamp(w_b.sum(-1, keepdim=True), min=EPS32)
-        else:
-            lh = self._clgu(clusters_new, state_old.source, subset, i_cluster, conf_counts_full)
-            p = normalize(w_f * lh)
-            p_back = normalize(w_b * lh)
-        x = sample_categorical_onehot(gen, p) & ~c.na[None, :, :, None]
-        source_new = torch.where(subset[:, :, None, None], x, state_old.source)
-        log_q = self._masked_logp(p, source_new, subset, c.na)
-        log_q_back = self._masked_logp(p_back, state_old.source, subset, c.na)
-        return SourceResample(source_new, log_q, log_q_back)
+        hc_f = self.post.has_components(clusters_new)
+        hc_b = self.post.has_components(state_old.clusters)
+        new_tiles, log_q, log_q_back = [], [], []
+        for sl in feature_tiles(c.F, c.feature_chunk):
+            src, na = state_old.source[:, :, sl], c.na[:, sl]
+            w_f = self.heat_prior(normalize_weights(state_old.weights[:, sl], hc_f))
+            w_b = self.heat_prior(normalize_weights(state_old.weights[:, sl], hc_b))
+            if self.sample_from_prior:
+                p = w_f / torch.clamp(w_f.sum(-1, keepdim=True), min=EPS32)
+                p_back = w_b / torch.clamp(w_b.sum(-1, keepdim=True), min=EPS32)
+            else:
+                lh = self._clgu(clusters_new, src, subset, i_cluster, conf_counts_full, sl)
+                p = normalize(w_f * lh)
+                p_back = normalize(w_b * lh)
+            x = sample_categorical_onehot(gen, p) & ~na[None, :, :, None]
+            if source_is_packed(src):
+                src_new = torch.where(subset[:, :, None], pack_source(x), src)
+            else:
+                src_new = torch.where(subset[:, :, None, None], x, src)
+            new_tiles.append(src_new)
+            log_q.append(self._masked_logp(p, src_new, subset, na))
+            log_q_back.append(self._masked_logp(p_back, src, subset, na))
+        return SourceResample(cat_tiles(new_tiles, dim=2), add_tiles(log_q),
+                              add_tiles(log_q_back))
 
     # ------------------------------------------------------------------
     # Gathered-rows engine: O(m F) per chain
@@ -286,7 +322,7 @@ class Conditionals:
         ``heat``: weights raised to 1/Tp; ``hc_back_from_old``: the backward
         availabilities come from the OLD clusters, else from the new ones."""
         feats_m, na_m, hc_conf_m = self.gather_obj(obj_idx)
-        src_rows_old = gather_rows(state_old.source, obj_idx)                  # (B, m, F, C)
+        src_rows_old = gather_rows(state_old.source, obj_idx, self.consts.C)    # (B, m, F, C)
         hc_new_m = self.rows_availability(clusters_new, obj_idx, hc_conf_m)
         hc_old_m = self.rows_availability(state_old.clusters, obj_idx, hc_conf_m)
 

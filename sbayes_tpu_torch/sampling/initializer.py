@@ -10,7 +10,9 @@ cluster) or ``random_growth`` (each cluster grown from a random free seed by
 free neighbour stops growing, as in the JAX package). Then a prior source
 draw followed by a full Gibbs source step, two rounds of ML cluster steps
 with a weights re-estimate between them, and the best of ``attempts`` by
-likelihood (the likelihood kernel on CUDA).
+likelihood (the likelihood kernel on CUDA). The EM likelihoods and the prior
+source draw run over the model's feature tiles, and the source is stored in
+the model's form (packed int8 at scale), as in the JAX package.
 """
 from __future__ import annotations
 
@@ -18,7 +20,16 @@ import math
 
 import torch
 
-from sbayes_tpu_torch.model.math import normalize, normalize_weights, sample_categorical_onehot
+from sbayes_tpu_torch.model.math import (
+    add_tiles,
+    cat_tiles,
+    feature_tiles,
+    normalize,
+    normalize_weights,
+    pack_source,
+    sample_categorical_onehot,
+    source_comp,
+)
 from sbayes_tpu_torch.sampling.conditionals import Conditionals
 from sbayes_tpu_torch.sampling.operators import OperatorFactory, _gumbel
 from sbayes_tpu_torch.sampling.state import ChainState
@@ -72,13 +83,17 @@ class Initializer:
         f_ar = torch.arange(c.F, device=dev)[None]
         feat_idx = c.feat_idx.long()                                    # (N, F), S = NA
         geo_on = c.geo.prior_type == "cost_based"
+        tiles = feature_tiles(c.F, c.feature_chunk)
 
         for i_step in range(self.n_em_steps):
             state_counts = torch.einsum("bgn,nfs->bgfs", z, c.features)
             p = normalize(state_counts + prior_counts)
             # NA observations count as "any state": their term is sum_s p.
-            p_obs = torch.cat([p, p.sum(-1, keepdim=True)], dim=-1)[:, :, f_ar, feat_idx]
-            group_lls = torch.log(torch.clamp(p_obs, min=1e-35)).sum(-1)   # (n, G, N)
+            p_any = torch.cat([p, p.sum(-1, keepdim=True)], dim=-1)
+            group_lls = add_tiles([                                      # (n, G, N)
+                torch.log(torch.clamp(p_any[:, :, f_ar[:, sl], feat_idx[:, sl]],
+                                      min=1e-35)).sum(-1)
+                for sl in tiles])
             temperature = (self.n_em_steps / (1.0 + i_step)) ** 3
             lh = group_lls / temperature
             if geo_on:
@@ -160,6 +175,18 @@ class Initializer:
         best = torch.where(best_value < threshold[:, None], K, best)
         return torch.nn.functional.one_hot(best, K + 1)[..., :K].permute(0, 2, 1).bool()
 
+    def prior_source(self, gen, clusters, weights):
+        """A source drawn from the normalized weights, NA cells empty, in the
+        model's form, over the feature tiles."""
+        c = self.consts
+        hc = self.cond.post.has_components(clusters)
+        tiles = []
+        for sl in feature_tiles(c.F, c.feature_chunk):
+            x = (sample_categorical_onehot(gen, normalize_weights(weights[:, sl], hc))
+                 & ~c.na[None, :, sl, None])
+            tiles.append(pack_source(x) if c.source_packed else x)
+        return cat_tiles(tiles, dim=2)
+
     def generate_sample_attempt(self, gen, n: int) -> ChainState:
         """(n,) independent initial states."""
         c = self.consts
@@ -167,8 +194,7 @@ class Initializer:
         dev = c.device
         clusters = self.generate_initial_clusters(gen, n)
         weights = torch.full((n, c.F, c.C), 1.0 / c.C, device=dev)
-        w_normed = normalize_weights(weights, cond.post.has_components(clusters))
-        source = sample_categorical_onehot(gen, w_normed) & ~c.na[None, :, :, None]
+        source = self.prior_source(gen, clusters, weights)
         minus_inf = torch.full((n,), float("-inf"), device=dev)
         state = ChainState(clusters, weights, source, minus_inf, minus_inf,
                            torch.full((n, 4), float("-inf"), device=dev))
@@ -179,7 +205,8 @@ class Initializer:
                 state = self.ml_step(gen, state, i_c)
             # Re-estimate the weights from the source ratios.
             hc = cond.post.has_components(state.clusters).float()
-            s_counts = state.source.float().sum(1)                        # (n, F, C)
+            s_counts = torch.stack([source_comp(state.source, i).sum(1) for i in range(c.C)],
+                                   dim=-1).float()                         # (n, F, C)
             s_ratio = s_counts / torch.clamp(hc.sum(1, keepdim=True), min=1e-35)
             state = state._replace(weights=normalize(1.0 + s_ratio))
             state = self.full_source_op(gen, state).state

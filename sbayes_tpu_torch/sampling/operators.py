@@ -27,16 +27,21 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from sbayes_tpu_torch.model.math import (
+    add_tiles,
+    cat_tiles,
     compact_indices,
     conditional_effect_mean,
     dirichlet_categorical_delta,
     dirichlet_logpdf,
+    feature_tiles,
     gather_cols,
     gather_rows,
     normalize,
     normalize_weights,
+    pack_source,
     per_chain,
     sample_categorical_onehot,
+    source_n_changed,
 )
 from sbayes_tpu_torch.ops.marginal import marginal
 from sbayes_tpu_torch.sampling.conditionals import EPS32, Conditionals, _pick_cluster
@@ -44,6 +49,7 @@ from sbayes_tpu_torch.sampling.state import ChainState
 
 TINY = 1e-35
 NEG_INF = float("-inf")
+LOG2 = math.log(2.0)
 
 
 class OpResult(NamedTuple):
@@ -110,10 +116,30 @@ def _reject_where(rejected, log_q, log_q_back, *deltas):
     return out + [None if d is None else torch.where(rejected, zero, d) for d in deltas]
 
 
-class OperatorFactory:
-    """Builds the batched operator suite for one model and temperature."""
+def wide_rows_cap_rule(n_objects: int, full_up_to: int = 1024, share: int = 16,
+                  least: int = 512) -> int:
+    """The most objects the wide operator resamples in one move (the JAX
+    package's rule): all of them up to ``full_up_to`` objects, else
+    max(``least``, N // ``share``). A move that changes more is rejected;
+    the flip count is the same forward and backward, so the truncation is
+    symmetric and plain MH on the restricted proposal stays exact."""
+    return n_objects if n_objects <= full_up_to else max(least, n_objects // share)
 
-    def __init__(self, cond: Conditionals, p_grow: float = 0.5):
+
+def source_sweep_rule(n_features: int, threshold: int = 512) -> bool:
+    """Whether the capped source selectors run the exact sequential sweep
+    (``op_rows_sweep``) instead of the one-shot MH draw, whose acceptance
+    collapses at large F (the JAX package's rule, outside prior mode)."""
+    return n_features >= threshold
+
+
+class OperatorFactory:
+    """Builds the batched operator suite for one model and temperature.
+    ``wide_rows_cap`` / ``source_sweep`` override ``wide_rows_cap_rule`` /
+    ``source_sweep_rule`` (None: the rule for this model)."""
+
+    def __init__(self, cond: Conditionals, p_grow: float = 0.5,
+                 wide_rows_cap: Optional[int] = None, source_sweep: Optional[bool] = None):
         self.cond = cond
         self.consts = cond.consts
         self.T = cond.T
@@ -124,6 +150,11 @@ class OperatorFactory:
         self.unit_T = not isinstance(self.T, torch.Tensor) and self.T == 1.0
         self.sample_from_prior = cond.sample_from_prior
         self.p_grow = p_grow
+        N = self.consts.N
+        self.wide_rows_cap = (wide_rows_cap_rule(N) if wide_rows_cap is None
+                              else min(N, int(wide_rows_cap)))
+        self.source_sweep = (source_sweep_rule(self.consts.F) if source_sweep is None
+                             else bool(source_sweep))
 
     # ==================================================================
     # Shared cluster-posterior math
@@ -300,26 +331,19 @@ class OperatorFactory:
 
     def make_alter_cluster(self, gibbsish: bool, neighbourhood: str,
                            consider_geo: bool = False) -> Callable:
-        """Grow or shrink one cluster by one object.
-
-        Divergence from the JAX package: there the proposal densities always
-        carry log p_grow / log p_shrink and only a move FROM a bound size is
-        corrected (-log 2 on log_q_back), so a move INTO a bound size (the
-        reverse of which is forced) is accepted half as often as detailed
-        balance asks: under the prior, bound sizes are sampled at half their
-        probability (tests/test_torch_slice.py). Here both directions use the
-        probability the operator really gives them."""
+        """Grow or shrink one cluster by one object, with the JAX package's
+        proposal densities: both carry log p_grow / log p_shrink (the
+        direction of the move and of its reverse), forced directions
+        included, and a move FROM a bound size gets -log 2 on a finite
+        log_q_back; a shrink whose removed object is no grow candidate of
+        the new state is rejected. (This rule samples the bound sizes at
+        half the prior's probability; the port computes what the JAX
+        package computes, ROADMAP C.1.)"""
         cond = self.cond
         K, N = self.consts.K, self.consts.N
         min_size, max_size = self.consts.min_size, self.consts.max_size
         p_grow, T = self.p_grow, self.T
         lp_grow, lp_shrink = math.log(p_grow), math.log1p(-p_grow)
-
-        def log_p_direction(size, grow):
-            """log P(the operator picks this direction at this cluster size):
-            forced (log 1) at the size bounds, else log p_grow / p_shrink."""
-            forced = torch.where(grow, size == min_size, size == max_size)
-            return torch.where(forced, 0.0, torch.where(grow, lp_grow, lp_shrink))
 
         def op(gen, state):
             B = state.n_chains
@@ -353,7 +377,7 @@ class OperatorFactory:
             valid = torch.ones((B, 1), dtype=torch.bool, device=dev)
             rs = cond.gibbs_resample_source_rows(gen, state, clusters_new, obj_idx, valid,
                                                  i_cluster, counts)
-            src_obj = gather_rows(state.source, obj_idx)                       # (B, 1, F, C)
+            src_obj = gather_rows(state.source, obj_idx, self.consts.C)          # (B, 1, F, C)
             cl_new, conf_new, ll_d = self._delta_counts(
                 counts, obj, state.clusters, clusters_new, src_obj[:, 0], rs.new_rows[:, 0])
             counts_new = (cl_new, conf_new)
@@ -373,15 +397,17 @@ class OperatorFactory:
                                  torch.where(back_grow_cand, p_back, zero))
             p_bwd = pb_vec / torch.clamp(pb_vec.sum(-1), min=TINY)[:, None]
 
-            # The direction probabilities of both moves, forced ones included:
-            # the reverse of a move INTO a bound size is forced as well.
-            size_new = size + torch.where(do_grow, 1, -1)
-            log_q = (torch.log(torch.clamp(p_fwd[ar, obj], min=TINY)) + rs.log_q
-                     + log_p_direction(size, do_grow))
+            lp_fwd = torch.where(do_grow, lp_grow, lp_shrink)
+            lp_back = torch.where(do_grow, lp_shrink, lp_grow)
+            log_q = torch.log(torch.clamp(p_fwd[ar, obj], min=TINY)) + rs.log_q + lp_fwd
             log_q_back = (torch.log(torch.clamp(p_bwd[ar, obj], min=TINY)) + rs.log_q_back
-                          + log_p_direction(size_new, ~do_grow))
+                          + lp_back)
             log_q, log_q_back, sp_d, ll_d = _reject_where(
                 rejected, log_q, log_q_back, rs.source_prior_delta, ll_d)
+            # The boundary correction -log 2 on the backward probability.
+            boundary = at_min | at_max
+            log_q_back = log_q_back - torch.where(boundary & torch.isfinite(log_q_back),
+                                                  LOG2, 0.0)
             rows = (torch.where(rejected, N, obj)[:, None], rs.new_rows)
             return OpResult(state_new, log_q, log_q_back, torch.ones(B, device=dev),
                             source_prior_delta=sp_d, ll_delta=ll_d, source_rows=rows)
@@ -499,12 +525,15 @@ class OperatorFactory:
                                 n_em_steps: int = 10) -> Callable:
         """Resample the full membership of one cluster (redraw until the
         proposal differs, at most 100 rounds) with a gathered-rows source
-        resample over the changed objects. The proposal probabilities come
+        resample over the changed objects, at most ``wide_rows_cap`` of
+        them: a move that changes more is rejected (its ``step_size``, the
+        flip count, still says how many). The proposal probabilities come
         from the collapsed posterior under ``effect_proposal``, or with
         ``em_proposal`` from ``n_em_steps`` steps of soft EM."""
         cond = self.cond
         K, N = self.consts.K, self.consts.N
         min_size, max_size = self.consts.min_size, self.consts.max_size
+        M = self.wide_rows_cap
         if eps is None:
             eps = 0.01 / N
         if em_proposal:
@@ -553,11 +582,10 @@ class OperatorFactory:
             clusters_new[ar, i_cluster] = cluster_new
             changed = cluster_old != cluster_new
             m = changed.sum(-1)
-            # Every changed object is resampled (the scale path's row cap,
-            # which auto-rejects moves above it, is not ported yet).
-            obj_idx = compact_indices(changed, N, N)
-            valid = torch.arange(N, device=dev)[None] < m[:, None]
-            src_rows_old = gather_rows(state.source, obj_idx)
+            rejected = rejected | (m > M)
+            obj_idx = compact_indices(changed, M, N)
+            valid = torch.arange(M, device=dev)[None] < m[:, None]
+            src_rows_old = gather_rows(state.source, obj_idx, self.consts.C)
             rs = cond.gibbs_resample_source_rows(gen, state, clusters_new, obj_idx, valid,
                                                  i_cluster, counts)
             feats_m = cond.gather_obj(obj_idx)[0]
@@ -703,7 +731,7 @@ class OperatorFactory:
             rs = cond.gibbs_resample_source_jump_rows(
                 gen, state, clusters_new, obj_idx, valid, i_cluster_new=i_tgt,
                 i_cluster_old=i_src, counts=counts)
-            src_obj = gather_rows(state.source, obj_idx)                       # (B, 1, F, C)
+            src_obj = gather_rows(state.source, obj_idx, self.consts.C)          # (B, 1, F, C)
             cl_new, conf_new, ll_d = self._delta_counts(
                 counts, obj, state.clusters, clusters_new, src_obj[:, 0], rs.new_rows[:, 0])
             pat_new = self._delta_pat(
@@ -735,17 +763,20 @@ class OperatorFactory:
 
     def make_gibbs_sample_source(self, object_selector: str, max_size: int) -> Callable:
         """Resample the source of a random subset, of a random group's
-        members (at most ``max_size`` objects), or of all objects."""
+        members (at most ``max_size`` objects), or of all objects. The
+        capped selectors draw their rows at once with an MH correction
+        (``op_rows``), or, where ``source_sweep`` (F >= 512) and outside
+        prior mode, one object after the other from its exact leave-self-out
+        conditional (``op_rows_sweep``: always accepted, as its log_q is the
+        Gibbs sentinel -inf, and it returns its exact likelihood delta). All
+        objects: over the model's feature tiles."""
         cond = self.cond
         consts = self.consts
-        N, K = consts.N, consts.K
+        N, K, C = consts.N, consts.K, consts.C
         n_conf = len(consts.conf_names)
         if N <= 10:
             object_selector = "all"
         k_cap = min(max_size, N)
-        if object_selector != "all" and consts.F >= 512 and not self.sample_from_prior:
-            raise NotImplementedError(
-                "the sequential source sweep used at F >= 512 is not ported yet (scale-path slice)")
 
         def select_subset_idx(gen, state):
             """(obj_idx (B, k), valid (B, k)): distinct indices per chain."""
@@ -766,18 +797,19 @@ class OperatorFactory:
             top_vals, top_idx = torch.topk(scores, k_cap, dim=-1)
             return top_idx, torch.isfinite(top_vals)
 
-        def posterior_probs(state, counts):
+        def posterior_probs(state, counts, sl):
             if self.sample_from_prior:
-                w = normalize_weights(state.weights, cond.post.has_components(state.clusters))
+                w = normalize_weights(state.weights[:, sl],
+                                      cond.post.has_components(state.clusters))
                 return normalize(cond.heat_prior(w))
             return cond.source_posterior(state.clusters, state.weights, state.source,
-                                         counts=counts)
+                                         counts=counts, sl=sl)
 
         def op_rows(gen, state):
             counts_old = self._state_counts(state)
             obj_idx, valid = select_subset_idx(gen, state)
             feats_m, na_m, hc_conf_m = cond.gather_obj(obj_idx)
-            old_rows = gather_rows(state.source, obj_idx)
+            old_rows = gather_rows(state.source, obj_idx, C)
             hc_m = cond.rows_availability(state.clusters, obj_idx, hc_conf_m)
             if self.sample_from_prior:
                 p = normalize(cond.heat_prior(normalize_weights(state.weights, hc_m)))
@@ -808,23 +840,97 @@ class OperatorFactory:
             return OpResult(state_new, log_q, log_q_back, step_size,
                             source_prior_delta=sp_delta, source_rows=(idx, new_rows))
 
+        def op_rows_sweep(gen, state):
+            """Exact sequential Gibbs over the selected objects (the JAX
+            package's ``op_rows_sweep``): one object after the other, batched
+            over chains, from its leave-self-out collapsed conditional (its
+            cells factor over features), with the carried counts updated
+            between objects; the exact log-likelihood change of each
+            sub-step is the log ratio of the new and old cells' predictive
+            values, which the conditional already holds."""
+            B = state.n_chains
+            ar = torch.arange(B, device=state.clusters.device)
+            cl_counts, conf_counts = (x.clone() for x in self._state_counts(state))
+            obj_idx, valid = select_subset_idx(gen, state)
+            feats_m, na_m, hc_conf_m = cond.gather_obj(obj_idx)
+            old_rows = gather_rows(state.source, obj_idx, C)                 # (B, k, F, C)
+            mem = gather_cols(state.clusters, obj_idx)                        # (B, K, k)
+            hc0 = mem.any(1)
+            hc_m = torch.cat([hc0[..., None], hc_conf_m], dim=-1)
+            w_heat = cond.heat_prior(normalize_weights(state.weights, hc_m))  # (B, k, F, C)
+            k_of = mem.to(torch.uint8).argmax(1)                              # (B, k)
+            g_of = torch.clamp(consts.group_idx.long()[:, torch.clamp(obj_idx, max=N - 1)],
+                               min=0)                                         # (C-1, B, k)
+            rows = old_rows.clone()
+            ll_delta = torch.zeros(B, device=ar.device)
+            tiny = torch.full((), TINY, device=ar.device)
+            for j in range(obj_idx.shape[1]):
+                f_o = feats_m[:, j]                                           # (B, F, S)
+                row_old = rows[:, j].float()                                  # (B, F, C)
+                v = valid[:, j].float()[:, None, None]
+                na_j = na_m[:, j]
+                in_comp = [hc0[:, j].float()[:, None, None] * v] + [
+                    hc_conf_m[:, j, i].float()[:, None, None] * v for i in range(n_conf)]
+                count_rows = [(cl_counts, (ar, k_of[:, j]), consts.conc_cluster)] + [
+                    (conf_counts, (ar, i, g_of[i, :, j]), consts.conc_conf[i, g_of[i, :, j]])
+                    for i in range(n_conf)]
+                lh = torch.stack([
+                    (normalize(counts[at] - f_o * row_old[..., i:i + 1] * in_comp[i] + conc)
+                     * f_o).sum(-1)
+                    for i, (counts, at, conc) in enumerate(count_rows)], dim=-1)  # (B, F, C)
+                lh = torch.where(na_j[..., None], torch.ones((), device=lh.device), lh)
+                p = normalize(cond.heat_lh(lh) * w_heat[:, j])
+                new_row = sample_categorical_onehot(gen, p) & ~na_j[..., None]
+                new_row = torch.where(valid[:, j, None, None], new_row, rows[:, j])
+                nr = new_row.float()
+                ok = (~na_j) & valid[:, j, None]
+                d_j = (torch.log(torch.maximum((lh * nr).sum(-1), tiny))
+                       - torch.log(torch.maximum((lh * row_old).sum(-1), tiny)))
+                ll_delta = ll_delta + torch.where(ok, d_j, torch.zeros((), device=d_j.device)
+                                                  ).sum(-1)
+                for i, (counts, at, _) in enumerate(count_rows):
+                    counts[at] += f_o * (nr[..., i:i + 1] - row_old[..., i:i + 1]) * in_comp[i]
+                rows[:, j] = new_row
+            pat_new = self._delta_pat(state.pat_counts, obj_idx, valid, hc0, hc0, old_rows, rows)
+            state_new = state._replace(pat_counts=pat_new, cl_counts=cl_counts,
+                                       conf_counts=conf_counts)
+            sp_delta = (cond.source_prior_rows_logp(state.weights, hc_m, rows, valid, na_m)
+                        - cond.source_prior_rows_logp(state.weights, hc_m, old_rows, valid,
+                                                      na_m))
+            step_size = ((rows ^ old_rows) & valid[:, :, None, None]).sum((1, 2, 3)).float()
+            return OpResult(state_new, torch.full((B,), NEG_INF, device=ar.device),
+                            torch.zeros(B, device=ar.device), step_size,
+                            source_prior_delta=sp_delta, ll_delta=ll_delta,
+                            source_rows=(torch.where(valid, obj_idx, N), rows))
+
         def op_all(gen, state):
             counts_old = self._state_counts(state)
-            p = posterior_probs(state, counts_old)
-            source_new = sample_categorical_onehot(gen, p) & ~consts.na[None, :, :, None]
-            every = torch.ones(source_new.shape[:2], dtype=torch.bool, device=p.device)
-            log_q = cond._masked_logp(p, source_new, every, consts.na)
+            tiles = feature_tiles(consts.F, consts.feature_chunk)
+            every = torch.ones((state.n_chains, N), dtype=torch.bool,
+                               device=state.clusters.device)
+            new_tiles, log_q = [], []
+            for sl in tiles:
+                p = posterior_probs(state, counts_old, sl)
+                na = consts.na[:, sl]
+                x = sample_categorical_onehot(gen, p) & ~na[None, :, :, None]
+                new_tiles.append(pack_source(x) if consts.source_packed else x)
+                log_q.append(cond._masked_logp(p, new_tiles[-1], every, na))
+            source_new = cat_tiles(new_tiles, dim=2)
             cl, conf = cond.post.feature_counts(state.clusters, source_new)
             pat_new = (None if state.pat_counts is None
                        else cond.post.pattern_counts(state.clusters, source_new))
             state_new = state._replace(source=source_new, pat_counts=pat_new, cl_counts=cl,
                                        conf_counts=conf)
-            p_back = posterior_probs(state_new, (cl, conf))
-            log_q_back = cond._masked_logp(p_back, state.source, every, consts.na)
-            step_size = (source_new ^ state.source).sum((1, 2, 3)).float()
-            return OpResult(state_new, log_q, log_q_back, step_size)
+            log_q_back = add_tiles([
+                cond._masked_logp(posterior_probs(state_new, (cl, conf), sl),
+                                  state.source[:, :, sl], every, consts.na[:, sl])
+                for sl in tiles])
+            return OpResult(state_new, add_tiles(log_q), log_q_back,
+                            source_n_changed(source_new, state.source))
 
-        return op_all if object_selector == "all" else op_rows
+        if object_selector == "all":
+            return op_all
+        return op_rows_sweep if self.source_sweep and not self.sample_from_prior else op_rows
 
     # ==================================================================
     # GibbsSampleWeights: per-feature independent MH on two components

@@ -55,7 +55,8 @@ def generate_prior_sample(gen, cond: Conditionals, n: int) -> ChainState:
                               generator=gen)
     weights = g / g.sum(-1, keepdim=True)                                   # (n, F, C)
     w_normed = normalize_weights(weights, cond.post.has_components(clusters))
-    source = sample_categorical_onehot(gen, w_normed) & ~c.na[None, :, :, None]
+    source = cond.post.source_form(sample_categorical_onehot(gen, w_normed)
+                                   & ~c.na[None, :, :, None])
     minus_inf = torch.full((n,), float("-inf"), device=c.device)
     return ChainState(clusters, weights, source, minus_inf, minus_inf,
                       torch.full((n, 4), float("-inf"), device=c.device))

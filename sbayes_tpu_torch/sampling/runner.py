@@ -432,17 +432,20 @@ class MCMCSetup:
     # -------------------- resume --------------------
 
     def _load_state_pickle(self, path: Path) -> tuple[ChainState, int]:
-        """The checkpointed state (a batch of one, every carried invariant
+        """The checkpointed state (a batch of one, its source converted to
+        the model's form in either direction, every carried invariant
         recomputed) and the step it was written at."""
         with open(path, "rb") as f:
             d = pickle.load(f)
         state = ChainState.from_numpy(d, device=self.runtime.device)
+        state = state._replace(source=self.runtime.post.source_form(state.source))
         return self.runtime.refresh(state), int(d.get("i_step", 0))
 
     def _resume_from_results(self, run: int, chain: int = 0) -> tuple[ChainState, int]:
         """The last logged sample of the clusters and stats files (no pickle):
         its clusters and weights, a source drawn from the weights and then
-        one Gibbs pass from its posterior; the step after the last sample."""
+        one Gibbs pass from its posterior, stored in the model's form; the
+        step after the last sample."""
         from sbayes_tpu_torch.results.results import Results
 
         results = Results.from_csv_files(self.get_results_file_path("clusters", run, chain),
@@ -462,7 +465,7 @@ class MCMCSetup:
         state = ChainState(clusters, weights, source, minus_inf, minus_inf,
                            torch.full((1, 4), float("-inf"), device=rt.device))
         p = rt.cond.source_posterior(clusters, weights, source)
-        state = state._replace(source=sample_categorical_onehot(gen, p) & ~na)
+        state = state._replace(source=rt.post.source_form(sample_categorical_onehot(gen, p) & ~na))
         return rt.refresh(state), int(results.sample_id[-1] + 1)
 
     def _resume_state(self, run: int, chain: int = 0) -> tuple[ChainState, int]:

@@ -23,7 +23,9 @@ class ChainState(NamedTuple):
 
     clusters: torch.Tensor                 # bool (B, K, N)
     weights: torch.Tensor                  # f32 (B, F, C)
-    source: torch.Tensor                   # bool (B, N, F, C), all-zero at NA
+    # bool one-hot (B, N, F, C), all-zero at NA; or, when the model's
+    # ``source_packed``, the int8 (B, N, F) component index, C at NA
+    source: torch.Tensor
     log_lh: torch.Tensor                   # f32 (B,)
     log_prior: torch.Tensor                # f32 (B,)
     prior_parts: torch.Tensor              # f32 (B, 4) [size, geo, weights, source]
@@ -56,7 +58,8 @@ class ChainState(NamedTuple):
 
     def to_numpy(self, chain: Optional[int] = None) -> dict:
         """The JAX package's checkpoint dict: of one chain when ``chain`` is
-        given (scalars as floats), else of the whole batch."""
+        given (scalars as floats), else of the whole batch. The source is
+        written in the form the state holds (bool one-hot or packed int8)."""
         st = self if chain is None else self.select(chain)
 
         def host(x):
@@ -79,14 +82,14 @@ class ChainState(NamedTuple):
     @classmethod
     def from_numpy(cls, d: dict, device="cpu") -> "ChainState":
         """Rebuild from a checkpoint dict of one chain (clusters (K, N)) or
-        of a batch (clusters (B, K, N)). Only the bool one-hot source form is
-        read; counts absent from the dict stay None (refresh with
-        ``Posterior.fill_state``)."""
+        of a batch (clusters (B, K, N)). The source keeps its form: an int8
+        array is the packed index, anything else the bool one-hot (convert
+        with ``Posterior.source_form``); counts absent from the dict stay
+        None (refresh with ``Posterior.fill_state``)."""
         clusters = np.asarray(d["clusters"])
         single = clusters.ndim == 2
         source = np.asarray(d["source"])
-        if source.dtype == np.int8:
-            raise NotImplementedError("the packed int8 source form is not ported (scale path)")
+        source_dtype = torch.int8 if source.dtype == np.int8 else torch.bool
 
         def t(x, dtype, add_batch=single):
             x = np.asarray(x)
@@ -101,7 +104,7 @@ class ChainState(NamedTuple):
         return cls(
             clusters=t(clusters, torch.bool),
             weights=t(d["weights"], torch.float32),
-            source=t(source, torch.bool),
+            source=t(source, source_dtype),
             log_lh=scalar("log_lh"),
             log_prior=scalar("log_prior"),
             prior_parts=t(d.get("prior_parts", np.full(4, -np.inf)), torch.float32),

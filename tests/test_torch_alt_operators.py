@@ -206,10 +206,11 @@ def fixture_runtime():
     return SamplerRuntime(Model(Data.from_config(cfg), cfg.model, device="cpu"), cfg.mcmc)
 
 
-def run_schedule(rt, specs, seed):
+def run_schedule(rt, specs, seed, ops=None):
     """``N_STEPS`` MH steps of ``N_CHAINS`` chains from the initializer, one
-    operator of ``specs`` (drawn by weight) per step, as ``run_chunk`` does.
-    Returns the final states and the acceptance rate of each operator."""
+    operator of ``specs`` (drawn by weight, or the given ``ops``) per step,
+    as ``run_chunk`` does. Returns the final states and the acceptance rate
+    of each operator."""
     from sbayes_tpu_torch.sampling.kernel import OperatorStats, make_mh_apply_fn
     from sbayes_tpu_torch.sampling.runner import make_generators
 
@@ -218,7 +219,9 @@ def run_schedule(rt, specs, seed):
     stats = OperatorStats.zeros(N_CHAINS, len(specs), "cpu")
     apply = make_mh_apply_fn(rt.cond, specs)
     weights = torch.tensor([s.weight for s in specs], dtype=torch.float64)
-    for op in torch.multinomial(weights, N_STEPS, replacement=True, generator=op_gen).tolist():
+    if ops is None:
+        ops = torch.multinomial(weights, N_STEPS, replacement=True, generator=op_gen).tolist()
+    for op in ops:
         states, accept, step_size, nf = apply(op, gen, states)
         stats = stats.record(op, accept, step_size, nf)
     assert int(stats.non_finite.sum()) == 0
@@ -232,6 +235,20 @@ def default_run(fixture_runtime):
 
     rt = fixture_runtime
     return run_schedule(rt, get_operator_schedule(rt.cond, rt.mcmc_config.operators), 1)[0]
+
+
+@pytest.fixture(scope="module")
+def wide_run(fixture_runtime):
+    """The schedule with the plain wide operator (the Gibbs effect, geo
+    weighted) as the only cluster operator."""
+    from sbayes_tpu_torch.sampling.operators import (
+        OperatorFactory, OperatorSpec, get_operator_schedule)
+
+    rt = fixture_runtime
+    wide = OperatorFactory(rt.cond).make_alter_cluster_wide(True)
+    rest = [s for s in get_operator_schedule(rt.cond, rt.mcmc_config.operators)
+            if s.changes != "clusters"]
+    return run_schedule(rt, [OperatorSpec("wide", 1.0, wide)] + rest, 1)[0]
 
 
 def assert_same_posterior(states, ref):
@@ -252,10 +269,15 @@ def assert_same_posterior(states, ref):
 
 
 @pytest.mark.parametrize("variant", ["em", "residual", "residual_counts"])
-def test_wide_variants_sample_the_default_posterior(fixture_runtime, default_run, variant):
+def test_wide_variants_sample_the_default_posterior(fixture_runtime, wide_run, variant):
     """The wide operator with the EM or a residual-effect proposal (geo
     weighted, as the fixture's prior is cost-based) as the only cluster
-    operator, beside the source and weights operators of the schedule."""
+    operator, beside the source and weights operators of the schedule,
+    against the same schedule with the plain wide operator. (Not against the
+    default schedule: its grow/shrink operators follow the JAX package's
+    rule, which samples the bound sizes at half their probability, ROADMAP
+    C.1, and every wide operator stops redrawing after 100 draws, which
+    over-weights the full cluster, C.8; both move the weights' means.)"""
     from sbayes_tpu_torch.sampling.operators import (
         OperatorFactory, OperatorSpec, get_operator_schedule)
 
@@ -267,7 +289,49 @@ def test_wide_variants_sample_the_default_posterior(fixture_runtime, default_run
             if s.changes != "clusters"]
     states, acc = run_schedule(rt, [OperatorSpec(variant, 1.0, wide)] + rest, 2)
     assert 0.05 < acc[0] < 0.95
-    assert_same_posterior(states, default_run)
+    assert_same_posterior(states, wide_run)
+
+
+def test_default_schedule_samples_the_jax_posterior(fixture_runtime):
+    """The default schedule (the JAX rule of grow/shrink, ROADMAP C.1, and
+    the wide operator's redraw limit, C.8, included) against the JAX
+    package's default schedule on the fixture, each from its own initial
+    states, both on the same operator draws: membership of every object and
+    mean of every weight, p > P_MIN each, as the wide variants are held
+    against the plain wide operator above."""
+    import warnings
+
+    from sbayes_tpu.config.schema import SBayesConfig as JaxConfig
+    from sbayes_tpu.data.loader import Data as JaxData
+    from sbayes_tpu.model.model import Model as JaxModel
+    from sbayes_tpu.model.posterior import Posterior as JaxPosterior
+    from sbayes_tpu.sampling.conditionals import Conditionals as JaxConditionals
+    from sbayes_tpu.sampling.kernel import make_mh_apply_fn as jax_mh_apply_fn
+    from sbayes_tpu.sampling.operators import get_operator_schedule as jax_schedule
+    from sbayes_tpu.sampling.runner import SamplerRuntime as JaxRuntime
+    from sbayes_tpu_torch.sampling.operators import get_operator_schedule
+
+    rt = fixture_runtime
+    specs = get_operator_schedule(rt.cond, rt.mcmc_config.operators)
+    w = np.array([s.weight for s in specs])
+    ops = np.random.default_rng(4).choice(len(specs), size=N_STEPS, p=w / w.sum()).tolist()
+    states, _ = run_schedule(rt, specs, 4, ops)
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        cfg = JaxConfig.from_config_file(FIXTURES / "config.yaml", custom_settings={})
+    jrt = JaxRuntime(JaxModel(JaxData.from_config(cfg), cfg.model), cfg.mcmc)
+    cond = JaxConditionals(JaxPosterior(jrt.consts, False), 1.0, 1.0)
+    jspecs = jax_schedule(cond, cfg.mcmc.operators)
+    assert [s.name for s in jspecs] == [s.name for s in specs]
+    np.testing.assert_allclose([s.weight for s in jspecs], w, rtol=1e-6)
+    apply = jax.jit(jax.vmap(jax_mh_apply_fn(cond, jspecs), in_axes=(None, 0, 0)))
+    jstates = jrt.init_chains(jax.random.PRNGKey(4), N_CHAINS, shard=False)
+    key = jax.random.PRNGKey(5)
+    for op in ops:
+        key, k = jax.random.split(key)
+        jstates = apply(op, jax.random.split(k, N_CHAINS), jstates)[0]
+    assert_same_posterior(states, jstates)
 
 
 def test_alter_weights_samples_the_default_posterior(fixture_runtime, default_run):

@@ -84,3 +84,33 @@ def test_k3_geo_invariants_on_the_card():
     assert 0.0 < errs["jump_accept_rate"] < 1.0
     jump = chip_smoke.phase_jump_512(n_chains=32, n_steps=20)
     assert jump["launches"]["marginal_two_eff"] == 40 and jump["F"] == 512
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_chains", [16, 1024])
+def test_packed_loglh_and_object_tiled_marginal_on_the_card(n_chains):
+    """The packed-source likelihood kernel and the marginal kernel's launch
+    at a batch below the SM count (a (chain, object tile) grid) and at 1024
+    chains (one block per chain), on random valid inputs at 400 features
+    (feature tiles: the likelihood's (chain, feature tile) grid), against
+    their plain versions within chip_smoke's tolerances; the packed kernel
+    bit-equal to the bool one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from sbayes_tpu_torch.model.model import Model
+    from sbayes_tpu_torch.ops import loglh, marginal
+    from sbayes_tpu_torch.testing import synthetic_config, synthetic_data
+
+    c = Model(synthetic_data(n_features=400), synthetic_config(n_clusters=2).model,
+              device="cuda").consts
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    tile = marginal.object_tile(n_chains, c.N, n_sm)
+    assert (tile < c.N) == (n_chains < n_sm)
+    assert loglh.feature_tile(c, packed=True) < c.F and loglh.feature_tile(c) < c.F
+    chip_smoke.reset_counters()
+    errs = chip_smoke.compare_with_plain(c, chip_smoke.random_kernel_inputs(c, n_chains, 21))
+    assert errs["loglh_packed_equals_bool"]
+    assert loglh.launches.variants["packed"] == 5 and loglh.launches.variants["bool"] == 1
+    assert all(errs[marginal.variant_name(*v)] >= 0 for v in marginal.VARIANTS)

@@ -6,6 +6,7 @@ Tolerances: rtol 1e-5 against the JAX XLA path (both evaluate lgamma of the
 same exact integer counts in float32; only summation order differs), rtol
 1e-4 against the Pallas kernel in interpret mode (its lgamma is an 8-step
 Stirling series)."""
+import dataclasses
 import re
 from pathlib import Path
 
@@ -243,3 +244,44 @@ def test_bound_counts_live_in_the_module(models):
     assert loglh.bytes_moved(c, 0) > 4 * (1 + int(sum(c.n_groups))) * c.F * (c.S + 1)
     rows = c.K + (c.C - 1) * c.Gmax
     assert loglh.operations(c, 2) == 2 * (c.N * c.F * c.C + rows * c.F * (3 * c.S + 4))
+
+
+def test_packed_plain_equals_bool_and_jax(models):
+    """The plain version on the packed int8 source (sentinel C at NA) gives
+    the bool form's result bit for bit, over feature tiles too, and JAX's
+    within rtol 1e-5 (the JAX XLA path on its own packed form)."""
+    from sbayes_tpu.model.math import pack_source as jax_pack
+    from sbayes_tpu.model.posterior import Posterior as JaxPosterior
+    from sbayes_tpu.sampling.state import ChainState as JaxState
+    from sbayes_tpu_torch.model.math import pack_source
+    from sbayes_tpu_torch.ops.loglh import log_likelihood, log_likelihood_plain
+
+    jm, m, clusters, source = models
+    c = m.consts
+    cl, src = torch.as_tensor(clusters), torch.as_tensor(source)
+    packed = pack_source(src)
+    want = log_likelihood_plain(c, cl, src)
+    torch.testing.assert_close(log_likelihood_plain(c, cl, packed), want, rtol=0, atol=0)
+    torch.testing.assert_close(log_likelihood(c, cl, packed), want, rtol=0, atol=0)
+    tiled = dataclasses.replace(c, feature_chunk=3)
+    torch.testing.assert_close(log_likelihood_plain(tiled, cl, packed),
+                               log_likelihood_plain(tiled, cl, src), rtol=0, atol=0)
+    post = JaxPosterior(jm.consts, use_pallas=False)
+    f = jax.jit(lambda k, s: post.log_likelihood(JaxState(
+        k, jnp.zeros((c.F, c.C)), jax_pack(s), 0.0, 0.0, jnp.zeros(4))))
+    jax_want = np.asarray([f(k, s) for k, s in zip(clusters, source)])
+    np.testing.assert_allclose(log_likelihood(c, cl, packed).numpy(), jax_want, rtol=1e-5)
+
+
+def test_packed_bound_counts_one_byte_per_cell(models):
+    """With the packed source the function reads one byte per observed cell
+    (instead of C) and the scan of the C bytes is gone from the operations."""
+    from sbayes_tpu_torch.ops import loglh
+
+    _, m, _, _ = models
+    c = m.consts
+    observed = int((c.feat_idx < c.S).sum())
+    assert (loglh.bytes_moved(c, 2) - loglh.bytes_moved(c, 2, packed=True)
+            == 2 * observed * (c.C - 1))
+    assert (loglh.operations(c, 2) - loglh.operations(c, 2, packed=True)
+            == 2 * c.N * c.F * (c.C - 1))

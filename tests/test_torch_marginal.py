@@ -302,3 +302,22 @@ def test_index_form_matches_plain_on_odd_shapes(ratio, heat, two_eff):
     got = marginal_plain(c, t(p_eff), t(conf_eff), t(wh), t(hc), t(hc_flip), t(in_cl),
                          None if inv_t is None else t(inv_t), ratio=ratio, two_eff=two_eff)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("B,N,n_sm,tile", [(1024, 100, 132, 100), (132, 100, 132, 100),
+                                          (64, 100, 132, 20), (16, 10_000, 132, 589),
+                                          (2, 10_000, 132, 76), (1, 10, 132, 1),
+                                          (3, 37, 132, 1)])
+def test_object_tile_rule(B, N, n_sm, tile):
+    """Objects per block of the marginal kernel's grid: all N (one block per
+    chain, the launch of the main shapes) once the chains fill the SMs, else
+    tiles that give chains x tiles >= 2 blocks per SM, every object in one
+    tile."""
+    from sbayes_tpu_torch.ops.marginal import object_tile
+
+    got = object_tile(B, N, n_sm)
+    assert got == tile
+    tiles = -(-N // got)
+    assert tiles * got >= N > (tiles - 1) * got
+    if B < n_sm:
+        assert B * tiles >= min(2 * n_sm, B * N)

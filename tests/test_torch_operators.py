@@ -28,7 +28,6 @@ def one_torch_thread():
 
 MIN_SIZE, MAX_SIZE = 2, 6
 U_GROW, U_SHRINK = 0.25, 0.75     # the grow/shrink uniform against p_grow = 0.5
-LOG2 = float(np.log(2.0))
 ATOL_LOG_Q = 1e-4
 
 
@@ -110,12 +109,11 @@ def forced_draws(monkeypatch):
 @pytest.mark.parametrize("size", [MIN_SIZE, MIN_SIZE + 1, 4, MAX_SIZE - 1, MAX_SIZE])
 def test_grow_shrink_log_q_matches_jax(bounded, forced_draws, size):
     """The Gibbsish grow/shrink move against the JAX operator on the same
-    state with the same forced draws (both directions). Interior moves give
-    the same log_q and log_q_back. The port departs from the JAX package at
-    the size bounds, where the operator forces the direction: a move INTO a
-    bound has a forced reverse, so the port's log_q_back is JAX's + log 2;
-    a move FROM a bound is forced itself, and both log_q and log_q_back are
-    JAX's + log 2 (the same MH ratio: JAX's -log 2 boundary correction)."""
+    state with the same forced draws (both directions): the same new
+    cluster, log_q and log_q_back at every size, the bounds included (moves
+    from a bound, whose direction is forced, and moves into one: log p_grow
+    / log p_shrink in both densities and -log 2 on log_q_back from a
+    bound)."""
     jstate, state = _cluster_state(bounded, np.arange(0, 3 * size, 3))
     jop = bounded["jfact"].make_alter_cluster(gibbsish=True, neighbourhood="everywhere",
                                               consider_geo=False)
@@ -128,17 +126,11 @@ def test_grow_shrink_log_q_matches_jax(bounded, forced_draws, size):
         np.testing.assert_array_equal(new_clusters, np.asarray(jres.state.clusters))
         grow = int(new_clusters.sum()) == size + 1
         assert grow == (size == MIN_SIZE or (size != MAX_SIZE and u < 0.5))
-        if size in (MIN_SIZE, MAX_SIZE):
-            shift = (LOG2, LOG2)
-        elif size + (1 if grow else -1) in (MIN_SIZE, MAX_SIZE):
-            shift = (0.0, LOG2)
-        else:
-            shift = (0.0, 0.0)
-        for name, s in zip(("log_q", "log_q_back"), shift):
+        for name in ("log_q", "log_q_back"):
             got = float(_np(getattr(res, name))[chain])
             want = float(getattr(jres, name))
             assert np.isfinite(got) and np.isfinite(want), name
-            np.testing.assert_allclose(got - s, want, rtol=RTOL_PROPOSAL, atol=ATOL_LOG_Q,
+            np.testing.assert_allclose(got, want, rtol=RTOL_PROPOSAL, atol=ATOL_LOG_Q,
                                        err_msg=f"{name}, grow={grow}")
 
 
