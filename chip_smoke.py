@@ -28,7 +28,7 @@ the revisions in turns in one call (a, b, b, a).
    heat variant of the marginal launched, the swap acceptance overall
    (strictly between 0 and 1) and per rung, the ladder's carried state after
    the last swap against its recompute. Then ``resume``: ``cli.main`` for
-   1000 steps, then ``cli.main(..., resume=True)`` for 2000, of one chain
+   500 steps, then ``cli.main(..., resume=True)`` for 1000, of one chain
    and of an MC3 ladder of four rungs: continuous sample ids in every
    rung's stats file and the resumed run's carried state equal to its
    recompute. These two phases run the CLI on JSON configs; its data load
@@ -77,7 +77,23 @@ the revisions in turns in one call (a, b, b, a).
    same once more from an in-bounds start (``in_bounds``: K random disjoint
    clusters of the EM's target size, 200 objects, a source pass over all
    objects), with sizes held strictly within the bounds; both kernels
-   against their plain versions on SCALE_KERNEL_CHAINS chains. In the
+   against their plain versions on SCALE_KERNEL_CHAINS chains. Then
+   ``scale_geo``: the same workload and data under ``GEO_K3`` (cost-based,
+   mean, rate 1e6), from the EM start (the EM's geo term, the ML steps that
+   weigh membership by the geo prior) and from an in-bounds start: the
+   carried state (skeleton aggregates included) against its recompute, a
+   finite, non-zero geo-prior part of every chain's log-prior, sizes within
+   bounds, both kernels against their plain versions; peak memory, steps
+   per second, ms per step of each operator, one ``_update_geo`` at the
+   batch's sizes (launches, wall ms, Prim iterations), one tiled against
+   one untiled ``geo_prior_costs_per_object`` (bit-equal, the tiled peak
+   under 1 GB). Then ``scale_mc3``: ``benchmarks/mc3_scale.py``'s ladder
+   (SCALE_MC3: 4 rungs, T = 1 + 0.02 i, a swap phase every 10 steps) from
+   the first 4 in-bounds states of ``scale`` through ``run_mc3_chunk``,
+   then the plain ensemble from the same start: chain-steps per second of
+   both, the MC3 overhead, swap acceptance per rung pair, the heat variant
+   launched (and against its plain version on the two hottest rungs), each
+   run's carried state against its recompute. In the
    CLI block, ``init_methods``: ``cli.main`` at K = 3 with the
    ``seed_points`` initializer, then with ``random_growth`` and
    ``log_contribution_per_cluster``;
@@ -99,13 +115,16 @@ the revisions in turns in one call (a, b, b, a).
    one ``kernels`` JSON line, ``launches`` summed over the driven paths
    (``launches_by_path``), with rows at the scale shape (``"inputs":
    "scale"``: SCALE_KERNEL_CHAINS chains, all SCALE_CHAINS under
-   ``all_chains``); the ratio and heat variants once more on the
+   ``all_chains``; their launches from ``scale``, ``scale_geo`` and
+   ``scale_mc3``, the heat row also timed on the ladder's two hottest
+   rungs under ``mc3``); the ratio and heat variants once more on the
    residual-counts effect rows of ``alt_operators`` (``"inputs":
    "residual"``, launches: that path's).
    ``ms``, ``plain_ms`` and ``launch_floor_ms`` time eager calls with
    CUDA events; ``device_ms`` and ``device_floor_ms`` time the same launches
    replayed from a CUDA graph, where the host dispatches nothing;
-5. last line: ``{"ok": true, "device": {...}}``.
+5. last line: ``{"ok": true, "device": {...}}``. Every phase line carries
+   ``elapsed_s``, the seconds since the script started.
 
 Any failed phase raises, so the script exits non-zero and prints no result
 line. It needs a CUDA card and the repository beside it.
@@ -139,6 +158,11 @@ PRIOR_SAMPLES = 4096
 SCALE_SHAPE = {"n_objects": 10_000, "n_features": 5_000, "n_states": 5, "n_families": 10}
 SCALE_CHAINS, SCALE_CHUNK, SCALE_CHUNKS = 16, 20, 3
 SCALE_KERNEL_CHAINS = 2          # the plain marginal's (B, N, F, S) temporaries stay 2 GB
+# benchmarks/mc3_scale.py's ladder at the scale shape: 4 rungs, T = 1 + 0.02 i,
+# prior temperatures 1, a swap phase every 10 steps of 1 attempt between
+# adjacent rungs; 3 chunks of 40 steps, then the plain ensemble the same
+SCALE_MC3 = {"rungs": 4, "temperature_diff": 0.02, "swap_interval": 10, "attempts": 1,
+             "chunk": 40, "chunks": 3}
 LOGLH_TOL_REL = 1e-5             # lgammaf vs torch.lgamma, summation order (of the total)
 MARGINAL_TOL_ABS = 1e-4          # 36 logs summed in another order (per object)
 MARGINAL_TOL_FEATURES = 36       # wider data: the tolerance grows with the logs summed
@@ -364,8 +388,8 @@ def phase_main_path_mc3(tmp: Path) -> dict:
 
 
 def phase_resume(tmp: Path) -> dict:
-    """K = 3, cost-based geo: ``cli.main`` for 1000 steps / 10 samples, then
-    ``cli.main(..., resume=True)`` for 2000 / 20: 20 rows with continuous
+    """K = 3, cost-based geo: ``cli.main`` for 500 steps / 10 samples, then
+    ``cli.main(..., resume=True)`` for 1000 / 20: 20 rows with continuous
     sample ids and the resumed run's carried state equal to its recompute;
     the same for an MC3 ladder of four rungs, each resuming from its pickle."""
     from sbayes_tpu_torch import cli
@@ -381,9 +405,9 @@ def phase_resume(tmp: Path) -> dict:
             mcmc["mc3"] = mc3
         name = f"resume_{label}"
         first = smoke_config(tmp, tmp / "results", 3, GEO_K3, name=f"{name}_first",
-                             mcmc={**mcmc, "steps": 1000, "samples": 10})
+                             mcmc={**mcmc, "steps": 500, "samples": 10})
         second = smoke_config(tmp, tmp / "results", 3, GEO_K3, name=f"{name}_second",
-                              mcmc={**mcmc, "steps": 2000, "samples": 20})
+                              mcmc={**mcmc, "steps": 1000, "samples": 20})
         t0 = time.perf_counter()
         with synthetic_data_for_cli():
             cli.main(first, experiment_name=name, device=DEVICE)
@@ -395,7 +419,7 @@ def phase_resume(tmp: Path) -> dict:
                                              for c in range(1, mc3["chains"])] if mc3 else [])
         for f in files:
             ids = [int(v) for v in stats_column(f, "Sample")]
-            if ids != list(range(100, 2001, 100)):
+            if ids != list(range(50, 1001, 50)):
                 raise AssertionError(f"{name}: {f.name} has samples {ids}")
         rt = seen["runtime"]
         states, stats = seen["out"][:2]
@@ -624,7 +648,8 @@ def update_geo_cost(rt, states, reps: int = 10) -> dict:
     forms = {"update_geo": lambda: factory._update_geo(states.geo_agg, states.clusters,
                                                        i_cluster),
              "prim": lambda: cluster_mst_stats(c.cost_matrix, masks)}
-    out = {"batch_max_size": int(masks.sum(-1).max())}
+    out = {"batch_max_size": int(masks.sum(-1).max()),
+           "prim_iterations": max(int(masks.sum(-1).max()) - 1, 0)}
     for name, fn in forms.items():
         fn()
         torch.cuda.synchronize()
@@ -700,20 +725,24 @@ def phase_jump_512(n_chains: int = 64, n_steps: int = 50) -> dict:
                 c, inputs, (True, False, True), n_chains)}
 
 
-def scale_runtime():
+def scale_runtime(data=None, geo_prior: str = "uniform"):
     """The scale workload of ``benchmarks/scale10k.py``: 10,000 objects x 5,000
-    features x 5 states, universal + 10 families, K = 5, uniform geo prior,
-    sizes 10-3000, EM initialization (1 attempt, 3 EM steps, 200 objects per
-    cluster); (runtime, data seconds, model seconds)."""
+    features x 5 states, universal + 10 families, K = 5, uniform geo prior
+    (or ``GEO_K3`` with ``geo_prior="cost_based"``), sizes 10-3000, EM
+    initialization (1 attempt, 3 EM steps, 200 objects per cluster), on
+    ``data`` (None: drawn here); (runtime, data seconds, model seconds)."""
     from sbayes_tpu_torch.model.model import Model
     from sbayes_tpu_torch.sampling.runner import SamplerRuntime
     from sbayes_tpu_torch.testing import synthetic_config
     from sbayes_tpu_torch.testing_scale import synthetic_data_large
 
     t0 = time.perf_counter()
-    data = synthetic_data_large(**SCALE_SHAPE, seed=0)
+    if data is None:
+        data = synthetic_data_large(**SCALE_SHAPE, seed=0)
     t_data = time.perf_counter() - t0
-    cfg = synthetic_config(n_clusters=5, geo_prior="uniform")
+    cfg = synthetic_config(n_clusters=5, geo_prior=geo_prior, **(
+        {"rate": GEO_K3["rate"], "aggregation": GEO_K3["aggregation"]}
+        if geo_prior == "cost_based" else {}))
     cfg.model.prior.objects_per_cluster.min = 10
     cfg.model.prior.objects_per_cluster.max = 3000
     init = cfg.mcmc.initialization
@@ -855,7 +884,8 @@ def phase_scale() -> tuple:
     Then the same from an in-bounds start (``in_bounds_start``), where the
     sizes must stay within the bounds. Then both kernels against their plain
     versions on SCALE_KERNEL_CHAINS of the chains (both starts). Returns
-    (phase info, kernel rows)."""
+    (phase info, kernel rows, runtime, the first SCALE_MC3 rungs of the
+    in-bounds run's end states: ``phase_scale_mc3``'s start)."""
     from sbayes_tpu_torch.ops import marginal
     from sbayes_tpu_torch.sampling.operators import OperatorFactory
     from sbayes_tpu_torch.sampling.runner import make_generators
@@ -900,6 +930,7 @@ def phase_scale() -> tuple:
                          "wide_cap_check": wide_cap_check(rt, states_ib)}
     few_ib = states_ib.select(torch.arange(SCALE_KERNEL_CHAINS, device=c.device))
     info["in_bounds"]["kernels_vs_plain"] = compare_with_plain(c, path_kernel_inputs(rt, few_ib))
+    mc3_start = states_ib.select(torch.arange(SCALE_MC3["rungs"], device=c.device))
     del start, states_ib, few_ib
 
     # Both kernels at the scale shape: against their plain versions on a few
@@ -943,7 +974,210 @@ def phase_scale() -> tuple:
                                     "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
                                     "object_tile": marginal.object_tile(SCALE_CHAINS, c.N,
                                                                         n_sm)}})
-    return info, rows
+    return info, rows, rt, mc3_start
+
+
+def geo_costs_memory(rt, states) -> dict:
+    """One ``geo_prior_costs_per_object`` of cluster 0 of every chain (from
+    the carried aggregates) over tiles of ``auto_cost_row_tile`` rows and in
+    one tile of all N rows: the peak device memory each call adds above
+    what is allocated before it, and its wall time (second call of each).
+    Raises unless the two are bit-equal and the tiled peak stays under
+    1 GB."""
+    from sbayes_tpu_torch.model.constants import auto_cost_row_tile
+
+    c = rt.consts
+    B = states.n_chains
+    i_cluster = torch.zeros(B, dtype=torch.long, device=c.device)
+    out, res = {}, {}
+    for name, tile in (("tiled", auto_cost_row_tile(B, c.N)), ("untiled", c.N)):
+        for _ in range(2):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res[name] = rt.post.geo_prior_costs_per_object(states.clusters, i_cluster,
+                                                           geo_agg=states.geo_agg, row_tile=tile)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        out[name] = {"row_tile": tile, "wall_ms": wall * 1e3,
+                     "peak_above_state_gb": (torch.cuda.max_memory_allocated() - base) / 1e9}
+    torch.cuda.empty_cache()
+    if not torch.equal(res["tiled"], res["untiled"]):
+        raise AssertionError("tiled geo costs per object differ from the untiled ones")
+    if not out["tiled"]["peak_above_state_gb"] < 1.0:
+        raise AssertionError(f"tiled geo costs per object: {out['tiled']} (1 GB or more)")
+    return {"chains": B, "N": c.N, **out}
+
+
+def geo_prior_check(states) -> list:
+    """The carried geo-prior part of every chain's log-prior; raises unless
+    each is finite and non-zero."""
+    from sbayes_tpu_torch.sampling.state import PRIOR_GEO
+
+    geo = states.prior_parts[:, PRIOR_GEO]
+    if not bool(torch.isfinite(geo).all()) or bool((geo == 0).any()):
+        raise AssertionError(f"geo prior parts {geo.tolist()}: not all finite and non-zero")
+    return geo.tolist()
+
+
+def phase_scale_geo(data) -> tuple:
+    """The scale workload of ``phase_scale`` on the same data under the
+    cost-based geo prior ``GEO_K3`` (bench.py's geo model), SCALE_CHAINS
+    chains: from the EM start (the EM's geo term, the ML steps that weigh
+    membership by the geo prior) and again from an in-bounds start, each
+    SCALE_CHUNKS chunks of SCALE_CHUNK steps of the full schedule, in which
+    the geo-weighted Gibbsish and wide operators weigh their proposals by
+    the geo prior. Checks, each fatal, after each run: the carried state
+    against its exact recompute (``check_carried_state``: counts exactly,
+    the carried skeleton aggregates' edge counts exactly and each entry
+    within 1e-3 relative, see there), a finite, non-zero geo-prior part of
+    every chain's log-prior, sizes within bounds as in ``scale``, both
+    kernels against their plain versions on SCALE_KERNEL_CHAINS chains.
+    Prints peak device memory, steps/s, ms per step of each operator, one
+    ``_update_geo`` (launches, wall ms, Prim iterations) and one tiled
+    against one untiled ``geo_prior_costs_per_object``. Returns (phase
+    info, launches by start)."""
+    from sbayes_tpu_torch.sampling.operators import OperatorFactory
+    from sbayes_tpu_torch.sampling.runner import make_generators
+
+    rt, _, t_model = scale_runtime(data, "cost_based")
+    c = rt.consts
+    if c.geo.prior_type != "cost_based" or tuple(c.cost_matrix.shape) != (c.N, c.N):
+        raise AssertionError(f"scale_geo: geo prior {c.geo.prior_type}, cost matrix "
+                             f"{tuple(c.cost_matrix.shape)}")
+    cap = OperatorFactory(rt.cond).wide_rows_cap
+    gen, op_gen = make_generators(47, DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    states = rt.init_chains(gen, SCALE_CHAINS)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    peak_init = torch.cuda.max_memory_allocated()
+    init_launches = counters()
+    if not init_launches.get("loglh_packed"):
+        raise AssertionError(f"the packed likelihood was not launched at init: {init_launches}")
+    init_sizes = states.clusters.sum(-1)
+    em_states = states
+    info = {"chains": SCALE_CHAINS, "N": c.N, "F": c.F, "K": c.K, "geo": GEO_K3,
+            "model_s": t_model, "init_s": t_init, "peak_init_gb": peak_init / 1e9,
+            "init_launches": init_launches, "init_sizes": init_sizes.tolist()}
+    size = rt.mcmc_config.initialization.objects_per_cluster
+    launches_by_start = {}
+    for name in ("em_start", "in_bounds"):
+        if name == "em_start":
+            start, bounds = em_states, init_sizes
+        else:
+            start, bounds = in_bounds_start(rt, em_states, gen, size), None
+        states, run, launches = scale_run(rt, gen, op_gen, start, init_sizes=bounds)
+        if not launches.get("marginal"):
+            raise AssertionError(f"scale_geo {name}: the marginal was not launched: {launches}")
+        few = states.select(torch.arange(SCALE_KERNEL_CHAINS, device=c.device))
+        info[name] = {**run, "geo_prior_parts": geo_prior_check(states),
+                      **scale_operator_times(rt, states, cap),
+                      "update_geo": update_geo_cost(rt, states, reps=2),
+                      "kernels_vs_plain": compare_with_plain(c, path_kernel_inputs(rt, few))}
+        if name == "em_start":
+            info[name]["geo_costs_per_object"] = geo_costs_memory(rt, states)
+        launches_by_start["scale_geo" if name == "em_start" else "scale_geo_in_bounds"] = (
+            add_launches(init_launches, launches) if name == "em_start" else launches)
+        del start, states, few
+    both = add_launches(*launches_by_start.values())
+    if not both.get("marginal_two_eff"):
+        raise AssertionError(f"scale_geo: the jump's two-effect marginal was not launched: {both}")
+    info["launches"] = launches_by_start
+    return info, launches_by_start
+
+
+def phase_scale_mc3(rt, start) -> tuple:
+    """``benchmarks/mc3_scale.py``'s ladder at the scale shape: ``start`` (the
+    first SCALE_MC3 rungs of ``phase_scale``'s in-bounds states, with its
+    runtime ``rt``) at T = 1 + 0.02 i and prior temperatures 1, SCALE_MC3
+    chunks of ``run_mc3_chunk`` with a swap phase every 10 steps (1 attempt,
+    adjacent rungs), then the plain ``run_chunk`` from a copy of the same
+    start at unit temperatures. Checks, each fatal: the heat variant of the
+    marginal launched on the ladder, each run's carried state equal to its
+    recompute (sizes strictly within the bounds), every marginal variant and
+    the likelihood against their plain versions on the ladder's
+    SCALE_KERNEL_CHAINS hottest rungs at their own temperatures. Returns
+    (phase info, the ladder's launches, the heat variant timed on those
+    rungs' inputs)."""
+    from sbayes_tpu_torch.sampling.runner import make_generators
+    from sbayes_tpu_torch.sampling.state import ChainState
+
+    c = rt.consts
+    n = start.n_chains
+    chunk, chunks = SCALE_MC3["chunk"], SCALE_MC3["chunks"]
+    temps = 1.0 + SCALE_MC3["temperature_diff"] * torch.arange(n, dtype=torch.float32,
+                                                               device=c.device)
+    prior_temps = torch.ones(n, device=c.device)
+    plain_start = ChainState(*(None if x is None else x.clone() for x in start))
+    swap_matrix = np.zeros((2, n, n), dtype=np.int64)
+    gen, op_gen = make_generators(41, DEVICE)
+    stats = rt.new_stats(n)
+    states, n_acc, n_att = start, 0, 0
+    reset_counters()
+    t0 = time.perf_counter()
+    for i in range(chunks):
+        states, stats, acc, att = rt.run_mc3_chunk(
+            gen, op_gen, states, stats, temps, prior_temps, swap_matrix, i * chunk, chunk,
+            SCALE_MC3["swap_interval"], SCALE_MC3["attempts"], True)
+        n_acc, n_att = n_acc + acc, n_att + att
+    torch.cuda.synchronize()
+    t_mc3 = time.perf_counter() - t0
+    launches = counters()
+    if not launches.get("marginal_heat"):
+        raise AssertionError(f"scale_mc3: the heat variant was not launched: {launches}")
+    errs = check_carried_state(c, states, rt.refresh(states), stats)
+
+    gen, op_gen = make_generators(41, DEVICE)
+    plain, stats_plain = plain_start, rt.new_stats(n)
+    reset_counters()
+    t0 = time.perf_counter()
+    for _ in range(chunks):
+        plain, stats_plain = rt.run_chunk(gen, op_gen, plain, stats_plain, chunk)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    launches_plain = counters()
+    errs_plain = check_carried_state(c, plain, rt.refresh(plain), stats_plain)
+
+    hot = torch.arange(n - SCALE_KERNEL_CHAINS, n, device=c.device)
+    inputs = mc3_kernel_inputs(rt, states.select(hot), temps[hot], prior_temps[hot])
+    kernels_vs_plain = compare_with_plain(c, inputs)
+    heat = {**time_marginal_variant(c, inputs, (True, True, False), SCALE_KERNEL_CHAINS, reps=5),
+            "inputs": "scale_mc3", "temperatures": temps[hot].tolist()}
+    steps = chunk * chunks
+    rate, rate_plain = n * steps / t_mc3, n * steps / t_plain
+    pairs = {f"{a}-{a + 1}": {"accepted": int(swap_matrix[0, a, a + 1]),
+                              "attempted": int(swap_matrix[1, a, a + 1])} for a in range(n - 1)}
+    for p in pairs.values():
+        p["rate"] = p["accepted"] / p["attempted"] if p["attempted"] else None
+    info = {"rungs": n, "temperatures": temps.tolist(), "prior_temperatures": prior_temps.tolist(),
+            **{k: SCALE_MC3[k] for k in ("swap_interval", "attempts")}, "only_adjacent": True,
+            "steps": steps, "mc3_s": t_mc3, "plain_s": t_plain,
+            "chain_steps_per_s": rate, "plain_chain_steps_per_s": rate_plain,
+            "mc3_overhead": 1.0 - rate / rate_plain, "swaps_accepted": n_acc,
+            "swaps_attempted": n_att, "swap_acceptance_by_pair": pairs,
+            "launches": launches, "launches_plain": launches_plain,
+            "heat_launches": launches["marginal_heat"],
+            "sizes": states.clusters.sum(-1).tolist(),
+            "carried_vs_recompute_max_abs": errs, "plain_carried_vs_recompute_max_abs": errs_plain,
+            "kernels_vs_plain": kernels_vs_plain}
+    return info, launches, heat
+
+
+def add_scale_paths(rows: list, launches_by_path: dict, heat_mc3: dict) -> None:
+    """The scale kernel rows with the launches of the later scale paths
+    (``launches_by_path``: path -> launch counts) added, and the heat
+    variant's row with its timing on the MC3 ladder's inputs."""
+    for row in rows:
+        for path, counts in launches_by_path.items():
+            n = counts.get(row["name"], 0)
+            row["launches_by_path"][path] = n
+            row["launches"] += n
+        if row["name"] == "marginal_heat":
+            row["mc3"] = heat_mc3
 
 
 def schedule_window(rt, states, n_steps: int, trace: bool, profile: bool = False) -> tuple:
@@ -1253,24 +1487,28 @@ def jump_kernel_inputs(cond, states) -> dict:
             "inv_t": torch.full((B,), 1.0 / 1.3, device=hc.device)}
 
 
-def mc3_kernel_inputs(rt, states, temps) -> dict:
+def mc3_kernel_inputs(rt, states, temps, prior_temps=None) -> dict:
     """The inputs the wide operator gives the heat variant under per-chain
-    temperatures ``temps`` (likelihood and prior), from the chains' own
-    state: the heated effect of cluster 0 (counts over T, concentration
-    over Tp), the weights to the power 1/Tp and ``inv_t = 1/T`` per chain."""
+    likelihood temperatures ``temps`` and prior temperatures
+    ``prior_temps`` (None: ``temps``), from the chains' own state: the
+    heated effect of cluster 0 (counts over T, concentration over Tp), the
+    weights to the power 1/Tp and ``inv_t = 1/T`` per chain."""
     from sbayes_tpu_torch.model.math import conditional_effect_mean, normalize, per_chain
 
     c = rt.consts
+    if prior_temps is None:
+        prior_temps = temps
     hc = rt.post.has_components(states.clusters)
     hc_flip = hc.clone()
     hc_flip[..., 0] = ~hc[..., 0]
     p_eff = conditional_effect_mean(c.conc_cluster[None], states.cl_counts[:, 0],
-                                    c.unif_conc[None], temps, temps)
+                                    c.unif_conc[None], prior_temps, temps)
     inv_t = 1.0 / temps
+    inv_tp = 1.0 / prior_temps
     return {"clusters": states.clusters, "source": states.source, "p_eff": p_eff,
             "p_other": normalize(torch.roll(p_eff, 1, dims=0) + 0.1),
             "conf_eff": normalize(states.conf_counts + c.conc_conf[None]),
-            "wh": (states.weights ** per_chain(inv_t, states.weights)).contiguous(),
+            "wh": (states.weights ** per_chain(inv_tp, states.weights)).contiguous(),
             "hc": hc.float(), "hc_flip": hc_flip.float(), "incl": hc[..., 0].float(),
             "inv_t": inv_t}
 
@@ -1635,6 +1873,14 @@ def compare_revisions(a: str, b: str) -> int:
     return 0 if all(v for k, v in equal.items() if k.startswith("main:")) else 1
 
 
+T_START = time.perf_counter()
+
+
+def phase_line(info: dict) -> str:
+    """One phase's JSON line, with the seconds since the script started."""
+    return json.dumps({**info, "elapsed_s": time.perf_counter() - T_START})
+
+
 def main() -> int:
     if len(sys.argv) == 4 and sys.argv[1] == "compare":
         return compare_revisions(sys.argv[2], sys.argv[3])
@@ -1655,24 +1901,24 @@ def main() -> int:
     t0 = time.perf_counter()
     lib_path = _cuda.build(verbose=True)
     _cuda.library()
-    print(json.dumps({"phase": "build", "library": str(lib_path),
+    print(phase_line({"phase": "build", "library": str(lib_path),
                       "build_s": time.perf_counter() - t0}), flush=True)
 
     with tempfile.TemporaryDirectory() as tmp:
         main_path = phase_main_path(Path(tmp))
-        print(json.dumps({"phase": "main_path", **main_path}), flush=True)
+        print(phase_line({"phase": "main_path", **main_path}), flush=True)
         main_path_k3 = phase_main_path(Path(tmp), n_clusters=3, geo=GEO_K3)
-        print(json.dumps({"phase": "main_path_k3", **main_path_k3}), flush=True)
+        print(phase_line({"phase": "main_path_k3", **main_path_k3}), flush=True)
         main_path_mc3 = phase_main_path_mc3(Path(tmp))
-        print(json.dumps({"phase": "main_path_mc3", **main_path_mc3}), flush=True)
-        print(json.dumps({"phase": "resume", **phase_resume(Path(tmp))}), flush=True)
+        print(phase_line({"phase": "main_path_mc3", **main_path_mc3}), flush=True)
+        print(phase_line({"phase": "resume", **phase_resume(Path(tmp))}), flush=True)
         init_methods = phase_init_methods(Path(tmp))
-        print(json.dumps({"phase": "init_methods", **init_methods}), flush=True)
+        print(phase_line({"phase": "init_methods", **init_methods}), flush=True)
 
     rt, states, full = phase_full_width(CHAINS, STEPS)
     full.update({"device": torch.cuda.get_device_name(0), "card": card})
-    print(json.dumps({"phase": "full_width", **full}), flush=True)
-    print(json.dumps({"phase": "where_time_goes", "card": card,
+    print(phase_line({"phase": "full_width", **full}), flush=True)
+    print(phase_line({"phase": "where_time_goes", "card": card,
                       **phase_where_time_goes(rt, states)}), flush=True)
 
     rt_k3, states_k3, full_k3 = phase_full_width(CHAINS, STEPS_K3, n_clusters=3,
@@ -1681,8 +1927,8 @@ def main() -> int:
     full_k3.update({"device": torch.cuda.get_device_name(0), "card": card,
                     "kernels_per_step": time_k3["kernels_per_step"],
                     "device_busy_share": time_k3["device_busy_share"]})
-    print(json.dumps({"phase": "full_width_k3", **full_k3}), flush=True)
-    print(json.dumps({"phase": "where_time_goes_k3", "card": card, **time_k3}), flush=True)
+    print(phase_line({"phase": "full_width_k3", **full_k3}), flush=True)
+    print(phase_line({"phase": "where_time_goes_k3", "card": card, **time_k3}), flush=True)
 
     temps = ladder_temperatures(CHAINS)
     rt_mc3, states_mc3, full_mc3 = phase_full_width(CHAINS, STEPS_K3, n_clusters=3,
@@ -1695,22 +1941,31 @@ def main() -> int:
                      "update_geo": time_mc3["update_geo"],
                      "full_width_k3": {k: full_k3[k] for k in (
                          "steps_per_s", "kernels_per_step", "device_busy_share")}})
-    print(json.dumps({"phase": "full_width_mc3", **full_mc3}), flush=True)
+    print(phase_line({"phase": "full_width_mc3", **full_mc3}), flush=True)
 
     jump_512 = phase_jump_512()
-    print(json.dumps({"phase": "jump_512", "card": card, **jump_512}), flush=True)
+    print(phase_line({"phase": "jump_512", "card": card, **jump_512}), flush=True)
 
     ess = {}
     for geo_prior in ("uniform", "cost_based"):
         ess[geo_prior] = phase_ess(geo_prior)
-        print(json.dumps({"phase": "ess", "card": card, **ess[geo_prior]}), flush=True)
+        print(phase_line({"phase": "ess", "card": card, **ess[geo_prior]}), flush=True)
     alt = phase_alt_operators(rt_k3, states_k3, rt_mc3, states_mc3, temps)
-    print(json.dumps({"phase": "alt_operators", "card": card, **alt}), flush=True)
+    print(phase_line({"phase": "alt_operators", "card": card, **alt}), flush=True)
     prior = phase_prior_samples(rt_k3)
-    print(json.dumps({"phase": "prior_samples", "card": card, **prior}), flush=True)
-    scale, scale_rows = phase_scale()
-    print(json.dumps({"phase": "scale", "card": card, **scale}), flush=True)
+    print(phase_line({"phase": "prior_samples", "card": card, **prior}), flush=True)
+    scale, scale_rows, rt_scale, mc3_start = phase_scale()
+    print(phase_line({"phase": "scale", "card": card, **scale}), flush=True)
     torch.cuda.empty_cache()
+    scale_geo, geo_launches = phase_scale_geo(rt_scale.model.data)
+    print(phase_line({"phase": "scale_geo", "card": card, **scale_geo}), flush=True)
+    torch.cuda.empty_cache()
+    scale_mc3, mc3_launches, heat_mc3 = phase_scale_mc3(rt_scale, mc3_start)
+    print(phase_line({"phase": "scale_mc3", "card": card, **scale_mc3}), flush=True)
+    del rt_scale, mc3_start
+    torch.cuda.empty_cache()
+    later_scale = {**geo_launches, "scale_mc3": mc3_launches}
+    add_scale_paths(scale_rows, later_scale, heat_mc3)
 
     by_path = {"main_path": main_path["launches"], "main_path_k3": main_path_k3["launches"],
                "main_path_mc3": main_path_mc3["launches"], "jump_512": jump_512["launches"],
@@ -1720,7 +1975,7 @@ def main() -> int:
                "init_random_growth": init_methods["random_growth"]["launches"],
                "alt_operators": add_launches(*(a["launches"] for a in alt.values())),
                "prior_samples": prior["launches"], "scale": scale["launches"],
-               "scale_in_bounds": scale["in_bounds"]["launches"]}
+               "scale_in_bounds": scale["in_bounds"]["launches"], **later_scale}
     residual_launches = add_launches(*(alt[k]["launches"] for k in (
         "wide_residual", "wide_residual_counts", "wide_residual_counts_mc3")))
     kernels = phase_kernels(rt, states, rt_k3, states_k3, rt_mc3, states_mc3, temps, by_path,

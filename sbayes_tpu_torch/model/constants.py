@@ -21,7 +21,9 @@ state's source as the packed int8 (N, F) index (``auto_source_packed``), and
 (B, N, F, ...) computations run (``auto_feature_chunk``). The TPU's
 pre-tiled feature layouts and its bf16 one-hot features are not ported: on
 the GPU both kernels read the state index directly, and the features stay
-f32.
+f32. A third rule has no JAX counterpart, where XLA fuses the reduction:
+``auto_cost_row_tile``, the rows of the cost matrix per tile of the geo
+prior's masked reductions, from the number of clusters and N.
 """
 from __future__ import annotations
 
@@ -218,6 +220,17 @@ def auto_feature_chunk(n_objects: int, n_features: int, cell_threshold: int = 4_
     divisors = [d for d in range(1, n_features + 1) if n_features % d == 0]
     best = min(divisors, key=lambda d: abs(d - target))
     return best if best < n_features else None
+
+
+def auto_cost_row_tile(n_masks: int, n_objects: int, budget: int = 1 << 26) -> int:
+    """Rows of the (N, N) cost matrix per tile of a masked reduction over
+    ``n_masks`` clusters (the geo prior's cheapest edge from each object to
+    a cluster, the complete graph's longest edge): the (n_masks, rows, N)
+    f32 temporary stays within ``budget`` elements (256 MB), so 16 chains
+    at 10,000 objects take tiles of 419 rows where one (16, N, N) temporary
+    would be 6.4 GB. All N rows in one tile while they fit. A min or a max
+    over tiles is exact: the tile changes no bit of the result."""
+    return max(1, min(n_objects, budget // max(1, n_masks * n_objects)))
 
 
 def build_model_constants(data: Data, config: ModelConfig, n_clusters: Optional[int] = None,

@@ -10,7 +10,11 @@ triple [total, n_edges, max_edge] (``skeleton_triple``: the MST by the
 batched Prim of ``ops/mst.py``, the complete graph, or the Delaunay graph on
 the host). The triples are carried in ``ChainState.geo_agg`` (B, K, 3) and
 re-derived only for the clusters an operator changed, so the MH step maps
-the carried triples (``geo_prior_from_agg``) instead of running K MSTs.
+the carried triples (``geo_prior_from_agg``) instead of running K MSTs. The
+masked reductions over the (N, N) cost matrix (each object's cheapest edge
+to a cluster, the complete graph's longest edge) run over tiles of cost rows
+(``auto_cost_row_tile``), where XLA fuses them in the JAX package: no
+(B, N, N) temporary at scale.
 
 The source may be bool one-hot or packed int8 (``ModelConstants.
 source_packed``); with ``ModelConstants.feature_chunk`` the counts, pattern
@@ -24,7 +28,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from sbayes_tpu_torch.model.constants import ModelConstants
+from sbayes_tpu_torch.model.constants import ModelConstants, auto_cost_row_tile
 from sbayes_tpu_torch.model.math import (
     add_tiles,
     cat_tiles,
@@ -178,9 +182,10 @@ class Posterior:
             return c.cost_matrix * (0.020838 / c.geo.mean_edge_length)
         return c.cost_matrix
 
-    def skeleton_triple(self, mask):
+    def skeleton_triple(self, mask, row_tile=None):
         """(M, 3) [total, n_edges, max_edge] of the skeleton of each cluster
-        in ``mask`` (M, N) bool."""
+        in ``mask`` (M, N) bool. ``row_tile``: the complete graph's longest
+        edge in tiles of that many cost rows (None: ``auto_cost_row_tile``)."""
         c = self.consts
         g = c.geo
         cost = self._geo_cost_matrix()
@@ -192,9 +197,10 @@ class Posterior:
             m = mask.to(cost.dtype)
             total = torch.einsum("bi,ij,bj->b", m, cost, m)
             n_edges = m.sum(-1) ** 2
-            pair = mask[:, :, None] & mask[:, None, :]
-            max_e = torch.where(pair, cost[None], torch.full((), float("-inf"),
-                                                             device=cost.device)).amax((-1, -2))
+            # The longest edge between two members: per column, the longest
+            # edge from the members (over row tiles), then over the members.
+            col_max = _masked_row_reduce(cost, mask, largest=True, row_tile=row_tile)
+            max_e = torch.where(mask, col_max, float("-inf")).amax(-1)
             return torch.stack([total, n_edges, torch.clamp(max_e, min=0.0)], dim=-1)
         if skeleton == "delaunay":
             locations = c.locations.cpu().numpy()
@@ -251,11 +257,14 @@ class Posterior:
             return torch.zeros(clusters.shape[:2], device=clusters.device)
         return self.geo_prior_from_agg(clusters, self.geo_agg_of(clusters))
 
-    def geo_prior_costs_per_object(self, clusters, i_cluster, geo_agg=None):
+    def geo_prior_costs_per_object(self, clusters, i_cluster, geo_agg=None, row_tile=None):
         """(B, N) change of the log geo prior of cluster ``i_cluster`` (B,) if
         each object were added to it (the cheapest edge to the cluster joins
         the aggregate). ``geo_agg`` may pass the state's carried aggregates;
-        without them the cluster's MST is computed here."""
+        without them the cluster's MST is computed here. The cheapest edges
+        are a running minimum over tiles of ``row_tile`` member rows of the
+        cost matrix (None: ``auto_cost_row_tile``), with no (B, N, N)
+        temporary."""
         c = self.consts
         g = c.geo
         cost = c.cost_matrix
@@ -264,8 +273,7 @@ class Posterior:
         ar = torch.arange(clusters.shape[0], device=clusters.device)
         cluster = clusters[ar, i_cluster]                                   # (B, N)
         m = cluster.sum(-1, keepdim=True).to(cost.dtype)
-        inf = torch.full((), float("inf"), device=cost.device)
-        cost_to_cluster = torch.where(cluster[:, :, None], cost[None], inf).amin(1)
+        cost_to_cluster = _masked_row_reduce(cost, cluster, largest=False, row_tile=row_tile)
         # The carried aggregates of the simulated type are on the scaled cost
         # matrix and those of other skeletons are no MST: only cost_based with
         # the MST skeleton reuses them here.
@@ -345,6 +353,25 @@ class Posterior:
             geo_agg=geo_agg,
             pat_counts=self.pattern_counts(state.clusters, state.source),
         )
+
+
+def _masked_row_reduce(cost, mask, largest: bool, row_tile=None):
+    """(M, N): per cluster of ``mask`` (M, N) and column j, the min (the max
+    with ``largest``) of ``cost[i, j]`` over the members i (+inf, -inf for
+    an empty cluster). A running reduction over tiles of ``row_tile`` rows
+    (None: ``auto_cost_row_tile``): an (M, rows, N) temporary per tile, and
+    bit-equal to one tile of all N rows, as a min or a max is exact."""
+    M, N = mask.shape
+    rows = auto_cost_row_tile(M, N) if row_tile is None else int(row_tile)
+    fill = torch.full((), float("-inf") if largest else float("inf"), dtype=cost.dtype,
+                      device=cost.device)
+    out = None
+    for r0 in range(0, N, rows):
+        sl = slice(r0, min(r0 + rows, N))
+        part = torch.where(mask[:, sl, None], cost[None, sl], fill)
+        part = part.amax(1) if largest else part.amin(1)
+        out = part if out is None else (torch.maximum if largest else torch.minimum)(out, part)
+    return out
 
 
 def _delaunay_host(mask, locations, cost):

@@ -9,7 +9,13 @@ row gather ``cost[j]`` and three (M, N) elementwise ops (five launches).
 
 The loop runs to the largest cluster of the batch; smaller clusters are
 finished earlier and add nothing more (their candidate set is empty).
-Reading that size is the one host-device sync of a call.
+Reading that size is the one host-device sync of a call. Every
+per-iteration tensor is (M, N); the edges are kept as (M, n_iter).
+
+The row gather is the form the JAX package switches to above 2,048 objects
+(``cluster_mst_edge_costs``, the gather-form Prim, where its one-hot matmul
+form would re-read the whole cost matrix every iteration); at and below that
+size it equals ``cluster_mst_stats_prim``. The port has one form for all N.
 """
 from __future__ import annotations
 

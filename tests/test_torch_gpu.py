@@ -114,3 +114,46 @@ def test_packed_loglh_and_object_tiled_marginal_on_the_card(n_chains):
     assert errs["loglh_packed_equals_bool"]
     assert loglh.launches.variants["packed"] == 5 and loglh.launches.variants["bool"] == 1
     assert all(errs[marginal.variant_name(*v)] >= 0 for v in marginal.VARIANTS)
+
+
+@pytest.mark.gpu
+def test_tiled_geo_costs_on_the_card():
+    """The geo prior's masked reductions on CUDA tensors at a mid shape (16
+    chains x 3,000 objects, where ``auto_cost_row_tile`` takes tiles of
+    1,398 rows): each chain's cheapest-edge change of the geo prior, from
+    the carried aggregates and with the MST recomputed, and the complete
+    graph's triple, over the tiles bit-equal to one tile of all rows; the
+    tiled call's peak memory below the untiled one's (16, N, N) temporary."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from sbayes_tpu_torch.model.constants import auto_cost_row_tile
+    from sbayes_tpu_torch.model.model import Model
+    from sbayes_tpu_torch.testing import synthetic_config
+    from sbayes_tpu_torch.testing_scale import synthetic_data_large
+
+    n, b = 3_000, 16
+    data = synthetic_data_large(n, 8, 3, n_families=4, seed=3)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    labels = torch.randint(0, 6, (b, n), generator=gen, device="cuda")
+    clusters = torch.stack([labels == k for k in range(3)], dim=1)          # (B, 3, N)
+    i_cluster = torch.randint(0, 3, (b,), generator=gen, device="cuda")
+    assert auto_cost_row_tile(b, n) == 1_398
+    for skeleton in ("mst", "complete_graph"):
+        cfg = synthetic_config(n_clusters=3, geo_prior="cost_based", rate=5.0,
+                               skeleton=skeleton)
+        post = Model(data, cfg.model, device="cuda").posterior
+        agg = post.geo_agg_of(clusters)
+        assert torch.equal(post.skeleton_triple(clusters.reshape(-1, n)),
+                           post.skeleton_triple(clusters.reshape(-1, n), row_tile=n))
+        for carried in (agg, None):
+            peaks, out = [], []
+            for tile in (None, n):
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                out.append(post.geo_prior_costs_per_object(clusters, i_cluster, geo_agg=carried,
+                                                           row_tile=tile))
+                torch.cuda.synchronize()
+                peaks.append(torch.cuda.max_memory_allocated() - base)
+            assert torch.equal(out[0], out[1]) and bool(torch.isfinite(out[0]).all())
+            assert peaks[0] < peaks[1] and peaks[1] >= b * n * n * 4
