@@ -96,7 +96,17 @@ the revisions in turns in one call (a, b, b, a).
    run's carried state against its recompute. In the
    CLI block, ``init_methods``: ``cli.main`` at K = 3 with the
    ``seed_points`` initializer, then with ``random_growth`` and
-   ``log_contribution_per_cluster``;
+   ``log_contribution_per_cluster``; then ``workflow``: a user's workflow
+   with its data in CSV files that the loader reads (no patch of the data
+   load): a canvas of 100 sites and three true clusters, the simulation
+   (36 features), the universal prior counts extracted from the simulated
+   CSVs, ``cli.main`` at K = 1 and 3 (main_path's runs and steps, the
+   cost-based geo prior on the simulated locations, the extracted counts as
+   the universal prior, ``log_likelihood: false``): the results files and
+   stats rows, ``loglh`` and ``marginal`` launched at both K and
+   ``marginal_abs`` at K = 3, each true cluster's best F1 against run 0's
+   clusters at K = 3 (at least one at 0.5 or above), the thinned stats and
+   clusters files, and the config template's top-level sections;
 4. kernels: each kernel (and each variant of the marginal) against its plain
    PyTorch version at the shapes of phase 3, timed beside the plain version,
    the memory/compute bound and an empty kernel launched the same way
@@ -163,6 +173,15 @@ SCALE_KERNEL_CHAINS = 2          # the plain marginal's (B, N, F, S) temporaries
 # adjacent rungs; 3 chunks of 40 steps, then the plain ensemble the same
 SCALE_MC3 = {"rungs": 4, "temperature_diff": 0.02, "swap_interval": 10, "attempts": 1,
              "chunk": 40, "chunks": 3}
+# The workflow phase: a 100-site canvas of three true clusters of 10 sites,
+# 36 simulated features of at most 6 states, sampled at K = 1 and 3; at this
+# cluster intensity a CPU run of the phase recovers all three clusters
+WORKFLOW = {"sites": 100, "cluster_size": 10, "centres": [(2.0, 2.0), (8.0, 2.5), (5.0, 8.0)],
+            "families": 6, "features": 36, "seed": 12,
+            "n_states": {"2": 0.25, "3": 0.25, "4": 0.2, "5": 0.15, "6": 0.15},
+            "cluster_effect": {"intensity": 10.0, "concentration": 0.25},
+            "confounding_effects": {"universal": {"intensity": 1.0, "concentration": 1.0},
+                                    "family": {"intensity": 1.0, "concentration": 0.5}}}
 LOGLH_TOL_REL = 1e-5             # lgammaf vs torch.lgamma, summation order (of the total)
 MARGINAL_TOL_ABS = 1e-4          # 36 logs summed in another order (per object)
 MARGINAL_TOL_FEATURES = 36       # wider data: the tolerance grows with the logs summed
@@ -175,15 +194,18 @@ def card_line() -> str:
 
 
 def smoke_config(path: Path, results: Path, n_clusters: int = 1, geo: dict = None,
-                 mcmc: dict = None, name: str = None, results_cfg: dict = None) -> Path:
+                 mcmc: dict = None, name: str = None, results_cfg: dict = None,
+                 data: dict = None) -> Path:
     """A model configuration as a JSON config file (default: K = 1, uniform
     geo; ``mcmc`` updates the MCMC section, ``results_cfg`` the results
-    section); the data come from ``synthetic_data`` (the data paths are not
-    read)."""
-    placeholder = path / "features.csv"
-    placeholder.write_text("id\n")
+    section); without ``data`` (the data section) the data come from
+    ``synthetic_data`` and the data paths are placeholders, never read."""
+    if data is None:
+        placeholder = path / "features.csv"
+        placeholder.write_text("id\n")
+        data = {"features": str(placeholder), "feature_states": str(placeholder)}
     cfg = {
-        "data": {"features": str(placeholder), "feature_states": str(placeholder)},
+        "data": data,
         "model": {
             "clusters": n_clusters,
             "confounders": ["universal", "family"],
@@ -287,9 +309,10 @@ def phase_main_path(tmp: Path, n_clusters: int = 1, geo: dict = None) -> dict:
 
 @contextmanager
 def synthetic_data_for_cli():
-    """``cli.main`` loads the data files its config names; they stay
-    placeholders here (the chip machine has no pandas), and the data come
-    from ``synthetic_data`` instead."""
+    """``cli.main`` loads the data files its config names; for the phases
+    that sample ``synthetic_data()``'s arrays (the same data as the
+    ``full_width`` phases) they stay placeholders, and the data come from
+    ``synthetic_data`` instead. The ``workflow`` phase reads CSV files."""
     from sbayes_tpu_torch.data.loader import Data
     from sbayes_tpu_torch.testing import synthetic_data
 
@@ -477,6 +500,172 @@ def phase_init_methods(tmp: Path) -> dict:
                        "contribution_columns": [c for c in header if c.rsplit("_a", 1)[0] in
                                                 ("post", "lh", "prior") and "_a" in c]}
     return out
+
+
+def workflow_canvas(path: Path) -> np.ndarray:
+    """A canvas of WORKFLOW's sites (x, y uniform in [0, 10] with two
+    decimals, as ``tests/test_tools.py::test_simulation_roundtrip`` writes
+    them; longitude and latitude in degrees under the config's
+    ``epsg:4326``): each true cluster the sites nearest one of
+    WORKFLOW's centres, a ``family`` column of ``families`` groups with
+    every seventh site in none, and the ``universal`` column the
+    simulation's universal effect needs (one group, ``<ALL>``). Returns the
+    (clusters, sites) truth."""
+    w = WORKFLOW
+    rng = np.random.default_rng(w["seed"])
+    xy = rng.uniform(0, 10, (w["sites"], 2)).round(2)
+    label = np.zeros(w["sites"], dtype=int)
+    for c, centre in enumerate(w["centres"], start=1):
+        free = np.flatnonzero(label == 0)
+        near = free[np.argsort(np.linalg.norm(xy[free] - centre, axis=1))[:w["cluster_size"]]]
+        label[near] = c
+    family = [("" if i % 7 == 0 else f"fam{rng.integers(w['families'])}")
+              for i in range(w["sites"])]
+    rows = ["id,x,y,cluster,universal,family"] + [
+        f"s{i},{xy[i, 0]:.2f},{xy[i, 1]:.2f},{label[i]},<ALL>,{family[i]}"
+        for i in range(w["sites"])]
+    path.write_text("\n".join(rows) + "\n")
+    return np.stack([label == c for c in range(1, len(w["centres"]) + 1)])
+
+
+def best_f1(truth: np.ndarray, clusters_file: Path) -> list:
+    """For each true cluster, the best F1 against the run's clusters: each
+    inferred cluster's members are the objects in it in at least half of
+    the second half of the samples."""
+    from sbayes_tpu_torch.utils import parse_cluster_columns
+
+    rows = clusters_file.read_text().splitlines()
+    samples = np.stack([parse_cluster_columns(r) for r in rows[len(rows) // 2:]])
+    inferred = samples.mean(axis=0) >= 0.5                    # (K, N)
+    hits = truth.astype(int) @ inferred.T.astype(int)       # (true, inferred)
+    f1 = 2 * hits / (truth.sum(1)[:, None] + inferred.sum(1)[None, :]).clip(min=1)
+    return f1.max(axis=1).round(4).tolist()
+
+
+@contextmanager
+def launches_per_k():
+    """The launch counts of each ``MCMCSetup.sample_ensemble`` call, by its
+    K, in the yielded dict (the counts are not reset)."""
+    from sbayes_tpu_torch.sampling.runner import MCMCSetup
+
+    orig = MCMCSetup.sample_ensemble
+    by_k = {}
+
+    def wrapped(self, *args, **kw):
+        before = counters()
+        out = orig(self, *args, **kw)
+        after = counters()
+        by_k[f"K{self.model.n_clusters}"] = {k: n - before.get(k, 0) for k, n in after.items()}
+        return out
+
+    MCMCSetup.sample_ensemble = wrapped
+    try:
+        yield by_k
+    finally:
+        MCMCSetup.sample_ensemble = orig
+
+
+def phase_workflow(tmp: Path) -> dict:
+    """A user's workflow through the port's entry points, its data as CSV
+    files read by the loader (no patch of the data load): a canvas, the
+    simulation, the universal prior counts extracted from the simulated
+    CSVs, ``cli.main`` at K = 1 and 3 (main_path's runs and steps, the
+    cost-based geo prior on the simulated locations, the extracted counts as
+    the universal prior), recovery of the true clusters at K = 3, thinning,
+    and the config template."""
+    from dataclasses import fields
+
+    from sbayes_tpu_torch import cli, simulation
+    from sbayes_tpu_torch.config.schema import SBayesConfig
+    from sbayes_tpu_torch.config.template import generate_template
+    from sbayes_tpu_torch.tools.extract_prior_counts import extract_universal
+    from sbayes_tpu_torch.tools.subsample import subsample_file
+
+    w = WORKFLOW
+    d = tmp / "workflow"
+    d.mkdir()
+    wall = {}
+    t0 = time.perf_counter()
+    truth = workflow_canvas(d / "canvas.csv")
+    (d / "sim_config.json").write_text(json.dumps({
+        "canvas": "canvas.csv", "results": {"path": "sim"}, "n_features": w["features"],
+        "n_states": w["n_states"], "cluster_effect": w["cluster_effect"],
+        "confounding_effects": w["confounding_effects"], "seed": w["seed"]}))
+    with np.errstate(invalid="ignore"):     # sites in no family and no cluster: 0 / 0
+        simulation.main(d / "sim_config.json")
+    sim = d / "sim"
+    if not np.array_equal(np.loadtxt(sim / "ground_truth_clusters.txt").astype(bool), truth):
+        raise AssertionError("the simulation's ground truth is not the canvas's clusters")
+    wall["simulate_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    extract_universal(sim / "simulated_features.csv", sim / "simulated_feature_states.csv",
+                      d / "universal.json")
+    wall["extract_prior_counts_s"] = time.perf_counter() - t0
+
+    # no per-operator timing probe (two per K): it keeps the phase under 60 s
+    cfg_path = smoke_config(d, d / "results", geo=GEO_K3, name="config", data={
+        "features": "sim/simulated_features.csv",
+        "feature_states": "sim/simulated_feature_states.csv", "projection": "epsg:4326"},
+        results_cfg={"log_operator_step_times": False})
+    cfg = json.loads(cfg_path.read_text())
+    cfg["model"]["prior"]["confounding_effects"]["universal"]["<ALL>"] = {
+        "type": "dirichlet", "file": "universal.json"}
+    cfg_path.write_text(json.dumps(cfg))
+    reset_counters()
+    t0 = time.perf_counter()
+    with launches_per_k() as by_k:
+        cli.main(cfg_path, experiment_name="workflow", n_clusters=[1, 3],
+                 device=DEVICE)
+    torch.cuda.synchronize()
+    wall["cli_s"] = time.perf_counter() - t0
+    launches = counters()
+    runs, n_samples = cfg["mcmc"]["runs"], cfg["mcmc"]["samples"]
+    res = d / "results" / "workflow"
+    for k in (1, 3):
+        need = ["loglh", "marginal"] + (["marginal_abs"] if k == 3 else [])
+        if any(by_k.get(f"K{k}", {}).get(name, 0) == 0 for name in need):
+            raise AssertionError(f"a kernel of the workflow never launched at K = {k}: {by_k}")
+        for r in range(runs):
+            lines = (res / f"K{k}" / f"stats_K{k}_{r}.txt").read_text().splitlines()
+            if len(lines) != n_samples + 1:
+                raise AssertionError(f"K = {k}, run {r}: {len(lines)} lines in the stats file")
+            header = lines[0].split("\t")
+            if [c for c in header if c.startswith("size_a")] != [f"size_a{i}" for i in range(k)]:
+                raise AssertionError(f"K = {k}, run {r}: cluster size columns of {header[:8]}")
+            for line in lines[1:]:
+                row = dict(zip(header, line.split("\t")))
+                values = [float(row[c]) for c in ("posterior", "likelihood", "prior",
+                                                  "geo_prior")]
+                if not np.all(np.isfinite(values)) or values[3] == 0.0:
+                    raise AssertionError(f"K = {k}, run {r}: posterior, likelihood, prior, "
+                                         f"geo prior {values}")
+            cols = (res / f"K{k}" / f"clusters_K{k}_{r}.txt").read_text().splitlines()
+            if len(cols) != n_samples or any(len(c.split("\t")) != k for c in cols):
+                raise AssertionError(f"K = {k}, run {r}: clusters file of {len(cols)} rows")
+
+    f1_runs = [best_f1(truth, res / "K3" / f"clusters_K3_{r}.txt") for r in range(runs)]
+    if max(f1_runs[0]) < 0.5:
+        raise AssertionError(f"no true cluster recovered at F1 >= 0.5 by run 0: {f1_runs}")
+
+    t0 = time.perf_counter()
+    thinned = [subsample_file(res / "K3" / f"{p}_K3_0.txt", 2) for p in ("stats", "clusters")]
+    n_rows = [len(f.read_text().splitlines()) for f in thinned]
+    if n_rows != [1 + (n_samples + 1) // 2, (n_samples + 1) // 2]:
+        raise AssertionError(f"thinned stats and clusters files of {n_rows} rows")
+    wall["subsample_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    template = generate_template().splitlines()
+    sections = [f.name for f in fields(SBayesConfig)]
+    if [line[:-1] for line in template if line.endswith(":") and not line[0] in " #"] != sections:
+        raise AssertionError(f"the template's top-level sections are not {sections}")
+    wall["template_s"] = time.perf_counter() - t0
+    return {"sites": w["sites"], "features": w["features"], "K": [1, 3], "runs": runs,
+            "steps": cfg["mcmc"]["steps"], "wall": wall, "launches": launches,
+            "launches_by_k": by_k, "f1_run0": f1_runs[0],
+            "f1_best_over_runs": np.max(f1_runs, axis=0).tolist(),
+            "thinned_rows": n_rows, "template_lines": len(template)}
 
 
 def check_carried_state(consts, states, ref, stats, jump_idx=None, init_sizes=None) -> dict:
@@ -1914,6 +2103,8 @@ def main() -> int:
         print(phase_line({"phase": "resume", **phase_resume(Path(tmp))}), flush=True)
         init_methods = phase_init_methods(Path(tmp))
         print(phase_line({"phase": "init_methods", **init_methods}), flush=True)
+        workflow = phase_workflow(Path(tmp))
+        print(phase_line({"phase": "workflow", "card": card, **workflow}), flush=True)
 
     rt, states, full = phase_full_width(CHAINS, STEPS)
     full.update({"device": torch.cuda.get_device_name(0), "card": card})
@@ -1973,6 +2164,7 @@ def main() -> int:
                "ess_cost_based": ess["cost_based"]["launches"],
                "init_seed_points": init_methods["seed_points"]["launches"],
                "init_random_growth": init_methods["random_growth"]["launches"],
+               "workflow": workflow["launches"],
                "alt_operators": add_launches(*(a["launches"] for a in alt.values())),
                "prior_samples": prior["launches"], "scale": scale["launches"],
                "scale_in_bounds": scale["in_bounds"]["launches"], **later_scale}

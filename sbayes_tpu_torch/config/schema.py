@@ -7,7 +7,8 @@ defaults, enums and validators and builds from nested dicts through
 ``from_dict``:
 
 * unknown keys raise (pydantic ``extra="forbid"``), deprecated keys warn
-  and are dropped;
+  and are dropped, a missing key of a field without a default raises
+  (``required`` in the field's metadata);
 * "before" validators run on the raw dict (``_before``), "after"
   validators on the built object (``_after``);
 * relative file and directory paths resolve against the config file's
@@ -94,9 +95,10 @@ def _bool(v, name=""):
     return v
 
 
-def _conv(fn):
-    """Field metadata carrying the value converter/validator."""
-    return {"conv": fn}
+def _conv(fn, required: bool = False):
+    """Field metadata carrying the value converter/validator, and whether
+    the field has no default (pydantic's required field)."""
+    return {"conv": fn, "required": required}
 
 
 def _sub(cls):
@@ -145,6 +147,10 @@ class BaseConfig:
                     f"and will be removed in future versions."
                 )
                 values.pop(key)
+        missing = [f.name for f in fields(cls)
+                   if f.metadata.get("required") and f.name not in values]
+        if missing:
+            raise ValueError(f"{cls.__name__}: missing required fields {missing}")
         values = cls._before(values)
         names = {f.name for f in fields(cls)}
         extra = sorted(set(values) - names)
@@ -211,14 +217,21 @@ class GeoPriorConfig(BaseConfig):
     Skeleton = _Skeleton
 
     type: _GeoTypes = field(default=_GeoTypes.UNIFORM, metadata=_conv(_enum(_GeoTypes)))
+    """Type of prior distribution. Choose from: [uniform, cost_based, simulated]."""
     costs: Union[Path, str] = field(default="from_data", metadata=_conv(_costs))
+    """Source of geographic costs: `from_data` (geodesic distances) or a CSV file path."""
     aggregation: _Aggregation = field(default=_Aggregation.MEAN, metadata=_conv(_enum(_Aggregation)))
+    """How costs of single edges are aggregated: [mean, sum, max]."""
     probability_function: _ProbabilityFunction = field(
         default=_ProbabilityFunction.EXPONENTIAL, metadata=_conv(_enum(_ProbabilityFunction)))
+    """Monotonic function mapping aggregated costs to prior probabilities."""
     rate: Optional[float] = field(default=None, metadata=_conv(_opt(_pos_float)))
+    """Rate of probability decrease for a cost_based geo-prior (required if cost_based)."""
     inflection_point: Optional[float] = field(
         default=None, metadata=_conv(_opt(lambda v, name="": _number(v, float, name=name))))
+    """Sigmoid inflection point (required if probability_function=sigmoid)."""
     skeleton: _Skeleton = field(default=_Skeleton.MST, metadata=_conv(_enum(_Skeleton)))
+    """Graph along which costs are aggregated: [mst, delaunay, diameter, complete_graph]."""
 
     @classmethod
     def _before(cls, values):
@@ -239,15 +252,12 @@ class ClusterSizePriorConfig(BaseConfig):
 
     Types = _SizeTypes
 
-    type: _SizeTypes = field(default=None, metadata=_conv(_enum(_SizeTypes)))
+    type: _SizeTypes = field(default=None, metadata=_conv(_enum(_SizeTypes), required=True))
+    """Type of prior distribution: [uniform_area, uniform_size, quadratic]."""
     min: int = field(default=2, metadata=_conv(_pos_int))
+    """Minimum cluster size."""
     max: int = field(default=10000, metadata=_conv(_pos_int))
-
-    @classmethod
-    def _before(cls, values):
-        if "type" not in values:
-            raise ValueError("ClusterSizePriorConfig: field `type` is required.")
-        return values
+    """Maximum cluster size."""
 
 
 class _DirichletTypes(str, Enum):
@@ -272,10 +282,14 @@ class DirichletPriorConfig(BaseConfig):
 
     type: _DirichletTypes = field(default=_DirichletTypes.UNIFORM,
                                   metadata=_conv(_enum(_DirichletTypes)))
+    """Type of prior: [uniform, dirichlet, jeffreys, BBS, symmetric_dirichlet]."""
     file: Optional[Path] = field(default=None, metadata=_conv(_opt(lambda v, name="": _file_path(v))))
+    """Path to Dirichlet parameters (YAML or JSON). This or `parameters` required if dirichlet."""
     parameters: Optional[Dict] = field(default=None, metadata=_conv(_opt_dict))
+    """Inline Dirichlet parameters. This or `file` required if type=dirichlet."""
     prior_concentration: Optional[float] = field(
         default=None, metadata=_conv(_opt(lambda v, name="": _number(v, float, name=name))))
+    """Concentration value (required if type=symmetric_dirichlet or universal)."""
 
     @classmethod
     def _before(cls, values):
@@ -335,32 +349,20 @@ def _confounding_effects(v, name=""):
     }
 
 
-def _required(cls_name, *names):
-    def check(values):
-        missing = [n for n in names if n not in values]
-        if missing:
-            raise ValueError(f"{cls_name}: missing required fields {missing}")
-        return values
-
-    return check
-
-
 @dataclass
 class PriorConfig(BaseConfig):
     """Configuration of all priors of the model."""
 
     confounding_effects: Dict[str, Dict[str, ConfoundingEffectPriorConfig]] = field(
-        default=None, metadata=_conv(_confounding_effects))
-    cluster_effect: ClusterEffectConfig = field(default=None, metadata=_conv(_sub(ClusterEffectConfig)))
-    geo: GeoPriorConfig = field(default=None, metadata=_conv(_sub(GeoPriorConfig)))
+        default=None, metadata=_conv(_confounding_effects, required=True))
+    """The priors for the confounding effects in each group of each confounder."""
+    cluster_effect: ClusterEffectConfig = field(
+        default=None, metadata=_conv(_sub(ClusterEffectConfig), required=True))
+    geo: GeoPriorConfig = field(default=None, metadata=_conv(_sub(GeoPriorConfig), required=True))
     objects_per_cluster: ClusterSizePriorConfig = field(
-        default=None, metadata=_conv(_sub(ClusterSizePriorConfig)))
-    weights: WeightsPriorConfig = field(default=None, metadata=_conv(_sub(WeightsPriorConfig)))
-
-    @classmethod
-    def _before(cls, values):
-        return _required(cls.__name__, "confounding_effects", "cluster_effect", "geo",
-                         "objects_per_cluster", "weights")(values)
+        default=None, metadata=_conv(_sub(ClusterSizePriorConfig), required=True))
+    weights: WeightsPriorConfig = field(
+        default=None, metadata=_conv(_sub(WeightsPriorConfig), required=True))
 
 
 def _clusters(v, name=""):
@@ -380,8 +382,11 @@ class ModelConfig(BaseConfig):
     """Configuration of the model."""
 
     clusters: Union[int, List[int]] = field(default=1, metadata=_conv(_clusters))
+    """The number of clusters to be inferred."""
     confounders: List[str] = field(default_factory=list, metadata=_conv(_str_list))
-    prior: PriorConfig = field(default=None, metadata=_conv(_sub(PriorConfig)))
+    """The list of confounder names."""
+    prior: PriorConfig = field(default=None, metadata=_conv(_sub(PriorConfig), required=True))
+    """The priors of the model."""
 
     @classmethod
     def deprecated_attributes(cls) -> list:
@@ -389,7 +394,6 @@ class ModelConfig(BaseConfig):
 
     @classmethod
     def _before(cls, values):
-        _required(cls.__name__, "prior")(values)
         for conf in values.get("confounders", []):
             if conf not in values["prior"]["confounding_effects"]:
                 raise NameError(f"Prior for the confounder '{conf}' is not defined in the config file.")
@@ -401,8 +405,11 @@ class OperatorsConfig(BaseConfig):
     """Relative frequency of each MCMC operator family (normalized at runtime)."""
 
     clusters: float = field(default=70.0, metadata=_conv(_non_neg_float))
+    """Frequency of cluster-membership updates."""
     weights: float = field(default=10.0, metadata=_conv(_non_neg_float))
+    """Frequency of mixture-weight updates."""
     source: float = field(default=20.0, metadata=_conv(_non_neg_float))
+    """Frequency of source (observation-component assignment) updates."""
 
     @classmethod
     def deprecated_attributes(cls) -> list:
@@ -414,7 +421,9 @@ class WarmupConfig(BaseConfig):
     """Configuration of the warm-up phase."""
 
     warmup_steps: int = field(default=50000, metadata=_conv(_pos_int))
+    """Number of steps in the warm-up phase."""
     warmup_chains: int = field(default=10, metadata=_conv(_pos_int))
+    """Number of parallel chains in the warm-up phase (vmapped on TPU)."""
 
 
 def _init_method(v, name=""):
@@ -428,10 +437,20 @@ class InitializationConfig(BaseConfig):
     """Configuration of the per-chain sample initializer."""
 
     attempts: int = field(default=10, metadata=_conv(_pos_int))
+    """Number of initial samples per warm-up chain; the best (by likelihood) is kept."""
     em_steps: int = field(default=50, metadata=_conv(_pos_int))
+    """Number of steps in the expectation-maximization initializer."""
     objects_per_cluster: int = field(default=10, metadata=_conv(_pos_int))
+    """Average number of objects per cluster in the initialization phase."""
     initial_cluster_steps: bool = field(default=True, metadata=_conv(_bool))
+    """If true, apply an initial deterministic cluster step to each cluster."""
     method: str = field(default="em", metadata=_conv(_init_method))
+    """Initial-cluster construction: 'em' = annealed EM soft clustering
+    (reference SbayesInitializer, initializers.py:93-169); 'seed_points' =
+    one random seed object per cluster (reference initialize_clusters,
+    initializers.py:336-351); 'random_growth' = adjacency-constrained
+    random growth to the initial size (reference grow_random_clusters,
+    initializers.py:353-442)."""
 
 
 def _prior_temp_diff(v, name=""):
@@ -443,15 +462,24 @@ class MC3Config(BaseConfig):
     """Metropolis-coupled MCMC (MC3 / parallel tempering) parameters."""
 
     activate: bool = field(default=False, metadata=_conv(_bool))
+    """If true, use MC3 sampling."""
     chains: int = field(default=4, metadata=_conv(_pos_int))
+    """Number of MC3 chains."""
     swap_interval: int = field(default=1000, metadata=_conv(_pos_int))
+    """Number of MCMC steps between chain-swap attempts."""
     swap_attempts: int = field(default=100, metadata=_conv(_pos_int))
+    """Number of chain pairs proposed to swap after each interval."""
     only_swap_adjacent_chains: bool = field(default=False, metadata=_conv(_bool))
+    """Only swap chains adjacent in the temperature schedule."""
     temperature_diff: float = field(default=0.05, metadata=_conv(_pos_float))
+    """Difference between temperatures of MC3 chains."""
     prior_temperature_diff: Union[float, str] = field(
         default="temperature_diff", metadata=_conv(_prior_temp_diff))
+    """Difference between prior-temperatures (defaults to `temperature_diff`)."""
     exponential_temperatures: bool = field(default=False, metadata=_conv(_bool))
+    """If true, temperatures grow exponentially ((1+dt)**i) instead of linearly (1+dt*i)."""
     log_swap_matrix: bool = field(default=True, metadata=_conv(_bool))
+    """If true, log the matrix of accepted swaps between chain pairs."""
 
     @classmethod
     def deprecated_attributes(cls) -> list:
@@ -483,11 +511,20 @@ class MCMCConfig(BaseConfig):
     """Configuration of MCMC parameters."""
 
     steps: int = field(default=1000000, metadata=_conv(_pos_int))
+    """Total number of iterations in the MCMC chain."""
     samples: int = field(default=1000, metadata=_conv(_pos_int))
+    """Number of samples to be generated."""
     runs: int = field(default=1, metadata=_conv(_pos_int))
+    """Number of independent repetitions of the sampling."""
     sample_from_prior: bool = field(default=False, metadata=_conv(_bool))
+    """If true, ignore the data and sample from the prior."""
     grow_to_adjacent: float = field(default=0.8, metadata=_conv(_unit_interval))
+    """Fraction of grow-steps restricted to adjacent objects. Accepted for
+    config compatibility but inert: the reference stores it as
+    ClusterOperator.p_grow_connected (operators.py:721) and never reads it
+    either — neighbourhood restriction is set per scheduled operator."""
     screen_log_interval: int = field(default=1000, metadata=_conv(_pos_int))
+    """Step interval of screen-log lines."""
     operators: OperatorsConfig = field(default_factory=OperatorsConfig,
                                        metadata=_conv(_sub(OperatorsConfig)))
     initialization: InitializationConfig = field(default_factory=InitializationConfig,
@@ -525,13 +562,14 @@ def _str(v, name=""):
 class DataConfig(BaseConfig):
     """Information on the data of an analysis."""
 
-    features: Path = field(default=None, metadata=_conv(lambda v, name="": _file_path(v)))
-    feature_states: Path = field(default=None, metadata=_conv(lambda v, name="": _file_path(v)))
+    features: Path = field(default=None,
+                           metadata=_conv(lambda v, name="": _file_path(v), required=True))
+    """Path to the CSV file with the features used for the analysis."""
+    feature_states: Path = field(default=None,
+                                 metadata=_conv(lambda v, name="": _file_path(v), required=True))
+    """Path to the CSV file defining the possible states of each feature."""
     projection: str = field(default="epsg:4326", metadata=_conv(_str))
-
-    @classmethod
-    def _before(cls, values):
-        return _required(cls.__name__, "features", "feature_states")(values)
+    """String identifier of the projection in which locations are given."""
 
 
 @dataclass
@@ -539,13 +577,23 @@ class ResultsConfig(BaseConfig):
     """Information on where and how results are written."""
 
     path: Path = field(default_factory=lambda: RelativePath.fix_path("./results"))
+    """Path to the results directory."""
     log_file: bool = field(default=True, metadata=_conv(_bool))
+    """Whether to write log messages to a file."""
     log_likelihood: bool = field(default=True, metadata=_conv(_bool))
+    """Whether to log the likelihood of each observation to an HDF5 file."""
     log_source: bool = field(default=False, metadata=_conv(_bool))
+    """Whether to log per-feature component assignment fractions."""
     log_hot_chains: bool = field(default=True, metadata=_conv(_bool))
+    """Whether to write results files for hot MC3 chains."""
     float_precision: int = field(default=8, metadata=_conv(_pos_int))
+    """Number of decimal places of real-valued parameters in the stats file."""
     log_contribution_per_cluster: bool = field(default=False, metadata=_conv(_bool))
+    """Whether to log per-cluster likelihood/prior contribution columns
+    (post_a*, lh_a*, prior_a*) in the stats file."""
     log_operator_step_times: bool = field(default=True, metadata=_conv(_bool))
+    """Whether to measure per-operator step times (one timing probe per
+    run; adds a few small compilations) for the operator_stats file."""
 
     @classmethod
     def from_dict(cls, values) -> "ResultsConfig":
@@ -558,14 +606,10 @@ class ResultsConfig(BaseConfig):
 
 @dataclass
 class SBayesConfig(BaseConfig):
-    data: DataConfig = field(default=None, metadata=_conv(_sub(DataConfig)))
-    model: ModelConfig = field(default=None, metadata=_conv(_sub(ModelConfig)))
-    mcmc: MCMCConfig = field(default=None, metadata=_conv(_sub(MCMCConfig)))
+    data: DataConfig = field(default=None, metadata=_conv(_sub(DataConfig), required=True))
+    model: ModelConfig = field(default=None, metadata=_conv(_sub(ModelConfig), required=True))
+    mcmc: MCMCConfig = field(default=None, metadata=_conv(_sub(MCMCConfig), required=True))
     results: ResultsConfig = field(default_factory=ResultsConfig, metadata=_conv(_sub(ResultsConfig)))
-
-    @classmethod
-    def _before(cls, values):
-        return _required(cls.__name__, "data", "model", "mcmc")(values)
 
     @classmethod
     def from_config_file(cls, path: PathLike, custom_settings: Optional[dict] = None) -> "SBayesConfig":

@@ -21,7 +21,7 @@ from numpy.typing import NDArray
 from scipy.sparse import csr_matrix
 import scipy.spatial as spatial
 
-from sbayes_tpu_torch.utils import PathLike, read_costs_from_csv
+from sbayes_tpu_torch.utils import PathLike, read_costs_from_csv, to_floats
 
 WGS84_A = 6378137.0           # semi-major axis [m]
 WGS84_F = 1 / 298.257223563   # flattening
@@ -239,12 +239,13 @@ def read_geo_cost_matrix(object_names, file: PathLike, logger=None) -> NDArray[n
 
     Mirrors reference behavior (sbayes/preprocessing.py:397-421).
     """
-    costs = read_costs_from_csv(file, logger=logger)
-    assert set(costs.columns) == set(object_names), (
+    row_labels, costs = read_costs_from_csv(file, logger=logger)
+    assert set(costs) == set(object_names), (
         "Cost matrix columns must match object IDs"
     )
-    costs = costs.loc[list(object_names), list(object_names)]
-    cost_matrix = np.asarray(costs, dtype=float)
+    row_of = {label: i for i, label in enumerate(row_labels)}
+    rows = [row_of[name] for name in object_names]
+    cost_matrix = to_floats(np.stack([costs[name][rows] for name in object_names], axis=1))
 
     if not np.allclose(cost_matrix, cost_matrix.T):
         cost_matrix = (cost_matrix + cost_matrix.T) / 2

@@ -6,8 +6,10 @@ state mask + NA mask), ``Confounder`` (group-assignment bool matrices; a
 missing column yields a single ``<ALL>`` group) and the ``Data`` facade
 wiring in the geo network and cost matrix.
 
-Copy of ``sbayes_tpu/data/loader.py`` for the PyTorch port; pandas is
-imported only where a CSV is parsed.
+Copy of ``sbayes_tpu/data/loader.py`` for the PyTorch port. The CSV files
+are read into the port's ``Table`` (``utils.read_data_csv``), not pandas
+data frames; the ``from_table(s)`` constructors are the JAX package's
+``from_dataframe(s)``.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import numpy as np
 from numpy.typing import NDArray
 
 from sbayes_tpu_torch.data.geo import ComputeNetwork, read_geo_cost_matrix
-from sbayes_tpu_torch.utils import PathLike, encode_states, read_data_csv
+from sbayes_tpu_torch.utils import PathLike, Table, encode_states, read_data_csv, to_floats
 
 
 @dataclass
@@ -46,14 +48,14 @@ class Objects:
         return len(self.id)
 
     @classmethod
-    def from_dataframe(cls, data: pd.DataFrame) -> "Objects":
+    def from_table(cls, data: Table) -> "Objects":
         try:
-            x = data["x"].astype(float)
-            y = data["y"].astype(float)
+            x = to_floats(data["x"])
+            y = to_floats(data["y"])
             id_ext = data["id"].tolist()
         except KeyError:
             raise KeyError("The csv must contain columns `x`, `y` and `id`")
-        locations = np.column_stack([x.to_numpy(), y.to_numpy()])
+        locations = np.column_stack([x, y])
         return cls(locations=locations, id=id_ext, names=list(data.get("name", id_ext)))
 
 
@@ -94,10 +96,10 @@ class Features:
         return [int(sum(applicable)) for applicable in self.states]
 
     @classmethod
-    def from_dataframes(cls, data: pd.DataFrame, feature_states: pd.DataFrame) -> "Features":
-        feature_data = data.loc[:, feature_states.columns]
+    def from_tables(cls, data: Table, feature_states: Table) -> "Features":
+        feature_data = Table((c, data[c]) for c in feature_states)
         features_dict, na_number = encode_states(feature_data, feature_states)
-        features_dict["names"] = feature_states.columns.to_numpy()
+        features_dict["names"] = np.array(list(feature_states), dtype=object)
         return cls(**features_dict, na_number=na_number)
 
 
@@ -121,28 +123,27 @@ class Confounder:
         return self.group_assignment.any(axis=0)
 
     @classmethod
-    def from_dataframe(cls, data: pd.DataFrame, confounder_name: str) -> "Confounder":
+    def from_table(cls, data: Table, confounder_name: str) -> "Confounder":
         """Build the group partition from the confounder's CSV column.
 
         Behavioral contract (reference load_data.py:139-184): group names are
         the sorted distinct non-NA labels; a missing column means a single
-        ``<ALL>`` group over every object. Implemented as one factorize +
-        scatter instead of a per-group equality scan.
+        ``<ALL>`` group over every object. Implemented as one ``np.unique``
+        + scatter instead of a per-group equality scan.
         """
         if confounder_name not in data:
             return cls(
                 name=confounder_name,
-                group_assignment=np.ones((1, len(data)), dtype=bool),
+                group_assignment=np.ones((1, data.n_rows), dtype=bool),
                 group_names=["<ALL>"],
             )
-        import pandas as pd
-
-        codes, labels = pd.factorize(data[confounder_name], sort=True)  # NaN -> -1
-        assignment = np.zeros((len(labels), len(data)), dtype=bool)
-        labeled = codes >= 0
-        assignment[codes[labeled], np.flatnonzero(labeled)] = True
+        column = data[confounder_name]
+        labeled = ~np.equal(column, None)
+        labels, codes = np.unique(column[labeled].astype(str), return_inverse=True)
+        assignment = np.zeros((len(labels), data.n_rows), dtype=bool)
+        assignment[codes, np.flatnonzero(labeled)] = True
         return cls(name=confounder_name, group_assignment=assignment,
-                   group_names=list(labels))
+                   group_names=labels.tolist())
 
 
 class Data:
@@ -222,17 +223,17 @@ def read_features_from_csv(
     data = read_data_csv(data_path)
     feature_states = read_data_csv(feature_states_path)
 
-    features = Features.from_dataframes(data, feature_states)
-    objects = Objects.from_dataframe(data)
+    features = Features.from_tables(data, feature_states)
+    objects = Objects.from_table(data)
     confounders = OrderedDict()
     for c in confounder_names:
-        confounders[c] = Confounder.from_dataframe(data=data, confounder_name=c)
+        confounders[c] = Confounder.from_table(data=data, confounder_name=c)
 
     if logger:
         logger.info(
             f"{features.n_objects} objects with {features.n_features} features read from {data_path}."
         )
         logger.info(f"{features.na_number} NA value(s) found.")
-        logger.info(f"The maximum number of states in a single feature was {feature_states.shape[0]}.")
+        logger.info(f"The maximum number of states in a single feature was {feature_states.n_rows}.")
 
     return objects, features, confounders

@@ -14,6 +14,7 @@ import shutil
 from pathlib import Path
 
 from sbayes_tpu_torch.config.schema import SBayesConfig
+from sbayes_tpu_torch.results.loggers import require_likelihood_writer
 from sbayes_tpu_torch.utils import PathLike
 
 
@@ -37,6 +38,7 @@ class Experiment:
         self.experiment_name = experiment_name or default_experiment_name()
         self.i_run = i_run
         self.config = SBayesConfig.from_config_file(config_file, custom_settings)
+        require_likelihood_writer(self.config)
         self.path_results = self.init_results_directory(self.config, self.experiment_name)
 
         self.logger = self.init_logger()

@@ -296,6 +296,20 @@ class ClustersLogger(ResultsLogger):
         self.file.write(format_cluster_columns(clusters) + "\n")
 
 
+def require_likelihood_writer(config) -> None:
+    """Raise before a run starts if it would log the likelihood file (HDF5,
+    written with h5py) where h5py is not installed."""
+    if config.mcmc.sample_from_prior or not config.results.log_likelihood:
+        return
+    try:
+        import h5py  # noqa: F401
+    except ImportError as e:
+        raise ImportError(
+            "`results.log_likelihood` is true, and the likelihood file is HDF5, written with "
+            "h5py, which is not installed: set `results.log_likelihood: false` or install "
+            "h5py.") from e
+
+
 class LikelihoodLogger(ResultsLogger):
     """Per-observation likelihoods to HDF5 (same dataset names as the
     reference's PyTables file: 'likelihood' and 'na_values')."""

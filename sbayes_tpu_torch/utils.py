@@ -1,11 +1,12 @@
 """Host-side utilities: encodings, combinatorics, config-dict helpers.
 
-Copy of ``sbayes_tpu/utils.py`` for the PyTorch port. pandas is imported
-only inside the CSV readers, so the package imports where pandas is absent
-(configs and synthetic data need no CSV).
+Copy of ``sbayes_tpu/utils.py`` for the PyTorch port. The CSV readers use
+the standard ``csv`` module and numpy in place of pandas, so data files
+load where pandas is absent.
 """
 from __future__ import annotations
 
+import csv
 import unicodedata
 from pathlib import Path
 from typing import Sequence, Union
@@ -123,8 +124,65 @@ def get_neighbours(cluster, already_in_cluster, adjacency_matrix, indirection: i
 
 # ---------------------------------------------------------------------------
 # CSV I/O with the reference's NA & unicode conventions
-# (reference: sbayes/util.py:349-379)
+# (reference: sbayes/util.py:349-379). The standard ``csv`` module and numpy
+# read what the JAX package reads with pandas (``read_csv(dtype=str)``).
 # ---------------------------------------------------------------------------
+
+DATA_NA_VALUES = frozenset(["", " ", "\t", "  "])
+# pandas' default NA tokens (``keep_default_na=True``), for the cost matrix
+DEFAULT_NA_VALUES = frozenset([
+    "", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan", "1.#IND",
+    "1.#QNAN", "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a", "nan", "null"])
+
+
+class Table(dict):
+    """A CSV file as ``{column name: numpy object array of str | None}``
+    in the header's order; ``None`` is NA."""
+
+    @property
+    def n_rows(self) -> int:
+        return len(next(iter(self.values()))) if self else 0
+
+
+def _column_names(header: list) -> list:
+    """pandas' names for a header: an empty name is ``Unnamed: <i>``, a
+    repeated one gets ``.1``, ``.2``, ..."""
+    names: list = []
+    for i, name in enumerate(header):
+        name = name or f"Unnamed: {i}"
+        unique, k = name, 0
+        while unique in names:
+            k += 1
+            unique = f"{name}.{k}"
+        names.append(unique)
+    return names
+
+
+def read_csv_table(path: PathLike, na_values=frozenset()) -> Table:
+    """Every cell of a comma-separated file as a string, or ``None`` where it
+    is one of ``na_values``. A UTF-8 BOM is dropped, blank lines (empty or
+    spaces and tabs only) are skipped, quoted fields keep their commas and
+    line breaks, short rows are padded with NA; a row longer than the header
+    raises."""
+    with open(path, newline="", encoding="utf-8-sig") as f:
+        rows = [(i, r) for i, r in enumerate(csv.reader(f), start=1)
+                if len(r) > 1 or (r and r[0].strip(" \t"))]
+    if not rows:
+        raise ValueError(f"No columns to parse from file {path}")
+    names = _column_names(rows[0][1])
+    cells = np.full((len(rows) - 1, len(names)), None, dtype=object)
+    for i_row, (line, row) in enumerate(rows[1:]):
+        if len(row) > len(names):
+            raise ValueError(f"{path}, line {line}: {len(row)} fields, the header has "
+                             f"{len(names)}")
+        cells[i_row, :len(row)] = [None if v in na_values else v for v in row]
+    return Table((name, cells[:, j]) for j, name in enumerate(names))
+
+
+def to_floats(cells: NDArray) -> NDArray[np.float64]:
+    """Cells of a table as float64 (``float`` of each string), NA as NaN."""
+    return np.where(np.equal(cells, None), np.nan, cells).astype(float)
+
 
 def _ascii_fold(s: str) -> str:
     """Fold unicode to its closest ASCII representation (unidecode-lite)."""
@@ -132,30 +190,26 @@ def _ascii_fold(s: str) -> str:
 
 
 def normalize_str(s):
-    import pandas as pd
-
-    if pd.isna(s):
+    if s is None or s != s:      # NA: None in a Table, NaN in a pandas data frame
         return s
     return _ascii_fold(str.strip(str(s)))
 
 
-def read_data_csv(csv_path: PathLike) -> pd.DataFrame:
+def read_data_csv(csv_path: PathLike) -> Table:
     """Read a data CSV treating blank-ish strings as NA; unicode-normalize."""
-    import pandas as pd
-
-    na_values = ["", " ", "\t", "  "]
-    data = pd.read_csv(csv_path, na_values=na_values, keep_default_na=False, dtype=str)
-    data.columns = [_ascii_fold(c) for c in data.columns]
-    return data.map(normalize_str)
+    table = read_csv_table(csv_path, DATA_NA_VALUES)
+    return Table((_ascii_fold(name), np.array([normalize_str(v) for v in col], dtype=object))
+                 for name, col in table.items())
 
 
-def read_costs_from_csv(file: PathLike, logger=None) -> pd.DataFrame:
-    import pandas as pd
-
-    data = pd.read_csv(file, dtype=str, index_col=0)
+def read_costs_from_csv(file: PathLike, logger=None) -> tuple[NDArray, Table]:
+    """The row labels (the first column) and the cost columns of a cost
+    matrix CSV, in the file's order; pandas' default NA tokens are NA."""
+    table = read_csv_table(file, DEFAULT_NA_VALUES)
+    index = table.pop(next(iter(table)))
     if logger:
         logger.info(f"Geographical cost matrix read from {file}.")
-    return data
+    return index, table
 
 
 def range_like(a):
@@ -167,38 +221,40 @@ def range_like(a):
 # (reference behavior: sbayes/util.py:294-346)
 # ---------------------------------------------------------------------------
 
-def encode_states(features_raw: pd.DataFrame, feature_states: pd.DataFrame):
+def encode_states(features_raw: Table, feature_states: Table):
     """Encode raw categorical features as a one-hot boolean tensor.
 
     Each column of ``feature_states`` lists the legal state labels of one
-    feature (shorter lists are NaN-padded); each column of ``features_raw``
-    holds the observed label per object. Observations are mapped to integer
-    state codes via ``pd.Categorical`` and scattered into a boolean
-    (n_objects, n_features, n_states) tensor in one fancy-index write per
-    feature; NA observations stay all-zero rows.
+    feature (shorter lists are NA-padded); each column of ``features_raw``
+    holds the observed label per object. Observations are mapped to their
+    index among the feature's states (NA and unknown labels to -1) and
+    scattered into a boolean (n_objects, n_features, n_states) tensor in one
+    fancy-index write per feature; NA observations stay all-zero rows.
 
     Returns (dict with 'values' / 'states' applicable-state mask /
     'state_names', n_NA). Behavior matches reference util.py:294-346.
     """
-    import pandas as pd
+    n_states = feature_states.n_rows
+    n_objects = features_raw.n_rows
+    columns = list(feature_states)
 
-    n_states = feature_states.shape[0]
-    n_objects = features_raw.shape[0]
-    columns = list(feature_states.columns)
-    if list(features_raw.columns) != columns:
-        features_raw = features_raw.loc[:, columns]
-
-    state_names = [feature_states[c].dropna().tolist() for c in columns]
+    state_names = [[s for s in feature_states[c] if s is not None] for c in columns]
     # applicable-state mask: state slot s is legal for feature f iff the
-    # feature_states cell is non-NaN
-    applicable_states = feature_states.notna().to_numpy().T  # (F, S)
+    # feature_states cell is not NA
+    applicable_states = np.array([[s is not None for s in feature_states[c]] for c in columns],
+                                 dtype=bool).reshape(len(columns), n_states)  # (F, S)
 
     values = np.zeros((n_objects, len(columns), n_states), dtype=bool)
     na_number = 0
     for i_f, col in enumerate(columns):
         observed = features_raw[col]
-        codes = pd.Categorical(observed, categories=state_names[i_f]).codes
-        is_na = observed.isna().to_numpy()
+        code_of = {s: i for i, s in enumerate(state_names[i_f])}
+        if len(code_of) < len(state_names[i_f]):
+            raise ValueError(f"The states of feature `{col}` in the feature_states file "
+                             f"are not unique: {state_names[i_f]}")
+        codes = np.fromiter((code_of.get(v, -1) for v in observed), dtype=np.int64,
+                            count=n_objects)
+        is_na = np.array([v is None for v in observed], dtype=bool)
         undefined = (codes < 0) & ~is_na
         if undefined.any():
             raise ValueError(

@@ -34,6 +34,16 @@ def test_no_jax_import():
     assert not banned, banned
 
 
+def test_the_workflow_modules_are_scanned():
+    """The simulation, every tool and the config template are among the
+    files both scans above read, and each has its JAX counterpart."""
+    workflow = ["simulation.py", "config/template.py"] + [
+        f"tools/{p.name}" for p in sorted((ROOT / "sbayes_tpu" / "tools").glob("*.py"))]
+    assert len(workflow) == 16          # 13 tools and the package's __init__.py
+    for rel in workflow:
+        assert ROOT / "sbayes_tpu_torch" / rel in PORT_FILES, rel
+
+
 def test_the_package_imports_without_jax():
     """Every module of the port imports with ``jax`` unimportable, and no
     module of the JAX package gets loaded."""
