@@ -8,9 +8,12 @@ The last two hold both kernels of two revisions of the port against each
 other: ``revision`` imports ``sbayes_tpu_torch`` from ``<root>`` (a ``git
 archive`` of the revision), draws the inputs of the likelihood and of every
 marginal variant from a seed at REVISION_SHAPES, saves the outputs and
-prints the device time per launch; ``compare`` fails unless the main
-shapes' outputs are bit-equal (elsewhere it reports the differences). Run
-the revisions in turns in one call (a, b, b, a).
+prints the device time per launch and the time per eager call, then the
+chain-steps/s of REVISION_STEPS steps of CHAINS chains (K = 1 uniform, K
+= 3 cost-based) through that revision's ``run_chunk`` after as many
+unmeasured ones; ``compare`` fails unless the main shapes' outputs are
+bit-equal (elsewhere it reports the differences). Run the revisions in
+turns in one call (a, b, b, a).
 
 1. prints the card's name and power limit, builds every CUDA kernel of
    ``sbayes_tpu_torch/csrc`` (one nvcc per source, all started together);
@@ -106,7 +109,21 @@ the revisions in turns in one call (a, b, b, a).
    stats rows, ``loglh`` and ``marginal`` launched at both K and
    ``marginal_abs`` at K = 3, each true cluster's best F1 against run 0's
    clusters at K = 3 (at least one at 0.5 or above), the thinned stats and
-   clusters files, and the config template's top-level sections;
+   clusters files, and the config template's top-level sections. Then
+   ``mesh``, the parallel layer, over every visible card or, on a one-card
+   machine, two shards on cuda:0 (``mesh_devices``; ``split_over`` makes
+   ``auto_chain_mesh`` see them): (a) the K = 3 ensemble of CHAINS chains
+   (``full_width_k3``'s states) split, a split init, then alternating
+   windows split / unsplit and one window of both shards dispatched from
+   one thread; (b) ``full_width_mc3``'s chains as one MC3 ladder split
+   across the shards, swaps counted across the shard boundary; (c)
+   ``scale``'s in-bounds states split 2 x 8, on drawn steps and on a fixed
+   sequence of wide steps; each with every shard's
+   carried state against its recompute, the launches on shard 1's stream
+   and both kernels against their plain versions on shard 1's chains; (d)
+   ``cli.main`` on the fixture config (JSON) with 2 runs as one ensemble,
+   as ``-t 2`` (spawned processes) and as ``-i 0; -i 1``: wall times, every
+   run's files complete with finite likelihoods (MESH: the step counts);
 4. kernels: each kernel (and each variant of the marginal) against its plain
    PyTorch version at the shapes of phase 3, timed beside the plain version,
    the memory/compute bound and an empty kernel launched the same way
@@ -126,8 +143,9 @@ the revisions in turns in one call (a, b, b, a).
    (``launches_by_path``), with rows at the scale shape (``"inputs":
    "scale"``: SCALE_KERNEL_CHAINS chains, all SCALE_CHAINS under
    ``all_chains``; their launches from ``scale``, ``scale_geo`` and
-   ``scale_mc3``, the heat row also timed on the ladder's two hottest
-   rungs under ``mc3``); the ratio and heat variants once more on the
+   ``scale_mc3`` and the split at scale as ``mesh``, the heat row also
+   timed on the ladder's two hottest rungs under ``mc3``; the other rows
+   count the mesh phase's launches as ``mesh`` and ``mesh_scale``); the ratio and heat variants once more on the
    residual-counts effect rows of ``alt_operators`` (``"inputs":
    "residual"``, launches: that path's).
    ``ms``, ``plain_ms`` and ``launch_floor_ms`` time eager calls with
@@ -182,6 +200,36 @@ WORKFLOW = {"sites": 100, "cluster_size": 10, "centres": [(2.0, 2.0), (8.0, 2.5)
             "cluster_effect": {"intensity": 10.0, "concentration": 0.25},
             "confounding_effects": {"universal": {"intensity": 1.0, "concentration": 1.0},
                                     "family": {"intensity": 1.0, "concentration": 0.5}}}
+# The mesh phase: the chain split over every visible card (two shards on
+# cuda:0 where there is one card) and the CLI's run pool, within 60 s: (a)
+# three alternating pairs of 50-step windows of the split and the unsplit
+# K = 3 ensemble (cut from 100), then one window of both shards dispatched
+# from one thread; (b) the MC3 ladder of full_width_mc3's 1024 rungs, 105
+# steps (cut from 300) with a swap phase every 5 steps (21 phases), split
+# and unsplit; (c) the scale states 2 x 8, 20 steps, then 3 steps of each
+# wide operator split and unsplit; (d) cli.main on the
+# fixture config with 2 runs of 200 steps (cut from the fixture's 400), -t
+# 1, -t 2 and -i 0; -i 1. The phase took 51 and 65 s on two hosts before
+# the cuts of (b) and (d)
+MESH = {"window": 50, "pairs": 3, "mc3_steps": 105, "mc3_plain_steps": 105,
+        "swap_interval": 5, "scale_steps": 20, "scale_wide_steps": 3, "pool_steps": 200,
+        "pool_samples": 10}
+# tests/fixtures/config.yaml as JSON (the card's machine has no PyYAML); the
+# data paths are filled in with the fixture's CSV files
+FIXTURE_CONFIG = {
+    "mcmc": {"steps": 400, "samples": 20, "runs": 1, "screen_log_interval": 200,
+             "operators": {"clusters": 40, "weights": 10, "source": 10},
+             "initialization": {"objects_per_cluster": 1, "attempts": 2, "em_steps": 10},
+             "warmup": {"warmup_steps": 50, "warmup_chains": 2}, "sample_from_prior": False},
+    "model": {"clusters": 1, "confounders": ["universal", "family"], "prior": {
+        "objects_per_cluster": {"type": "uniform_area", "min": 1, "max": 100},
+        "geo": {"type": "cost_based", "aggregation": "sum", "rate": 50000.0},
+        "weights": {"type": "uniform"}, "cluster_effect": {"type": "uniform"},
+        "confounding_effects": {
+            "universal": {"<ALL>": {"type": "uniform"}},
+            "family": {"famA": {"type": "dirichlet", "parameters": {
+                "F1": {"A": 8.0, "B": 2.0, "C": 1.0}, "F2": {"X": 2.0, "Y": 3.0}}},
+                "famB": {"type": "uniform"}}}}}}
 LOGLH_TOL_REL = 1e-5             # lgammaf vs torch.lgamma, summation order (of the total)
 MARGINAL_TOL_ABS = 1e-4          # 36 logs summed in another order (per object)
 MARGINAL_TOL_FEATURES = 36       # wider data: the tolerance grows with the logs summed
@@ -236,10 +284,8 @@ def smoke_config(path: Path, results: Path, n_clusters: int = 1, geo: dict = Non
 def reset_counters():
     from sbayes_tpu_torch.ops import loglh, marginal
 
-    loglh.launches.count = 0
-    loglh.launches.variants.clear()
-    marginal.launches.count = 0
-    marginal.launches.variants.clear()
+    loglh.launches.reset()
+    marginal.launches.reset()
 
 
 def counters() -> dict:
@@ -367,7 +413,7 @@ def phase_main_path_mc3(tmp: Path) -> dict:
     (strictly between 0 and 1) and per rung; the ladder's carried state after
     the last swap phase against its recompute."""
     from sbayes_tpu_torch import cli
-    from sbayes_tpu_torch.sampling.runner import SamplerRuntime
+    from sbayes_tpu_torch.sampling.runner import ShardedRuntime
 
     n_rungs = MC3_LADDER["chains"]
     mc3 = {"activate": True, "swap_interval": 50, **MC3_LADDER}
@@ -375,7 +421,7 @@ def phase_main_path_mc3(tmp: Path) -> dict:
         "runs": 1, "mc3": mc3, "warmup": {"warmup_steps": 200, "warmup_chains": 10}})
     reset_counters()
     t0 = time.perf_counter()
-    with synthetic_data_for_cli(), last_call(SamplerRuntime, "run_mc3_chunk") as seen:
+    with synthetic_data_for_cli(), last_call(ShardedRuntime, "run_mc3_chunk") as seen:
         cli.main(cfg_path, experiment_name="smoke_mc3", device=DEVICE)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -398,10 +444,8 @@ def phase_main_path_mc3(tmp: Path) -> dict:
     need = ["loglh", "marginal", "marginal_heat", "marginal_abs"]
     if any(launches.get(k, 0) == 0 for k in need):
         raise AssertionError(f"a kernel of the MC3 path never launched: {launches}")
-    rt = seen["runtime"]
-    states, stats = seen["out"][:2]
-    errs = check_carried_state(rt.consts, states, rt.refresh(states), stats,
-                               rt.op_names.index("cluster_jump_gibbsish"))
+    sh = seen["runtime"]
+    errs = check_shards(sh, *seen["out"][:2], sh.rt.op_names.index("cluster_jump_gibbsish"))
     return {"K": 3, "rungs": n_rungs, "mc3": mc3, "wall_s": wall, "launches": launches,
             "swap_accept_rate": rate, "swap_attempts": int(counts[1].sum()),
             "swap_accept_rate_by_rung": {
@@ -416,7 +460,7 @@ def phase_resume(tmp: Path) -> dict:
     sample ids and the resumed run's carried state equal to its recompute;
     the same for an MC3 ladder of four rungs, each resuming from its pickle."""
     from sbayes_tpu_torch import cli
-    from sbayes_tpu_torch.sampling.runner import SamplerRuntime
+    from sbayes_tpu_torch.sampling.runner import ShardedRuntime
 
     out = {}
     for label, method, mc3 in (("single", "run_chunk", None),
@@ -434,7 +478,7 @@ def phase_resume(tmp: Path) -> dict:
         t0 = time.perf_counter()
         with synthetic_data_for_cli():
             cli.main(first, experiment_name=name, device=DEVICE)
-            with last_call(SamplerRuntime, method) as seen:
+            with last_call(ShardedRuntime, method) as seen:
                 cli.main(second, experiment_name=name, resume=True, device=DEVICE)
         torch.cuda.synchronize()
         res = tmp / "results" / name / "K3"
@@ -444,12 +488,9 @@ def phase_resume(tmp: Path) -> dict:
             ids = [int(v) for v in stats_column(f, "Sample")]
             if ids != list(range(50, 1001, 50)):
                 raise AssertionError(f"{name}: {f.name} has samples {ids}")
-        rt = seen["runtime"]
-        states, stats = seen["out"][:2]
-        ref = rt.refresh(states)
         out[label] = {"wall_s": time.perf_counter() - t0, "rows": len(files) * 20,
-                      "carried_vs_recompute_max_abs": check_carried_state(
-                          rt.consts, states, ref, stats)}
+                      "carried_vs_recompute_max_abs": check_shards(seen["runtime"],
+                                                                   *seen["out"][:2])}
     return out
 
 
@@ -1073,8 +1114,9 @@ def phase_scale() -> tuple:
     Then the same from an in-bounds start (``in_bounds_start``), where the
     sizes must stay within the bounds. Then both kernels against their plain
     versions on SCALE_KERNEL_CHAINS of the chains (both starts). Returns
-    (phase info, kernel rows, runtime, the first SCALE_MC3 rungs of the
-    in-bounds run's end states: ``phase_scale_mc3``'s start)."""
+    (phase info, kernel rows, runtime, the in-bounds run's end states:
+    ``phase_scale_mc3`` starts from the first SCALE_MC3 rungs, the ``mesh``
+    phase splits all of them)."""
     from sbayes_tpu_torch.ops import marginal
     from sbayes_tpu_torch.sampling.operators import OperatorFactory
     from sbayes_tpu_torch.sampling.runner import make_generators
@@ -1119,8 +1161,7 @@ def phase_scale() -> tuple:
                          "wide_cap_check": wide_cap_check(rt, states_ib)}
     few_ib = states_ib.select(torch.arange(SCALE_KERNEL_CHAINS, device=c.device))
     info["in_bounds"]["kernels_vs_plain"] = compare_with_plain(c, path_kernel_inputs(rt, few_ib))
-    mc3_start = states_ib.select(torch.arange(SCALE_MC3["rungs"], device=c.device))
-    del start, states_ib, few_ib
+    del start, few_ib
 
     # Both kernels at the scale shape: against their plain versions on a few
     # chains, and timed there and on all of them.
@@ -1163,7 +1204,7 @@ def phase_scale() -> tuple:
                                     "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
                                     "object_tile": marginal.object_tile(SCALE_CHAINS, c.N,
                                                                         n_sm)}})
-    return info, rows, rt, mc3_start
+    return info, rows, rt, states_ib
 
 
 def geo_costs_memory(rt, states) -> dict:
@@ -1997,12 +2038,321 @@ def phase_kernels(rt, states, rt_k3, states_k3, rt_mc3, states_mc3, temps_mc3,
         n = residual_launches.get(name, 0)
         out.append({"name": name, "route": "cuda", "source": "sbayes_tpu_torch/csrc/marginal.cu",
                     "replaces": "sbayes_tpu/ops/pallas_marginal.py:178", "launches": n,
-                    "launches_by_path": {"alt_operators_residual": n}, **timed,
+                    # the mesh path draws no residual-effect operator
+                    "launches_by_path": {"alt_operators_residual": n, "mesh": 0}, **timed,
                     "max_abs_err": max(timed["max_abs_err"], errs_res[name]),
                     "inputs": "residual", "K": cond.consts.K,
                     "temperatures": (sorted(set(temps_mc3.tolist())) if variant[1] else [1.0]),
                     **floor})
     return out
+
+
+def mesh_devices() -> tuple:
+    """The devices of the mesh phase: every visible card where the machine
+    has more than one, else two shards on cuda:0."""
+    n = torch.cuda.device_count()
+    return tuple(f"cuda:{i}" for i in range(n)) if n > 1 else ("cuda:0", "cuda:0")
+
+
+@contextmanager
+def split_over(devices):
+    """``auto_chain_mesh`` sees ``devices`` as the visible cards."""
+    import sbayes_tpu_torch.parallel.mesh as mesh
+
+    saved = mesh.visible_devices
+    mesh.visible_devices = lambda device_type="cuda": list(devices)
+    try:
+        yield
+    finally:
+        mesh.visible_devices = saved
+
+
+def sync_all():
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def shard_launches(sh, j: int) -> dict:
+    """The launches counted on shard ``j``'s device and stream, by variant."""
+    from sbayes_tpu_torch.ops import loglh, marginal
+
+    place = (sh.mesh[j].index, sh.streams[j].cuda_stream)
+    out = {"loglh": sum(loglh.launches.by_place.get(place, {}).values())}
+    for key, n in marginal.launches.by_place.get(place, {}).items():
+        out[marginal.variant_name(*key)] = n
+    return out
+
+
+def split_runtime(rt, n_chains: int, devices):
+    """``rt.shard(n_chains)`` as ``auto_chain_mesh`` splits it over ``devices``."""
+    with split_over(devices):
+        sh = rt.shard(n_chains)
+    if sh.n_shards != len(devices):
+        raise AssertionError(f"{n_chains} chains split into {sh.n_shards} shards, "
+                             f"not {len(devices)}")
+    return sh
+
+
+def check_shards(sh, shards, stats, jump_idx=None) -> list:
+    """Every shard's carried state against its own exact recompute."""
+    refs = sh.refresh(shards)
+    return [check_carried_state(sh.rts[j].consts, shards[j], refs[j], stats[j], jump_idx)
+            for j in range(sh.n_shards)]
+
+
+def mesh_ensemble(rt, states, devices) -> dict:
+    """(a) The K = 3 ensemble split over ``devices``: the split init of a
+    warm-up race, then MESH["pairs"] alternating pairs of
+    MESH["window"]-step windows from ``states``, split then unsplit
+    (``run_chunk`` of the whole batch), chain-steps/s of each, and one
+    window of the shards dispatched one after the other from the calling
+    thread (``split_one_thread``, not counted in the launches); every shard's
+    carried counts and ``geo_agg`` against the recompute; the launches on
+    shard 1's device and stream; both kernels against their plain versions
+    on shard 1's chains (from its device, whatever the current device)."""
+    from sbayes_tpu_torch.parallel.mesh import ShardGenerators
+    from sbayes_tpu_torch.sampling.runner import make_generators
+
+    n, w = states.n_chains, MESH["window"]
+    sh = split_runtime(rt, n, devices)
+    gen, op_gen = make_generators(43, DEVICE)
+    gens = ShardGenerators(gen)
+    # The split init of a warm-up race (its likelihoods: the loglh kernel);
+    # the windows then start from ``states``, equilibrated as the unsplit.
+    reset_counters()
+    sync_all()
+    t0 = time.perf_counter()
+    init = sh.init_chains(gens, n)
+    sync_all()
+    t_init = time.perf_counter() - t0
+    launches, shard1 = counters(), shard_launches(sh, 1)
+    init_sizes = [int(s.clusters.sum(-1).max()) for s in init]
+    del init
+    split, split_stats = sh.split(states), sh.new_stats(n)
+    plain_gen, plain_op_gen = make_generators(44, DEVICE)
+    plain, plain_stats = states, rt.new_stats(n)
+    rates = {"split": [], "unsplit": []}
+    for _ in range(MESH["pairs"]):
+        reset_counters()
+        sync_all()
+        t0 = time.perf_counter()
+        split, split_stats = sh.run_chunk(gens, op_gen, split, split_stats, w)
+        sync_all()
+        rates["split"].append(n * w / (time.perf_counter() - t0))
+        launches = add_launches(launches, counters())
+        shard1 = add_launches(shard1, shard_launches(sh, 1))
+        t0 = time.perf_counter()
+        plain, plain_stats = rt.run_chunk(plain_gen, plain_op_gen, plain, plain_stats, w)
+        sync_all()
+        rates["unsplit"].append(n * w / (time.perf_counter() - t0))
+    # The same shards dispatched one after the other from this thread: what
+    # the shards' threads win or lose against the GIL.
+    sync_all()
+    t0 = time.perf_counter()
+    ops = rt.draw_ops(op_gen, w)
+    g = gens.for_mesh(sh.mesh)
+    for j in range(sh.n_shards):
+        split[j], split_stats[j] = sh.rts[j].run_ops(g[j], ops, split[j], split_stats[j])
+    sync_all()
+    rates["split_one_thread"] = n * w / (time.perf_counter() - t0)
+    reset_counters()
+    errs = check_shards(sh, split, split_stats, rt.op_names.index("cluster_jump_gibbsish"))
+    launches = add_launches(launches, counters())
+    shard1 = add_launches(shard1, shard_launches(sh, 1))
+    for name in ("loglh", "marginal", "marginal_abs"):
+        if not shard1.get(name):
+            raise AssertionError(f"mesh: {name} never launched on shard 1: {shard1}")
+    rt1 = sh.rts[1]
+    kernels = {"path": compare_with_plain(rt1.consts, path_kernel_inputs(rt1, split[1])),
+               "jump": compare_with_plain(rt1.consts, jump_kernel_inputs(rt1.cond, split[1]))}
+    ratio = [a / b for a, b in zip(rates["split"], rates["unsplit"])]
+    return {"K": rt.consts.K, "geo": "cost_based", "chains": n, "shards": sh.n_shards,
+            "chains_per_shard": n // sh.n_shards, "split_init_s": t_init,
+            "split_init_max_size": init_sizes, "steps": w * MESH["pairs"],
+            "window_steps": w, "chain_steps_per_s": rates, "split_over_unsplit": ratio,
+            "launches": launches, "launches_shard1": shard1,
+            "carried_vs_recompute_max_abs": errs, "shard1_kernels_vs_plain": kernels}
+
+
+def mesh_mc3(rt, states, temps, devices) -> dict:
+    """(b) ``full_width_mc3``'s 1024 chains as one MC3 ladder of 1024 rungs
+    at their per-chain temperatures, split over ``devices``:
+    MESH["mc3_steps"] steps of ``run_mc3_chunk`` with a swap phase every
+    MESH["swap_interval"] steps (every adjacent pair proposed), then the
+    unsplit ladder from the same start: chain-steps/s of both, swaps
+    accepted overall and across the shard boundary, every shard's carried
+    state against the recompute, the heat variant launched on shard 1 and
+    held against its plain version on shard 1's rungs."""
+    from sbayes_tpu_torch.parallel.mesh import ShardGenerators
+    from sbayes_tpu_torch.sampling.runner import make_generators
+
+    n, steps, interval = states.n_chains, MESH["mc3_steps"], MESH["swap_interval"]
+    sh = split_runtime(rt, n, devices)
+    t_split = sh.split(temps)
+    gen, op_gen = make_generators(47, DEVICE)
+    swaps = np.zeros((2, n, n), dtype=np.int64)
+    reset_counters()
+    sync_all()
+    t0 = time.perf_counter()
+    shards, stats, n_acc, n_att = sh.run_mc3_chunk(
+        ShardGenerators(gen), op_gen, sh.split(states), sh.new_stats(n), t_split, t_split, swaps,
+        0, steps, interval, n - 1, True)
+    sync_all()
+    t_mc3 = time.perf_counter() - t0
+    launches, shard1 = counters(), shard_launches(sh, 1)
+    if not shard1.get("marginal_heat"):
+        raise AssertionError(f"mesh MC3: the heat variant never launched on shard 1: {shard1}")
+    b = n // sh.n_shards
+    errs = check_shards(sh, shards, stats, rt.op_names.index("cluster_jump_gibbsish"))
+    rt1 = sh.rts[1]
+    kernels = compare_with_plain(rt1.consts, mc3_kernel_inputs(rt1, shards[1], t_split[1]))
+
+    gen, op_gen = make_generators(47, DEVICE)
+    plain_swaps = np.zeros_like(swaps)
+    sync_all()
+    t0 = time.perf_counter()
+    rt.run_mc3_chunk(gen, op_gen, states, rt.new_stats(n), temps, temps, plain_swaps, 0,
+                     MESH["mc3_plain_steps"], interval, n - 1, True)
+    sync_all()
+    t_plain = time.perf_counter() - t0
+    return {"rungs": n, "shards": sh.n_shards, "steps": steps, "swap_interval": interval,
+            "swap_phases": steps // interval, "attempts_per_phase": n - 1,
+            "swaps_accepted": n_acc, "swaps_attempted": n_att,
+            "boundary_pair": [b - 1, b],
+            "boundary_accepted": int(swaps[0, b - 1, b]),
+            "boundary_attempted": int(swaps[1, b - 1, b]),
+            "boundary_temperatures": [float(temps[b - 1]), float(temps[b])],
+            "chain_steps_per_s": n * steps / t_mc3,
+            "unsplit_steps": MESH["mc3_plain_steps"],
+            "unsplit_chain_steps_per_s": n * MESH["mc3_plain_steps"] / t_plain,
+            "unsplit_swaps_accepted": int(plain_swaps[0].sum()),
+            "launches": launches, "launches_shard1": shard1,
+            "carried_vs_recompute_max_abs": errs, "shard1_kernels_vs_plain": kernels}
+
+
+def mesh_scale(rt, states, devices) -> dict:
+    """(c) ``scale``'s 16 in-bounds states split 2 x 8 (no second init):
+    MESH["scale_steps"] steps of the full schedule split, then unsplit from
+    the same start; steps/s of both, peak device memory of the split run,
+    every shard's carried state against the recompute. The draws of so few
+    steps may hold no wide step, and then time the host alone; so
+    MESH["scale_wide_steps"] steps of each wide operator of the schedule
+    (``run_ops`` on that fixed sequence, the step whose time is the
+    device's) are timed split and unsplit from the same start too."""
+    from sbayes_tpu_torch.parallel.mesh import ShardGenerators
+    from sbayes_tpu_torch.sampling.runner import make_generators
+
+    n, steps = states.n_chains, MESH["scale_steps"]
+    sh = split_runtime(rt, n, devices)
+    gen, op_gen = make_generators(53, DEVICE)
+    for dev in set(devices):
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_counters()
+    sync_all()
+    t0 = time.perf_counter()
+    shards, stats = sh.run_chunk(ShardGenerators(gen), op_gen, sh.split(states),
+                                 sh.new_stats(n), steps)
+    sync_all()
+    t_split = time.perf_counter() - t0
+    peak = {dev: torch.cuda.max_memory_allocated(dev) / 1e9 for dev in sorted(set(devices))}
+    launches, shard1 = counters(), shard_launches(sh, 1)
+    if not shard1.get("marginal"):
+        raise AssertionError(f"mesh scale: the marginal never launched on shard 1: {shard1}")
+    errs = check_shards(sh, shards, stats)
+    del shards
+    gen, op_gen = make_generators(53, DEVICE)
+    sync_all()
+    t0 = time.perf_counter()
+    rt.run_chunk(gen, op_gen, states, rt.new_stats(n), steps)
+    sync_all()
+    t_plain = time.perf_counter() - t0
+    wide = [i for i, name in enumerate(rt.op_names) if "wide" in name]
+    ops = [i for i in wide for _ in range(MESH["scale_wide_steps"])]
+    gen, _ = make_generators(59, DEVICE)
+    reset_counters()
+    sync_all()
+    t0 = time.perf_counter()
+    sh.run_ops(ShardGenerators(gen), ops, sh.split(states), sh.new_stats(n))
+    sync_all()
+    t_wide_split = time.perf_counter() - t0
+    launches = add_launches(launches, counters())
+    gen, _ = make_generators(59, DEVICE)
+    sync_all()
+    t0 = time.perf_counter()
+    rt.run_ops(gen, ops, states, rt.new_stats(n))
+    sync_all()
+    t_wide_plain = time.perf_counter() - t0
+    return {"chains": n, "shards": sh.n_shards, "steps": steps,
+            "steps_per_s": steps / t_split, "unsplit_steps_per_s": steps / t_plain,
+            "split_over_unsplit": t_plain / t_split, "peak_memory_gb": peak,
+            "wide": {"operators": [rt.op_names[i] for i in wide], "steps": len(ops),
+                     "steps_per_s": len(ops) / t_wide_split,
+                     "unsplit_steps_per_s": len(ops) / t_wide_plain,
+                     "split_over_unsplit": t_wide_plain / t_wide_split},
+            "launches": launches, "launches_shard1": shard1,
+            "carried_vs_recompute_max_abs": errs}
+
+
+def mesh_pool(tmp: Path) -> dict:
+    """(d) The CLI's run pool: ``cli.main`` on the fixture's config (as
+    JSON, its CSV files) with 2 runs and MESH["pool_steps"] steps, three
+    ways: one process (the runs as one ensemble), two spawned processes
+    (``-t 2``, each run alone on the card) and ``-i 0; -i 1`` one after the
+    other; the wall time of each, and each run's stats and clusters files
+    complete with finite likelihoods."""
+    from sbayes_tpu_torch import cli
+
+    fixtures = Path(__file__).resolve().parent / "tests" / "fixtures"
+    cfg = json.loads(json.dumps(FIXTURE_CONFIG))
+    cfg["data"] = {"features": str(fixtures / "features.csv"),
+                   "feature_states": str(fixtures / "feature_states.csv")}
+    samples = MESH["pool_samples"]
+    cfg["mcmc"].update(runs=2, steps=MESH["pool_steps"], samples=samples)
+    cfg["results"] = {"path": str(tmp / "pool"), "log_likelihood": False, "log_file": False,
+                      "log_operator_step_times": False}
+    path = tmp / "pool_config.json"
+    path.write_text(json.dumps(cfg))
+    wall = {}
+    reset_counters()
+    for name, kw in (("t1", {"processes": 1}), ("t2", {"processes": 2})):
+        t0 = time.perf_counter()
+        cli.main(path, experiment_name=f"pool_{name}", device=DEVICE, **kw)
+        wall[name] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for r in (0, 1):
+        cli.main(path, experiment_name="pool_i0_i1", device=DEVICE, i_run=r)
+    wall["i0_i1"] = time.perf_counter() - t0
+    launches = counters()              # the runs in this process (t1, i0_i1)
+    for name in ("t1", "t2", "i0_i1"):
+        for r in (0, 1):
+            out = tmp / "pool" / f"pool_{name}" / "K1"
+            lh = [float(v) for v in stats_column(out / f"stats_K1_{r}.txt", "likelihood")]
+            rows = (out / f"clusters_K1_{r}.txt").read_text().split()
+            if len(lh) != samples or len(rows) != samples or not np.isfinite(lh).all():
+                raise AssertionError(f"pool {name}, run {r}: {len(lh)} stats rows, "
+                                     f"{len(rows)} cluster rows, finite {np.isfinite(lh).all()}")
+    return {"runs": 2, "steps": MESH["pool_steps"], "samples": samples, "wall_s": wall,
+            "t2_over_sequential": wall["t2"] / wall["i0_i1"],
+            "t2_over_ensemble": wall["t2"] / wall["t1"], "launches_in_process": launches}
+
+
+def phase_mesh(rt_k3, states_k3, rt_mc3, states_mc3, temps, rt_scale, states_scale,
+               tmp: Path) -> tuple:
+    """The chain split and the run pool, (a)-(d). Returns (phase info, the
+    launches of (a), (b) and (d) in this process, the launches of (c))."""
+    devices = mesh_devices()
+    t0 = time.perf_counter()
+    info = {"devices": list(devices),
+            "split": ("every visible card" if torch.cuda.device_count() > 1
+                      else "two shards on cuda:0 (one card)")}
+    info["ensemble"] = mesh_ensemble(rt_k3, states_k3, devices)
+    info["mc3"] = mesh_mc3(rt_mc3, states_mc3, temps, devices)
+    info["scale"] = mesh_scale(rt_scale, states_scale, devices)
+    info["pool"] = mesh_pool(tmp)
+    info["phase_s"] = time.perf_counter() - t0
+    launches = add_launches(info["ensemble"]["launches"], info["mc3"]["launches"],
+                            info["pool"]["launches_in_process"])
+    return info, launches, info["scale"]["launches"]
 
 
 def add_launches(*launch_counts) -> dict:
@@ -2019,20 +2369,23 @@ def add_launches(*launch_counts) -> dict:
 REVISION_SHAPES = {"main": dict(n_chains=1024, n_features=36, n_clusters=1),
                    "jump_512": dict(n_chains=64, n_features=512, n_clusters=2),
                    "tiled_400": dict(n_chains=64, n_features=400, n_clusters=1)}
+REVISION_STEPS = 200
 
 
 def revision_outputs(root: str, out: str) -> None:
     """Both kernels of the ``sbayes_tpu_torch`` under ``root`` (a ``git
     archive`` of a revision, or this one) on inputs drawn from a seed at
-    REVISION_SHAPES: every output saved to ``out`` (.npz) and the device time
-    per launch printed."""
+    REVISION_SHAPES: every output saved to ``out`` (.npz), the device time
+    per launch and the time per eager call printed, with the chain-steps/s
+    of that revision's full-width ``run_chunk`` at K = 1 and 3."""
     sys.path.insert(0, str(Path(root).resolve()))
     import sbayes_tpu_torch
     from sbayes_tpu_torch.model.model import Model
     from sbayes_tpu_torch.ops import loglh, marginal
+    from sbayes_tpu_torch.sampling.runner import make_generators
     from sbayes_tpu_torch.testing import synthetic_config, synthetic_data
 
-    saved, times = {}, {}
+    saved, times, eager = {}, {}, {}
     for shape, kw in REVISION_SHAPES.items():
         c = Model(synthetic_data(n_features=kw["n_features"]),
                   synthetic_config(n_clusters=kw["n_clusters"]).model, device=DEVICE).consts
@@ -2045,9 +2398,22 @@ def revision_outputs(root: str, out: str) -> None:
         for name, call in calls.items():
             saved[f"{shape}:{name}"] = call().cpu().numpy()
             times[f"{shape}:{name}"] = device_time_ms(call)
+            eager[f"{shape}:{name}"] = cuda_time_ms(call)
     np.savez(out, **saved)
+    rates = {}
+    for k, geo in ((1, "uniform"), (3, "cost_based")):
+        rt = full_width_runtime(k, geo)
+        gen, op_gen = make_generators(7, DEVICE)
+        states, stats = rt.init_chains(gen, CHAINS), rt.new_stats(CHAINS)
+        states, stats = rt.run_chunk(gen, op_gen, states, stats, REVISION_STEPS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rt.run_chunk(gen, op_gen, states, stats, REVISION_STEPS)
+        torch.cuda.synchronize()
+        rates[f"K{k}_{geo}"] = CHAINS * REVISION_STEPS / (time.perf_counter() - t0)
     print(json.dumps({"package": sbayes_tpu_torch.__file__, "device_ms": times,
-                      "card": card_line()}), flush=True)
+                      "eager_ms": eager, "chain_steps_per_s": rates, "card": card_line()}),
+          flush=True)
 
 
 def compare_revisions(a: str, b: str) -> int:
@@ -2145,7 +2511,8 @@ def main() -> int:
     print(phase_line({"phase": "alt_operators", "card": card, **alt}), flush=True)
     prior = phase_prior_samples(rt_k3)
     print(phase_line({"phase": "prior_samples", "card": card, **prior}), flush=True)
-    scale, scale_rows, rt_scale, mc3_start = phase_scale()
+    scale, scale_rows, rt_scale, states_scale = phase_scale()
+    mc3_start = states_scale.select(torch.arange(SCALE_MC3["rungs"], device=DEVICE))
     print(phase_line({"phase": "scale", "card": card, **scale}), flush=True)
     torch.cuda.empty_cache()
     scale_geo, geo_launches = phase_scale_geo(rt_scale.model.data)
@@ -2153,10 +2520,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     scale_mc3, mc3_launches, heat_mc3 = phase_scale_mc3(rt_scale, mc3_start)
     print(phase_line({"phase": "scale_mc3", "card": card, **scale_mc3}), flush=True)
-    del rt_scale, mc3_start
+    del mc3_start
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh, mesh_launches, mesh_scale_launches = phase_mesh(
+            rt_k3, states_k3, rt_mc3, states_mc3, temps, rt_scale, states_scale, Path(tmp))
+    print(phase_line({"phase": "mesh", "card": card, **mesh}), flush=True)
+    del rt_scale, states_scale
     torch.cuda.empty_cache()
     later_scale = {**geo_launches, "scale_mc3": mc3_launches}
-    add_scale_paths(scale_rows, later_scale, heat_mc3)
+    # The scale rows' "mesh" path is the split at scale; the other rows have
+    # it as "mesh_scale" beside their own "mesh".
+    add_scale_paths(scale_rows, {**later_scale, "mesh": mesh_scale_launches}, heat_mc3)
 
     by_path = {"main_path": main_path["launches"], "main_path_k3": main_path_k3["launches"],
                "main_path_mc3": main_path_mc3["launches"], "jump_512": jump_512["launches"],
@@ -2167,7 +2542,8 @@ def main() -> int:
                "workflow": workflow["launches"],
                "alt_operators": add_launches(*(a["launches"] for a in alt.values())),
                "prior_samples": prior["launches"], "scale": scale["launches"],
-               "scale_in_bounds": scale["in_bounds"]["launches"], **later_scale}
+               "scale_in_bounds": scale["in_bounds"]["launches"], **later_scale,
+               "mesh": mesh_launches, "mesh_scale": mesh_scale_launches}
     residual_launches = add_launches(*(alt[k]["launches"] for k in (
         "wide_residual", "wide_residual_counts", "wide_residual_counts_mc3")))
     kernels = phase_kernels(rt, states, rt_k3, states_k3, rt_mc3, states_mc3, temps, by_path,

@@ -27,6 +27,7 @@ prior's masked reductions, from the number of clusters and N.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 from dataclasses import dataclass
 from pathlib import Path
@@ -200,6 +201,15 @@ class ModelConstants:
     @property
     def Gmax(self):
         return int(self.groups.shape[1])
+
+    def to(self, device) -> "ModelConstants":
+        """These constants with every tensor field on ``device`` and
+        ``device`` set to it (a shard of a split chain batch samples on its
+        own device; ``parallel/mesh.py::replicate``)."""
+        device = torch.device(device)
+        moved = {f.name: getattr(self, f.name).to(device) for f in dataclasses.fields(self)
+                 if isinstance(getattr(self, f.name), torch.Tensor)}
+        return dataclasses.replace(self, device=device, **moved)
 
 
 def auto_source_packed(n_objects: int, n_features: int, n_components: int,

@@ -16,6 +16,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
+import threading
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
@@ -33,6 +35,7 @@ SIGNATURES = {
     "sbt_marginal_feature_tile": [_I] * 5,
     "sbt_empty": [_P],
 }
+_BUILD_LOCK = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -52,7 +55,16 @@ def sources() -> list[Path]:
 def build(verbose: bool = False) -> Path:
     """Compile every source (one nvcc each, all started together), link the
     objects into one library and return its path; ``verbose`` prints
-    ptxas's register, shared-memory and spill report."""
+    ptxas's register, shared-memory and spill report. One build runs at a
+    time in a process (the shards of a split batch make their first launch
+    from threads of their own), and each build writes its objects into a
+    directory of its own, so that builds in several processes never share
+    a file until the whole library replaces its path."""
+    with _BUILD_LOCK:
+        return _build(verbose)
+
+
+def _build(verbose: bool) -> Path:
     srcs = sources()
     hashed = srcs + sorted(SRC_DIR.glob("*.cuh"))          # headers the sources share
     digest = hashlib.sha256(b"".join(p.read_bytes() for p in hashed)
@@ -63,21 +75,25 @@ def build(verbose: bool = False) -> Path:
         return lib
     nvcc = nvcc_path()
     out_dir.mkdir(parents=True, exist_ok=True)
-    objs = [out_dir / (src.stem + ".o") for src in srcs]
-    procs = [subprocess.Popen([nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
-                               "-Xptxas", "-v", "-c", str(src), "-o", str(obj)],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for src, obj in zip(srcs, objs)]
-    logs = [f"== {src.name}\n{proc.communicate()[0]}" for src, proc in zip(srcs, procs)]
-    failed = [src.name for src, proc in zip(srcs, procs) if proc.returncode != 0]
-    if failed:
-        raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(logs))
-    partial = out_dir / f"{lib.name}.{os.getpid()}"
-    link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(partial), *map(str, objs)],
-                          capture_output=True, text=True)
-    if link.returncode != 0:
-        raise RuntimeError(f"linking the kernels failed:\n{link.stdout}\n{link.stderr}")
-    os.replace(partial, lib)  # a library that exists is always whole
+    work = Path(tempfile.mkdtemp(prefix="build.", dir=out_dir))
+    try:
+        objs = [work / (src.stem + ".o") for src in srcs]
+        procs = [subprocess.Popen([nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler",
+                                   "-fPIC", "-Xptxas", "-v", "-c", str(src), "-o", str(obj)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(srcs, objs)]
+        logs = [f"== {src.name}\n{proc.communicate()[0]}" for src, proc in zip(srcs, procs)]
+        failed = [src.name for src, proc in zip(srcs, procs) if proc.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(logs))
+        partial = work / lib.name
+        link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(partial),
+                               *map(str, objs)], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"linking the kernels failed:\n{link.stdout}\n{link.stderr}")
+        os.replace(partial, lib)  # a library that exists is always whole
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     if verbose:
         print("\n".join(logs))
     return lib
@@ -105,18 +121,34 @@ def check(rc: int, name: str):
 
 class LaunchCounter:
     """How often a wrapper launched its kernel (the plain version and
-    refused launches do not count)."""
+    refused launches do not count): in all, by variant, and by the place of
+    the launch, ``(device index, stream handle)``, so that the shards of a split
+    chain batch, each on a stream of its own, count apart. Shards launch
+    from threads of their own, so a lock guards the counts."""
 
     def __init__(self, name: str):
         self.name = name
         self.count = 0
         self.variants: dict = {}
+        self.by_place: dict = {}
+        self._lock = threading.Lock()
 
-    def add(self, variant=None):
-        """Count one launch (of ``variant``, for kernels built in variants)."""
-        self.count += 1
-        if variant is not None:
-            self.variants[variant] = self.variants.get(variant, 0) + 1
+    def add(self, variant=None, place=None):
+        """Count one launch (of ``variant``, for kernels built in variants)
+        at ``place``: (device index, stream handle) of the launch."""
+        with self._lock:
+            self.count += 1
+            if variant is not None:
+                self.variants[variant] = self.variants.get(variant, 0) + 1
+            if place is not None:
+                counts = self.by_place.setdefault(place, {})
+                counts[variant] = counts.get(variant, 0) + 1
+
+    def reset(self):
+        with self._lock:
+            self.count = 0
+            self.variants.clear()
+            self.by_place.clear()
 
 
 @functools.lru_cache(maxsize=None)

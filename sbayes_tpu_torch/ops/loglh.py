@@ -83,13 +83,17 @@ def log_likelihood_cuda(consts, clusters, source):
     tiles = -(-F // feature_tile(consts, packed))
     partial = (torch.empty((B, tiles), dtype=torch.int64, device=clusters.device)
                if tiles > 1 else None)
-    rc = lib.sbt_loglh(
-        clusters.data_ptr(), source.data_ptr(), consts.feat_idx_t.data_ptr(),
-        consts.group_idx.data_ptr(), consts.conc_table.data_ptr(), out.data_ptr(),
-        None if partial is None else partial.data_ptr(),
-        B, K, N, F, S, C, G, int(packed), _cuda.stream_of(out))
+    # The launch and its shared-memory attribute go to the tensors' device,
+    # whichever device is the calling thread's current one.
+    stream = _cuda.stream_of(out)
+    with torch.cuda.device(out.device):
+        rc = lib.sbt_loglh(
+            clusters.data_ptr(), source.data_ptr(), consts.feat_idx_t.data_ptr(),
+            consts.group_idx.data_ptr(), consts.conc_table.data_ptr(), out.data_ptr(),
+            None if partial is None else partial.data_ptr(),
+            B, K, N, F, S, C, G, int(packed), stream)
     _cuda.check(rc, "loglh")
-    launches.add("packed" if packed else "bool")
+    launches.add("packed" if packed else "bool", (out.device.index, stream))
     return out
 
 

@@ -142,15 +142,19 @@ def marginal_cuda(consts, p_eff, conf_eff, wh, hc, hc_flip, incl, inv_t=None,
             raise TypeError(f"{name} must be a float32 tensor on the constants' CUDA device")
         args[name] = t.contiguous()
     out = torch.empty((B, N) if ratio else (B, N, 2), dtype=torch.float32, device=p_eff.device)
-    rc = _cuda.library().sbt_marginal(
-        consts.feat_idx_t.data_ptr(), consts.group_idx.data_ptr(),
-        args["p_eff"].data_ptr(), args["conf_eff"].data_ptr(), args["wh"].data_ptr(),
-        args["hc"].data_ptr(), args["hc_flip"].data_ptr(), args["incl"].data_ptr(),
-        args["inv_t"].data_ptr() if inv_t is not None else None, out.data_ptr(),
-        B, N, F, S, C, G, int(ratio), int(inv_t is not None), int(two_eff),
-        object_tile(B, N, _cuda.sm_count(out.device)), _cuda.stream_of(out))
+    # The launch and its shared-memory attribute go to the tensors' device,
+    # whichever device is the calling thread's current one.
+    stream = _cuda.stream_of(out)
+    with torch.cuda.device(out.device):
+        rc = _cuda.library().sbt_marginal(
+            consts.feat_idx_t.data_ptr(), consts.group_idx.data_ptr(),
+            args["p_eff"].data_ptr(), args["conf_eff"].data_ptr(), args["wh"].data_ptr(),
+            args["hc"].data_ptr(), args["hc_flip"].data_ptr(), args["incl"].data_ptr(),
+            args["inv_t"].data_ptr() if inv_t is not None else None, out.data_ptr(),
+            B, N, F, S, C, G, int(ratio), int(inv_t is not None), int(two_eff),
+            object_tile(B, N, _cuda.sm_count(out.device)), stream)
     _cuda.check(rc, "marginal")
-    launches.add((bool(ratio), inv_t is not None, bool(two_eff)))
+    launches.add((bool(ratio), inv_t is not None, bool(two_eff)), (out.device.index, stream))
     return out
 
 

@@ -36,6 +36,18 @@ class OperatorStats(NamedTuple):
             non_finite=torch.zeros(n_chains, dtype=torch.int32, device=device),
         )
 
+    def select(self, idx) -> "OperatorStats":
+        """The counters of the chains ``idx`` (an index tensor or slice)."""
+        return OperatorStats(*(x[idx] for x in self))
+
+    @classmethod
+    def concat(cls, stats) -> "OperatorStats":
+        """One batch of the counters of ``stats`` (batches), in order."""
+        return cls(*(torch.cat(xs) for xs in zip(*stats)))
+
+    def to(self, device) -> "OperatorStats":
+        return OperatorStats(*(x.to(device) for x in self))
+
     def record(self, op_idx: int, accept, step_size, nf) -> "OperatorStats":
         acc = accept.int()
         accepts, rejects, sss = self.accepts.clone(), self.rejects.clone(), self.step_size_sum.clone()

@@ -17,13 +17,20 @@ else the clusters and stats files with a source imputed by one Gibbs pass.
 (the input of ``results/ess.py``), and ``cluster_contribution`` scores each
 cluster in isolation for the ``log_contribution_per_cluster`` columns.
 
-Not ported here: multi-device sharding.
+The counterpart of the JAX package's ``shard_ensemble`` is ``ShardedRuntime``:
+wherever the JAX runner splits the chain axis over devices (the warm-up
+races, the ensemble, the MC3 ladder, the timing probe, the refresh), the
+port splits the batch over the mesh of ``parallel/mesh.py::auto_chain_mesh``
+and steps each shard from a host thread of its own; with one shard the same
+code runs inline, unsplit.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import pickle
 import time
+from concurrent.futures import ThreadPoolExecutor, wait
 from datetime import timedelta
 from pathlib import Path
 from typing import Optional
@@ -35,6 +42,14 @@ from sbayes_tpu_torch.data.loader import Data
 from sbayes_tpu_torch.model.math import normalize_weights, sample_categorical_onehot
 from sbayes_tpu_torch.model.model import Model
 from sbayes_tpu_torch.model.posterior import Posterior
+from sbayes_tpu_torch.parallel.mesh import (
+    ShardGenerators,
+    auto_chain_mesh,
+    gather,
+    permute_chains,
+    replicate,
+    shard_chain_batch,
+)
 from sbayes_tpu_torch.results.loggers import (
     ClustersLogger,
     LikelihoodLogger,
@@ -126,10 +141,11 @@ def draw_swap_proposals(op_gen, n_pairs: int, attempts: int) -> tuple:
 class SamplerRuntime:
     """The batched sampling programs of one model."""
 
-    def __init__(self, model: Model, mcmc_config, sample_from_prior: bool = False):
+    def __init__(self, model: Model, mcmc_config, sample_from_prior: bool = False,
+                 consts=None):
         self.model = model
-        self.consts = model.consts
-        self.device = model.consts.device
+        self.consts = model.consts if consts is None else consts
+        self.device = self.consts.device
         self.mcmc_config = mcmc_config
         self.sample_from_prior = sample_from_prior
         self.p_grow = 0.5
@@ -140,6 +156,32 @@ class SamplerRuntime:
         self.n_ops = len(self.op_names)
         self.op_weights = torch.tensor([o.weight for o in self._op_specs], dtype=torch.float64)
         self._apply = make_mh_apply_fn(self.cond, self._op_specs)
+        self._sharded: dict = {}
+
+    def replica(self, consts) -> "SamplerRuntime":
+        """The same sampler over ``consts`` (the model constants on another
+        device)."""
+        return SamplerRuntime(self.model, self.mcmc_config, self.sample_from_prior, consts)
+
+    def shard(self, n_chains: int, logger=None) -> "ShardedRuntime":
+        """The runtime of a batch of ``n_chains`` split over
+        ``auto_chain_mesh`` (one shard where it gives no mesh). A model on
+        a device with an index (``cuda:1``, a ``-t`` worker's card) never
+        splits: only a bare ``cuda`` (or ``cpu``) model takes the mesh."""
+        mesh = (auto_chain_mesh(n_chains, device_type=self.device.type)
+                if self.device.index is None else None)
+        if mesh is not None and logger is not None:
+            logger.info(f"Splitting {n_chains} chains over {len(mesh)} shards "
+                        f"({n_chains // len(mesh)} each) on {[str(d) for d in mesh]}.")
+        return self.sharded(mesh)
+
+    def sharded(self, mesh=None) -> "ShardedRuntime":
+        """The runtime of a batch split over ``mesh`` (None: one shard, the
+        batch unsplit); the model constants are copied to each device once
+        per mesh."""
+        if mesh not in self._sharded:
+            self._sharded[mesh] = ShardedRuntime(self, mesh)
+        return self._sharded[mesh]
 
     # -------------------- batched programs --------------------
 
@@ -174,11 +216,21 @@ class SamplerRuntime:
         Returns (states, stats), and with ``trace`` also the (n_steps, B)
         log-posterior ``log_lh + log_prior`` after each step as a numpy array:
         one launch per step into a tensor on the device, one read per chunk."""
+        return self.run_ops(gen, self.draw_ops(op_gen, n_steps), states, stats, temps,
+                            prior_temps, trace)
+
+    def draw_ops(self, op_gen, n_steps: int) -> list:
+        """The operator of each of ``n_steps`` steps, one draw for the batch."""
+        return torch.multinomial(self.op_weights, n_steps, replacement=True,
+                                 generator=op_gen).tolist()
+
+    def run_ops(self, gen, ops: list, states: ChainState, stats: OperatorStats, temps=None,
+                prior_temps=None, trace: bool = False):
+        """``run_chunk`` on the drawn operators ``ops``, one a step."""
         apply = self.apply_fn(temps, prior_temps)
-        ops = torch.multinomial(self.op_weights, n_steps, replacement=True, generator=op_gen)
-        log_post = (torch.empty((n_steps, states.n_chains), device=self.device) if trace
+        log_post = (torch.empty((len(ops), states.n_chains), device=self.device) if trace
                     else None)
-        for i, op_idx in enumerate(ops.tolist()):
+        for i, op_idx in enumerate(ops):
             states, accept, step_size, nf = apply(op_idx, gen, states)
             stats = stats.record(op_idx, accept, step_size, nf)
             if trace:
@@ -197,28 +249,12 @@ class SamplerRuntime:
         n_pairs)`` sequential proposals (``swap_phase``) and permutes the
         states once; operator statistics and temperatures stay with the
         rung. ``swap_matrix`` (2, n, n) counts in place. Returns (states,
-        stats, n_accepted, n_attempted)."""
-        pairs = swap_pairs(states.n_chains, only_adjacent)
-        attempts = min(attempts, len(pairs))
-        t_host = _host(temps).astype(np.float64)
-        tp_host = _host(prior_temps).astype(np.float64)
-        n_acc = n_att = 0
-        done = 0
-        while done < n_steps:
-            seg = min(swap_interval - (step0 + done) % swap_interval, n_steps - done)
-            states, stats = self.run_chunk(gen, op_gen, states, stats, seg, temps, prior_temps)
-            done += seg
-            if (step0 + done) % swap_interval:
-                continue
-            order, log_u = draw_swap_proposals(op_gen, len(pairs), attempts)
-            ll, lp = _host(torch.stack([states.log_lh, states.log_prior]))
-            perm, _, _, acc = swap_phase(ll, lp, t_host, tp_host, pairs, order, log_u,
-                                         swap_matrix)
-            if acc:
-                states = states.select(torch.as_tensor(perm, device=self.device))
-            n_acc += acc
-            n_att += attempts
-        return states, stats, n_acc, n_att
+        stats, n_accepted, n_attempted). The ladder unsplit: one shard of
+        ``ShardedRuntime.run_mc3_chunk``."""
+        shards, stats, n_acc, n_att = self.sharded().run_mc3_chunk(
+            ShardGenerators.of(gen), op_gen, [states], [stats], [temps], [prior_temps],
+            swap_matrix, step0, n_steps, swap_interval, attempts, only_adjacent)
+        return shards[0], stats[0], n_acc, n_att
 
     def refresh(self, states: ChainState) -> ChainState:
         """Exact recompute of every carried invariant."""
@@ -228,18 +264,10 @@ class SamplerRuntime:
                               n_steps: int = 20) -> np.ndarray:
         """Wall time [s] of one step of the whole batch for each operator:
         the operator alone on a copy of ``states`` at its temperatures, one
-        warm-up step, then ``n_steps`` timed steps (synchronised)."""
-        apply = self.apply_fn(temps, prior_temps)
-        times = np.zeros(self.n_ops)
-        for i_op in range(self.n_ops):
-            st = apply(i_op, gen, states)[0]
-            _sync(self.device)
-            t0 = time.perf_counter()
-            for _ in range(n_steps):
-                st = apply(i_op, gen, st)[0]
-            _sync(self.device)
-            times[i_op] = (time.perf_counter() - t0) / n_steps
-        return times
+        warm-up step, then ``n_steps`` timed steps (synchronised). The batch
+        unsplit: one shard of ``ShardedRuntime.measure_op_step_times``."""
+        return self.sharded().measure_op_step_times(ShardGenerators.of(gen), [states], [temps],
+                                                    [prior_temps], n_steps)
 
     def sample_view(self, state: ChainState, with_likelihood: bool = True):
         """Posterior parts, counts and (optionally) the per-observation
@@ -315,11 +343,16 @@ class SamplerRuntime:
         )
 
     def warmup(self, gen, op_gen, n_chains: int, n_steps: int, logger=None) -> ChainState:
-        """Warm-up race: run ``n_chains`` and keep the best by likelihood (a batch of one)."""
-        states = self.init_chains(gen, n_chains)
+        """Warm-up race: run ``n_chains`` and keep the best by likelihood (a
+        batch of one). ``gen``: a generator or the run's ``ShardGenerators``;
+        the race is split over ``auto_chain_mesh``."""
+        gens = ShardGenerators.of(gen)
+        sh = self.shard(n_chains, logger)
+        states = sh.init_chains(gens, n_chains)
         if n_steps > 0:
-            states, _ = self.run_chunk(gen, op_gen, states, self.new_stats(n_chains), n_steps)
-            states = self.refresh(states)
+            states, _ = sh.run_chunk(gens, op_gen, states, sh.new_stats(n_chains), n_steps)
+            states = sh.refresh(states)
+        states = sh.gather(states)
         best = int(torch.argmax(states.log_lh))
         if logger:
             logger.info(
@@ -333,20 +366,208 @@ class SamplerRuntime:
         """Best-of-W warm-up race per MC3 rung: ``n_chains x W`` warm-ups as
         one batch, each at its rung's temperatures (``temps`` /
         ``prior_temps`` (n_chains,) repeated W times), an exact refresh, then
-        per rung the warm-up with the highest log-likelihood."""
+        per rung the warm-up with the highest log-likelihood. ``gen`` and the
+        split as in ``warmup``."""
         W = max(1, int(warmup_chains))
-        states = self.init_chains(gen, n_chains * W)
+        gens = ShardGenerators.of(gen)
+        sh = self.shard(n_chains * W, logger)
+        states = sh.init_chains(gens, n_chains * W)
         if n_steps > 0:
-            states, _ = self.run_chunk(gen, op_gen, states, self.new_stats(n_chains * W), n_steps,
-                                       temps.repeat_interleave(W),
-                                       prior_temps.repeat_interleave(W))
-            states = self.refresh(states)
+            states, _ = sh.run_chunk(gens, op_gen, states, sh.new_stats(n_chains * W), n_steps,
+                                     sh.split(temps.repeat_interleave(W)),
+                                     sh.split(prior_temps.repeat_interleave(W)))
+            states = sh.refresh(states)
+        states = sh.gather(states)
         ll = _host(states.log_lh).reshape(n_chains, W)
         sel = torch.as_tensor(ll.argmax(axis=1) + np.arange(n_chains) * W, device=self.device)
         if logger and W > 1:
             logger.info(f"MC3 warm-up: best of {W} per rung; selected log-likelihoods "
                         f"{ll.max(axis=1).round(2).tolist()}")
         return states.select(sel)
+
+
+class ShardedRuntime:
+    """A chain batch split over ``mesh`` (``parallel/mesh.py``), the
+    counterpart of the JAX package's ``shard_ensemble``. Each shard has a
+    ``SamplerRuntime`` over the model constants on its device (shards of one
+    device share one) and a per-chain generator of its own
+    (``ShardGenerators``); all shards share one operator sequence, drawn on
+    the host from the shared operator generator once a chunk, as the JAX
+    program draws one operator per step for the whole batch. Each shard's
+    steps are dispatched from a host thread of its own, on a CUDA stream of
+    its own; the calling thread joins them at the end of every chunk and at
+    every MC3 swap phase, where it reads each shard's log-likelihoods and
+    log-priors once, runs ``swap_phase`` on the host and moves the chains
+    whose rung changed (``permute_chains``). A shard's exception is raised
+    in the caller. Batches are lists of shards; with one shard (``mesh``
+    None) every call runs inline in the calling thread, on its stream: the
+    unsplit batch, whose bits are the ``SamplerRuntime``'s own."""
+
+    def __init__(self, rt: SamplerRuntime, mesh=None):
+        mesh = tuple(mesh) if mesh and len(mesh) > 1 else None
+        self.rt = rt
+        self.mesh = mesh or (rt.device,)
+        self.n_shards = len(self.mesh)
+        by_consts = {id(rt.consts): rt}
+        self.rts = []
+        for consts in (replicate(rt.consts, self.mesh) if mesh else (rt.consts,)):
+            if id(consts) not in by_consts:
+                by_consts[id(consts)] = rt.replica(consts)
+            self.rts.append(by_consts[id(consts)])
+        self.streams = [torch.cuda.Stream(d) if mesh and d.type == "cuda" else None
+                        for d in self.mesh]
+        self._pool = (ThreadPoolExecutor(max_workers=self.n_shards,
+                                         thread_name_prefix="sbayes-shard") if mesh else None)
+
+    # -------------------- layout --------------------
+
+    def split(self, x) -> list:
+        """The shards of a chain batch (ChainState, OperatorStats, (B,) tensor or None)."""
+        return [x] if self.n_shards == 1 else shard_chain_batch(x, self.mesh)
+
+    def gather(self, shards: list):
+        """The chains of every shard as one batch on the model's device."""
+        return shards[0] if self.n_shards == 1 else gather(shards, self.rt.device)
+
+    def locate(self, shards: list, chain: int) -> tuple:
+        """(shard, index in the shard) of chain ``chain`` of the batch."""
+        return divmod(chain, shards[0].n_chains)
+
+    def chain(self, shards: list, chain: int) -> tuple:
+        """(the runtime of its shard, the state as a batch of one) of chain
+        ``chain``: logging reads each chain from the shard that holds it."""
+        j, k = self.locate(shards, chain)
+        return self.rts[j], shards[j].select(slice(k, k + 1))
+
+    # -------------------- dispatch --------------------
+
+    def _on(self, j: int):
+        if self.streams[j] is None:
+            return contextlib.nullcontext()
+        stack = contextlib.ExitStack()
+        stack.enter_context(torch.cuda.device(self.mesh[j]))
+        stack.enter_context(torch.cuda.stream(self.streams[j]))
+        return stack
+
+    def map(self, fn, *per_shard) -> list:
+        """``[fn(j, *(a[j] for a in per_shard)) for each shard j]``: with more
+        than one shard each call runs in a thread of its own, on the
+        shard's stream, after the work the caller queued on the device's
+        current stream; the caller's streams then wait for every shard's.
+        The first shard's exception is raised here, after all have ended."""
+        if self.n_shards == 1:
+            return [fn(0, *(a[0] for a in per_shard))]
+        callers = [None if s is None else torch.cuda.current_stream(d)
+                   for s, d in zip(self.streams, self.mesh)]
+
+        def task(j):
+            with self._on(j):
+                if callers[j] is not None:
+                    self.streams[j].wait_stream(callers[j])
+                return fn(j, *(a[j] for a in per_shard))
+
+        futures = [self._pool.submit(task, j) for j in range(self.n_shards)]
+        wait(futures)
+        for caller, stream in zip(callers, self.streams):
+            if stream is not None:
+                caller.wait_stream(stream)
+        return [f.result() for f in futures]
+
+    def synchronize(self):
+        for dev in dict.fromkeys(self.mesh):
+            _sync(dev)
+
+    # -------------------- batched programs --------------------
+
+    def new_stats(self, n_chains: int) -> list:
+        return [rt.new_stats(n_chains // self.n_shards) for rt in self.rts]
+
+    def init_chains(self, gens: ShardGenerators, n_chains: int) -> list:
+        b = n_chains // self.n_shards
+        return self.map(lambda j, g: self.rts[j].init_chains(g, b), gens.for_mesh(self.mesh))
+
+    def refresh(self, shards: list) -> list:
+        return self.map(lambda j, st: self.rts[j].refresh(st), shards)
+
+    def run_chunk(self, gens: ShardGenerators, op_gen, shards: list, stats: list, n_steps: int,
+                  temps=None, prior_temps=None) -> tuple:
+        """``SamplerRuntime.run_chunk`` of every shard on one operator
+        sequence; ``temps`` / ``prior_temps``: None or per-shard (b,) tensors."""
+        return self.run_ops(gens, self.rt.draw_ops(op_gen, n_steps), shards, stats, temps,
+                            prior_temps)
+
+    def run_ops(self, gens: ShardGenerators, ops: list, shards: list, stats: list, temps=None,
+                prior_temps=None) -> tuple:
+        """``SamplerRuntime.run_ops`` of every shard on the operators ``ops``."""
+        g = gens.for_mesh(self.mesh)
+        none = [None] * self.n_shards
+        temps, prior_temps = temps or none, prior_temps or none
+        out = self.map(lambda j, *a: self.rts[j].run_ops(a[0], ops, *a[1:]),
+                       g, shards, stats, temps, prior_temps)
+        return [o[0] for o in out], [o[1] for o in out]
+
+    def log_lh_prior(self, shards: list) -> tuple:
+        """(log_lh, log_prior) of the whole batch on the host: one read per shard."""
+        both = np.concatenate([_host(torch.stack([s.log_lh, s.log_prior])) for s in shards],
+                              axis=1)
+        return both[0], both[1]
+
+    def run_mc3_chunk(self, gens: ShardGenerators, op_gen, shards: list, stats: list, temps,
+                      prior_temps, swap_matrix: np.ndarray, step0: int, n_steps: int,
+                      swap_interval: int, attempts: int, only_adjacent: bool):
+        """``SamplerRuntime.run_mc3_chunk`` of a ladder whose rungs are split
+        over the shards (``temps`` / ``prior_temps``: per-shard (b,) tensors):
+        one operator draw a segment for every shard, then at each swap phase
+        one read per shard, ``swap_phase`` on the host and
+        ``permute_chains``."""
+        n = sum(s.n_chains for s in shards)
+        pairs = swap_pairs(n, only_adjacent)
+        attempts = min(attempts, len(pairs))
+        t_host = np.concatenate([_host(t) for t in temps]).astype(np.float64)
+        tp_host = np.concatenate([_host(t) for t in prior_temps]).astype(np.float64)
+        n_acc = n_att = done = 0
+        while done < n_steps:
+            seg = min(swap_interval - (step0 + done) % swap_interval, n_steps - done)
+            shards, stats = self.run_chunk(gens, op_gen, shards, stats, seg, temps, prior_temps)
+            done += seg
+            if (step0 + done) % swap_interval:
+                continue
+            order, log_u = draw_swap_proposals(op_gen, len(pairs), attempts)
+            ll, lp = self.log_lh_prior(shards)
+            perm, _, _, acc = swap_phase(ll, lp, t_host, tp_host, pairs, order, log_u,
+                                         swap_matrix)
+            if acc:
+                shards = permute_chains(shards, perm)
+            n_acc += acc
+            n_att += attempts
+        return shards, stats, n_acc, n_att
+
+    def measure_op_step_times(self, gens: ShardGenerators, shards: list, temps=None,
+                              prior_temps=None, n_steps: int = 20) -> np.ndarray:
+        """``SamplerRuntime.measure_op_step_times`` of the shards: each
+        operator alone on every shard at once, one warm-up step, then
+        ``n_steps`` timed steps (all devices synchronised)."""
+        g = gens.for_mesh(self.mesh)
+        none = [None] * self.n_shards
+        temps, prior_temps = temps or none, prior_temps or none
+        applies = [rt.apply_fn(t, tp) for rt, t, tp in zip(self.rts, temps, prior_temps)]
+        times = np.zeros(self.rt.n_ops)
+        for i_op in range(self.rt.n_ops):
+            def steps(j, gen, st, k):
+                for _ in range(k):
+                    st = applies[j](i_op, gen, st)[0]
+                return st
+            warm = self.map(lambda j, gen, st: steps(j, gen, st, 1), g, shards)
+            self.synchronize()
+            t0 = time.perf_counter()
+            self.map(lambda j, gen, st: steps(j, gen, st, n_steps), g, warm)
+            self.synchronize()
+            times[i_op] = (time.perf_counter() - t0) / n_steps
+        return times
+
+    @staticmethod
+    def non_finite(stats: list) -> int:
+        return sum(int(s.non_finite.sum()) for s in stats)
 
 
 class MCMCSetup:
@@ -513,68 +734,78 @@ class MCMCSetup:
             return
         loggers_by_run = [self.get_sample_loggers(r, resume) for r in run_ids]
         gen, op_gen = make_generators(seed + 101, rt.device)
+        gens = ShardGenerators(gen)
 
         W = cfg.warmup.warmup_chains
         t0 = time.time()
-        states_rw = rt.init_chains(gen, R * W)
+        sh = rt.shard(R * W, self.logger)
+        states_rw = sh.init_chains(gens, R * W)
         if cfg.warmup.warmup_steps > 0:
-            states_rw, _ = rt.run_chunk(gen, op_gen, states_rw, rt.new_stats(R * W),
+            states_rw, _ = sh.run_chunk(gens, op_gen, states_rw, sh.new_stats(R * W),
                                         cfg.warmup.warmup_steps)
-            states_rw = rt.refresh(states_rw)
+            states_rw = sh.refresh(states_rw)
+        states_rw = sh.gather(states_rw)
         ll_rw = _host(states_rw.log_lh).reshape(R, W)
         sel = torch.as_tensor(ll_rw.argmax(axis=1) + np.arange(R) * W, device=rt.device)
         states = states_rw.select(sel)
         self.logger.info(
             f"Warm-up for {R} runs ({R * W} chains) finished after {time.time() - t0:.1f}s; "
             f"best warm-up log-likelihoods: {ll_rw.max(axis=1).round(2).tolist()}")
-        self._sample_loop(states, loggers_by_run, run_ids, gen, op_gen)
+        self._sample_loop(states, loggers_by_run, run_ids, gens, op_gen)
 
     def _sample_loop(self, states: ChainState, loggers_by_run, run_ids, gen, op_gen,
                      i_step_start: int = 0):
         """The chunked sampling loop of a batch with one chain per run, from
-        step ``i_step_start`` (a resumed run) to ``mcmc.steps``."""
+        step ``i_step_start`` (a resumed run) to ``mcmc.steps``, split over
+        ``auto_chain_mesh``; ``gen``: a generator or the ``ShardGenerators``
+        of the warm-up race."""
         rt = self.runtime
         cfg = self.config.mcmc
+        gens = ShardGenerators.of(gen)
+        sh = rt.shard(states.n_chains, self.logger)
+        states = sh.split(states)
         steps_per_sample = int(math.ceil(cfg.steps / cfg.samples))
-        stats = rt.new_stats(states.n_chains)
+        stats = sh.new_stats(len(run_ids))
         with_lh = self._with_likelihood()
         with_contrib = self.config.results.log_contribution_per_cluster
-        self._maybe_measure_op_times(states)
+        self._maybe_measure_op_times(sh, states)
         self.t_start = time.time()
         self.logger.info(f"Sampling from posterior ({len(run_ids)} run(s) as one batch)...")
         log_every = max(1, int(round(cfg.screen_log_interval / steps_per_sample)))
         i_step = i_step_start
         for i_sample in range(i_step_start // steps_per_sample, cfg.samples):
-            states, stats = rt.run_chunk(gen, op_gen, states, stats, steps_per_sample)
+            states, stats = sh.run_chunk(gens, op_gen, states, stats, steps_per_sample)
             i_step += steps_per_sample
             if (i_sample + 1) % REFRESH_EVERY_CHUNKS == 0:
-                states = rt.refresh(states)
+                states = sh.refresh(states)
             if i_sample + 1 == max(1, cfg.samples // 2):
-                self._maybe_measure_op_times(states, force=True)
-            if int(stats.non_finite.sum()) > 0:
+                self._maybe_measure_op_times(sh, states, force=True)
+            if sh.non_finite(stats) > 0:
                 raise ValueError("Non-finite log-posterior was accepted during MCMC.")
             for i_r, run_loggers in enumerate(loggers_by_run):
-                record = rt.make_record(states.select(slice(i_r, i_r + 1)), i_step=i_step,
-                                        with_likelihood=with_lh,
-                                        with_cluster_contribution=with_contrib)
-                self._push_operator_stats(run_loggers, stats, i_r,
+                rt_r, state_r = sh.chain(states, i_r)
+                j, k = sh.locate(states, i_r)
+                record = rt_r.make_record(state_r, i_step=i_step, with_likelihood=with_lh,
+                                          with_cluster_contribution=with_contrib)
+                self._push_operator_stats(run_loggers, stats[j], k,
                                           elapsed=time.time() - self.t_start,
                                           steps_done=i_step - i_step_start)
                 for logger in run_loggers:
                     logger.write_sample(record)
             if (i_sample + 1) % log_every == 0:
-                self._print_screen_log(i_step, float(states.log_lh[0]), i_step_start)
+                self._print_screen_log(i_step, float(states[0].log_lh[0]), i_step_start)
         for run_loggers in loggers_by_run:
             for logger in run_loggers:
                 logger.close()
         self.logger.info(f"MCMC of {len(run_ids)} run(s) finished after "
                          f"{time.time() - self.t_start:.1f} seconds")
 
-    def _maybe_measure_op_times(self, states, temps=None, prior_temps=None, force: bool = False):
+    def _maybe_measure_op_times(self, sh: ShardedRuntime, states: list, temps=None,
+                                prior_temps=None, force: bool = False):
         """The per-operator timing probe (``results.log_operator_step_times``),
         at start-up and again at the run's midpoint (``force``), on the
-        equilibrated states; its own generator leaves the sampling streams
-        untouched."""
+        equilibrated states of every shard (``sh``, ``states``: shards);
+        its own generator leaves the sampling streams untouched."""
         if not self.config.results.log_operator_step_times:
             return
         if self._op_step_times is not None and not force:
@@ -582,7 +813,8 @@ class MCMCSetup:
         t0 = time.time()
         gen = torch.Generator(device=self.runtime.device)
         gen.manual_seed(0x0B5E)
-        self._op_step_times = self.runtime.measure_op_step_times(gen, states, temps, prior_temps)
+        self._op_step_times = sh.measure_op_step_times(ShardGenerators(gen), states, temps,
+                                                       prior_temps)
         self.logger.info(
             "Per-operator step times [ms]: "
             + ", ".join(f"{n}={1e3 * t:.2f}"
@@ -633,6 +865,7 @@ class MCMCSetup:
         temps = torch.as_tensor(temps_np, dtype=torch.float32, device=rt.device)
         prior_temps = torch.as_tensor(prior_temps_np, dtype=torch.float32, device=rt.device)
         gen, op_gen = make_generators(seed + 7000003 * run, rt.device)
+        gens = ShardGenerators(gen)
 
         t_pre_init = time.time()
         loggers_by_chain = [self.get_sample_loggers(run, resume, chain=c)
@@ -644,11 +877,14 @@ class MCMCSetup:
             # The rungs checkpoint together; min() is conservative if they disagree.
             i_step_start = min(i0 for _, i0 in resumed)
         else:
-            states = rt.warmup_ladder(gen, op_gen, n_chains, cfg.warmup.warmup_chains, temps,
+            states = rt.warmup_ladder(gens, op_gen, n_chains, cfg.warmup.warmup_chains, temps,
                                       prior_temps, cfg.warmup.warmup_steps, logger=self.logger)
-        stats = rt.new_stats(n_chains)
+        # The ladder's rungs split over the mesh; swaps move chains across shards.
+        sh = rt.shard(n_chains, self.logger)
+        states, temps, prior_temps = sh.split(states), sh.split(temps), sh.split(prior_temps)
+        stats = sh.new_stats(n_chains)
         with_lh = self._with_likelihood()
-        self._maybe_measure_op_times(states, temps, prior_temps)
+        self._maybe_measure_op_times(sh, states, temps, prior_temps)
         self.swap_attempts = 0
         self.swap_accepts = 0
         self.swap_matrix = np.zeros((n_chains, n_chains), dtype=int)
@@ -663,18 +899,18 @@ class MCMCSetup:
             n_steps_chunk = min(logging_interval, cfg.steps - i_outer * logging_interval)
             if n_steps_chunk <= 0:
                 break
-            states, stats, n_acc, n_att = rt.run_mc3_chunk(
-                gen, op_gen, states, stats, temps, prior_temps, swap_counts, i_step,
+            states, stats, n_acc, n_att = sh.run_mc3_chunk(
+                gens, op_gen, states, stats, temps, prior_temps, swap_counts, i_step,
                 n_steps_chunk, mc3.swap_interval, int(mc3.swap_attempts),
                 bool(mc3.only_swap_adjacent_chains))
             i_step += n_steps_chunk
             self.swap_accepts += n_acc
             self.swap_attempts += n_att
             if (i_outer + 1) % REFRESH_EVERY_CHUNKS == 0:
-                states = rt.refresh(states)
+                states = sh.refresh(states)
             if i_outer + 1 == max(1, cfg.samples // 2):
-                self._maybe_measure_op_times(states, temps, prior_temps, force=True)
-            if int(stats.non_finite.sum()) > 0:
+                self._maybe_measure_op_times(sh, states, temps, prior_temps, force=True)
+            if sh.non_finite(stats) > 0:
                 raise ValueError("Non-finite log-posterior was accepted during MCMC.")
 
             # The swap matrix is saved only when new attempts happened since
@@ -686,11 +922,12 @@ class MCMCSetup:
                 self.last_swap_matrix_save = self.swap_attempts
 
             for c in range(n_chains):
-                record = rt.make_record(
-                    states.select(slice(c, c + 1)), i_step=i_step, chain=c,
-                    with_likelihood=with_lh and c == 0,
+                rt_c, state_c = sh.chain(states, c)
+                j, k = sh.locate(states, c)
+                record = rt_c.make_record(
+                    state_c, i_step=i_step, chain=c, with_likelihood=with_lh and c == 0,
                     with_cluster_contribution=self.config.results.log_contribution_per_cluster)
-                self._push_operator_stats(loggers_by_chain[c], stats, c,
+                self._push_operator_stats(loggers_by_chain[c], stats[j], k,
                                           elapsed=time.time() - self.t_start,
                                           steps_done=i_step - i_step_start)
                 for logger in loggers_by_chain[c]:
@@ -703,7 +940,7 @@ class MCMCSetup:
                 f"{i}<->{i + 1}:{swap_counts[0, i, i + 1] / max(swap_counts[1, i, i + 1], 1):.2f}"
                 for i in range(n_chains - 1))
             self.logger.info(f"swap accept-rate per rung: {rung_rates}")
-            self._print_screen_log(i_step, float(states.log_lh[0]), i_step_start)
+            self._print_screen_log(i_step, float(states[0].log_lh[0]), i_step_start)
 
         for chain_loggers in loggers_by_chain:
             for logger in chain_loggers:

@@ -47,6 +47,10 @@ class ChainState(NamedTuple):
         """One batch of the chains of ``states`` (batches), in order."""
         return cls(*(None if xs[0] is None else torch.cat(xs) for xs in zip(*states)))
 
+    def to(self, device) -> "ChainState":
+        """The batch with every field on ``device``."""
+        return ChainState(*(None if x is None else x.to(device) for x in self))
+
     def where(self, mask, other: "ChainState") -> "ChainState":
         """Per chain: this state where ``mask`` (B,) is True, else ``other``."""
         def pick(a, b):

@@ -44,6 +44,15 @@ def test_the_workflow_modules_are_scanned():
         assert ROOT / "sbayes_tpu_torch" / rel in PORT_FILES, rel
 
 
+def test_the_parallel_layer_is_scanned():
+    """The chain split over devices (``parallel/``) and the CLI's run pool
+    are among the files both scans read."""
+    parallel = sorted((ROOT / "sbayes_tpu_torch" / "parallel").glob("*.py"))
+    assert [p.name for p in parallel] == ["__init__.py", "mesh.py"]
+    for p in parallel + [ROOT / "sbayes_tpu_torch" / "cli.py"]:
+        assert p in PORT_FILES, p
+
+
 def test_the_package_imports_without_jax():
     """Every module of the port imports with ``jax`` unimportable, and no
     module of the JAX package gets loaded."""

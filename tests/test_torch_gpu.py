@@ -157,3 +157,65 @@ def test_tiled_geo_costs_on_the_card():
                 peaks.append(torch.cuda.max_memory_allocated() - base)
             assert torch.equal(out[0], out[1]) and bool(torch.isfinite(out[0]).all())
             assert peaks[0] < peaks[1] and peaks[1] >= b * n * n * 4
+
+
+@pytest.mark.gpu
+def test_kernels_on_a_second_card_from_the_first():
+    """Both kernels on tensors of cuda:1 while the calling thread's current
+    device is cuda:0 (the device guard of each launch), every variant
+    against its plain version within chip_smoke's tolerances, the launches
+    counted at cuda:1; at 1100 families the launches also set the shared
+    memory attribute on cuda:1. Skips below two cards."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from sbayes_tpu_torch.model.model import Model
+    from sbayes_tpu_torch.ops import loglh
+    from sbayes_tpu_torch.testing import synthetic_config, synthetic_data
+
+    for data in (synthetic_data(), synthetic_data(n_objects=1200, n_features=3, n_states=6,
+                                                   n_families=1100, seed=3)):
+        c = Model(data, synthetic_config(n_clusters=2).model, device="cuda:0").consts
+        inputs = chip_smoke.random_kernel_inputs(c, 8, 3)
+        c1 = c.to("cuda:1")
+        inputs1 = {k: v.to("cuda:1") for k, v in inputs.items()}
+        chip_smoke.reset_counters()
+        with torch.cuda.device(0):
+            errs = chip_smoke.compare_with_plain(c1, inputs1)
+        assert errs["loglh_packed_equals_bool"]
+        assert {place[0] for place in loglh.launches.by_place} == {1}
+
+
+@pytest.mark.gpu
+def test_two_shards_on_one_card_equal_their_runs_alone():
+    """1024 chains of the K = 3, cost-based model split into two shards on
+    cuda:0 (each on its own stream, stepped from its own thread), 50 steps:
+    each shard equals, bit for bit, its 512 chains run alone with that
+    shard's generator and the same operator draws; the launches of each
+    shard are counted on its own stream."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from sbayes_tpu_torch.parallel.mesh import ShardGenerators
+    from sbayes_tpu_torch.sampling.runner import make_generators
+
+    rt = chip_smoke.full_width_runtime(3, "cost_based")
+    gen, op_gen = make_generators(5, "cuda")
+    states = rt.init_chains(gen, 1024)
+    sh = chip_smoke.split_runtime(rt, 1024, ("cuda:0", "cuda:0"))
+    gen, op_gen = make_generators(6, "cuda")
+    chip_smoke.reset_counters()
+    shards, stats = sh.run_chunk(ShardGenerators(gen), op_gen, sh.split(states),
+                                 sh.new_stats(1024), 50)
+    torch.cuda.synchronize()
+    assert all(chip_smoke.shard_launches(sh, j)["marginal"] > 0 for j in range(2))
+    gen, op_gen = make_generators(6, "cuda")
+    ops = rt.draw_ops(op_gen, 50)
+    alone = ShardGenerators(torch.Generator(device="cuda").manual_seed(6)).for_mesh(sh.mesh)
+    for j in range(2):
+        st, ss = rt.run_ops(alone[j], ops, states.select(slice(512 * j, 512 * (j + 1))),
+                            rt.new_stats(512))
+        for a, b in zip(list(st) + list(ss), list(shards[j]) + list(stats[j])):
+            assert (a is None and b is None) or torch.equal(a, b)
