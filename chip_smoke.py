@@ -34,8 +34,10 @@ turns in one call (a, b, b, a).
    500 steps, then ``cli.main(..., resume=True)`` for 1000, of one chain
    and of an MC3 ladder of four rungs: continuous sample ids in every
    rung's stats file and the resumed run's carried state equal to its
-   recompute. These two phases run the CLI on JSON configs; its data load
-   returns ``synthetic_data()``;
+   recompute; then one chain once more with its state pickle deleted, so
+   that it resumes from its clusters and stats files at the last sample +
+   1, with pandas unimportable. These two phases run the CLI on JSON configs;
+   its data load returns ``synthetic_data()``;
 3. full width: ``SamplerRuntime.init_chains(CHAINS)``, STEPS steps in chunks of 200,
    an exact refresh; the carried log-likelihood / log-prior / counts must
    equal the recompute; one JSON line with the steps per second; then the
@@ -123,7 +125,18 @@ turns in one call (a, b, b, a).
    and both kernels against their plain versions on shard 1's chains; (d)
    ``cli.main`` on the fixture config (JSON) with 2 runs as one ensemble,
    as ``-t 2`` (spawned processes) and as ``-i 0; -i 1``: wall times, every
-   run's files complete with finite likelihoods (MESH: the step counts);
+   run's files complete with finite likelihoods (MESH: the step counts).
+   Then ``data_mesh``, the object-axis split: ``scale``'s in-bounds states
+   on a 1 x 2 chains x objects grid (``data_mesh``; one object shard per
+   card, or both on cuda:0), DATA_MESH["steps"] drawn steps of ``run_chunk``
+   and the refresh, split and unsplit, then DATA_MESH["wide_steps"] steps
+   of the wide operator: steps/s of each, kernels per step split and
+   unsplit, bytes copied between the shards per step, the bytes each
+   shard holds and the peak a card of a two-card split would hold; the
+   carried state against the split recompute, the counts against the
+   unsplit recompute (bit-equal), the split log-likelihood against the
+   fused kernel (bit-equal), the counts entry and the marginal launched on
+   each block's stream;
 4. kernels: each kernel (and each variant of the marginal) against its plain
    PyTorch version at the shapes of phase 3, timed beside the plain version,
    the memory/compute bound and an empty kernel launched the same way
@@ -147,7 +160,10 @@ turns in one call (a, b, b, a).
    timed on the ladder's two hottest rungs under ``mc3``; the other rows
    count the mesh phase's launches as ``mesh`` and ``mesh_scale``); the ratio and heat variants once more on the
    residual-counts effect rows of ``alt_operators`` (``"inputs":
-   "residual"``, launches: that path's).
+   "residual"``, launches: that path's); the likelihood kernel's two
+   entries of the object split, ``loglh_counts`` and ``loglh_from_counts``,
+   at the scale shape (``data_mesh``'s launches), each against its plain
+   version.
    ``ms``, ``plain_ms`` and ``launch_floor_ms`` time eager calls with
    CUDA events; ``device_ms`` and ``device_floor_ms`` time the same launches
    replayed from a CUDA graph, where the host dispatches nothing;
@@ -159,7 +175,9 @@ line. It needs a CUDA card and the repository beside it.
 """
 from __future__ import annotations
 
+import gc
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -214,6 +232,11 @@ WORKFLOW = {"sites": 100, "cluster_size": 10, "centres": [(2.0, 2.0), (8.0, 2.5)
 MESH = {"window": 50, "pairs": 3, "mc3_steps": 105, "mc3_plain_steps": 105,
         "swap_interval": 5, "scale_steps": 20, "scale_wide_steps": 3, "pool_steps": 200,
         "pool_samples": 10}
+# The data_mesh phase: the object-axis split (a 1 x 2 chains x objects grid,
+# one object shard per card, or two on cuda:0 on a one-card machine) of
+# scale's 16 in-bounds states (no second init), 20 drawn steps and 3 steps of
+# the wide operator, split and unsplit; profiled windows of 5 steps; within 60 s
+DATA_MESH = {"shards": 2, "steps": 20, "wide_steps": 3, "profile_steps": 5}
 # tests/fixtures/config.yaml as JSON (the card's machine has no PyYAML); the
 # data paths are filled in with the fixture's CSV files
 FIXTURE_CONFIG = {
@@ -233,6 +256,32 @@ FIXTURE_CONFIG = {
 LOGLH_TOL_REL = 1e-5             # lgammaf vs torch.lgamma, summation order (of the total)
 MARGINAL_TOL_ABS = 1e-4          # 36 logs summed in another order (per object)
 MARGINAL_TOL_FEATURES = 36       # wider data: the tolerance grows with the logs summed
+
+
+def stop_resource_tracker():
+    """Stop multiprocessing's resource tracker and wait for it. The spawn
+    pool of ``-t 2`` starts it in this process, and it would outlive the
+    script: Python 3.12.3 gives it no finalizer (3.12.12 does), so it ends
+    only once this process is gone, as an orphan. The pool's semaphores are
+    collected first, so that none of them starts it again when finalized."""
+    from multiprocessing import resource_tracker
+
+    gc.collect()
+    resource_tracker._resource_tracker._stop()
+
+
+def child_processes() -> list:
+    """This process's child processes, zombies included, as (pid, command)."""
+    me, out = os.getpid(), []
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            stat = Path(f"/proc/{pid}/stat").read_text()
+            cmd = Path(f"/proc/{pid}/cmdline").read_bytes().replace(b"\0", b" ").decode()
+        except OSError:                               # ended while being read
+            continue
+        if int(stat.rsplit(")", 1)[1].split()[1]) == me:
+            out.append((int(pid), cmd.strip() or stat.split()[1]))
+    return out
 
 
 def card_line() -> str:
@@ -284,8 +333,9 @@ def smoke_config(path: Path, results: Path, n_clusters: int = 1, geo: dict = Non
 def reset_counters():
     from sbayes_tpu_torch.ops import loglh, marginal
 
-    loglh.launches.reset()
-    marginal.launches.reset()
+    for counter in (loglh.launches, loglh.counts_launches, loglh.from_counts_launches,
+                    marginal.launches):
+        counter.reset()
 
 
 def counters() -> dict:
@@ -294,6 +344,11 @@ def counters() -> dict:
     out = {"loglh": loglh.launches.count}
     if loglh.launches.variants.get("packed"):
         out["loglh_packed"] = loglh.launches.variants["packed"]
+    # the object split's two entries of the likelihood kernel (data_mesh)
+    for name, counter in (("loglh_counts", loglh.counts_launches),
+                          ("loglh_from_counts", loglh.from_counts_launches)):
+        if counter.count:
+            out[name] = counter.count
     for key, n in marginal.launches.variants.items():
         out[marginal.variant_name(*key)] = n
     return out
@@ -491,7 +546,48 @@ def phase_resume(tmp: Path) -> dict:
         out[label] = {"wall_s": time.perf_counter() - t0, "rows": len(files) * 20,
                       "carried_vs_recompute_max_abs": check_shards(seen["runtime"],
                                                                    *seen["out"][:2])}
+    # Without the pickle (deleted, as when a run wrote none) the run resumes
+    # from its clusters and stats files at the last sample + 1, as the JAX
+    # package does; pandas is made unimportable for it (as it is on a
+    # machine without pandas).
+    name = "resume_no_pickle"
+    mcmc = {"runs": 1, "warmup": {"warmup_steps": 100, "warmup_chains": 4}}
+    first = smoke_config(tmp, tmp / "results", 3, GEO_K3, name=f"{name}_first",
+                         mcmc={**mcmc, "steps": 500, "samples": 10})
+    second = smoke_config(tmp, tmp / "results", 3, GEO_K3, name=f"{name}_second",
+                          mcmc={**mcmc, "steps": 1000, "samples": 20})
+    res = tmp / "results" / name / "K3"
+    t0 = time.perf_counter()
+    with synthetic_data_for_cli():
+        cli.main(first, experiment_name=name, device=DEVICE)
+        (res / "state_K3_0.pickle").unlink()
+        with last_call(ShardedRuntime, "run_chunk") as seen, without_module("pandas"):
+            cli.main(second, experiment_name=name, resume=True, device=DEVICE)
+    torch.cuda.synchronize()
+    ids = [int(v) for v in stats_column(res / "stats_K3_0.txt", "Sample")]
+    if ids != list(range(50, 501, 50)) + list(range(551, 1002, 50)):
+        raise AssertionError(f"{name}: samples {ids}")
+    if not (res / "state_K3_0.pickle").exists():
+        raise AssertionError(f"{name}: the resumed run wrote no pickle")
+    out["no_pickle"] = {"wall_s": time.perf_counter() - t0, "rows": len(ids),
+                        "pandas_blocked": True,
+                        "carried_vs_recompute_max_abs": check_shards(seen["runtime"],
+                                                                     *seen["out"][:2])}
     return out
+
+
+@contextmanager
+def without_module(name: str):
+    """``import name`` raises ImportError inside the block."""
+    saved = sys.modules.get(name)
+    sys.modules[name] = None
+    try:
+        yield
+    finally:
+        if saved is None:
+            del sys.modules[name]
+        else:
+            sys.modules[name] = saved
 
 
 def phase_init_methods(tmp: Path) -> dict:
@@ -2318,6 +2414,7 @@ def mesh_pool(tmp: Path) -> dict:
         t0 = time.perf_counter()
         cli.main(path, experiment_name=f"pool_{name}", device=DEVICE, **kw)
         wall[name] = time.perf_counter() - t0
+    stop_resource_tracker()
     t0 = time.perf_counter()
     for r in (0, 1):
         cli.main(path, experiment_name="pool_i0_i1", device=DEVICE, i_run=r)
@@ -2353,6 +2450,263 @@ def phase_mesh(rt_k3, states_k3, rt_mc3, states_mc3, temps, rt_scale, states_sca
     launches = add_launches(info["ensemble"]["launches"], info["mc3"]["launches"],
                             info["pool"]["launches_in_process"])
     return info, launches, info["scale"]["launches"]
+
+
+def tensor_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if isinstance(t, torch.Tensor))
+
+
+def object_split_bytes(sp, state) -> dict:
+    """Bytes each shard of the object split ``sp`` holds for ``state`` (a
+    split chain batch): per block its constants' object-axis arrays and its
+    block of the source; the head (with block 0) the head's constants and
+    every other field of the chain state."""
+    import dataclasses
+
+    from sbayes_tpu_torch.parallel.mesh import OBJECT_ARRAYS
+
+    blocks = [{"constants": tensor_bytes(*(getattr(blk, k) for k in OBJECT_ARRAYS)),
+               "source": tensor_bytes(src)}
+              for blk, src in zip(sp.blocks, state.source.blocks)]
+    head = {"constants": tensor_bytes(*(getattr(sp.head, f.name)
+                                        for f in dataclasses.fields(sp.head))),
+            "state": tensor_bytes(*(x for x in state._replace(source=None)))}
+    return {"blocks": blocks, "head": head}
+
+
+def block_launches(sp, j: int) -> dict:
+    """The kernel launches counted on object block ``j``'s device and stream."""
+    from sbayes_tpu_torch.ops import loglh, marginal
+
+    place = (sp.devices[j].index, sp.streams[j].cuda_stream)
+    out = {"loglh_counts": sum(loglh.counts_launches.by_place.get(place, {}).values())}
+    for key, n in marginal.launches.by_place.get(place, {}).items():
+        out[marginal.variant_name(*key)] = n
+    return out
+
+
+def profiled_kernels(run, n_steps: int) -> float:
+    """CUDA kernels (memory copies included) per step of ``run()`` (``n_steps``
+    steps), from torch.profiler."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        run()
+        sync_all()
+    return sum(e.count for e in prof.key_averages() if e.device_type.name == "CUDA") / n_steps
+
+
+def loglh_split_rows(rt, sp, states, launches: dict, bit_equal: bool) -> list:
+    """The ``kernels`` rows of the likelihood kernel's two split entries at
+    the scale shape: ``loglh_counts`` on block 0's objects, ``loglh_from_counts``
+    on the summed counts; each against its plain version on
+    SCALE_KERNEL_CHAINS chains and timed there and on all chains."""
+    from sbayes_tpu_torch.ops import loglh
+    from sbayes_tpu_torch.parallel.mesh import shard_state
+
+    few = shard_state(states.select(torch.arange(SCALE_KERNEL_CHAINS, device=DEVICE)), sp)
+    whole = shard_state(states, sp)
+    blk, lo_hi = sp.blocks[0], sp.bounds[0]
+
+    def counts_of(st):
+        return lambda: loglh.loglh_counts(blk, st.clusters[:, :, lo_hi[0]:lo_hi[1]],
+                                          st.source.blocks[0])
+
+    def from_counts_of(counts):
+        return lambda: loglh.loglh_from_counts(rt.consts, *counts)
+
+    got = counts_of(few)()
+    want = loglh.loglh_counts_plain(blk, few.clusters[:, :, lo_hi[0]:lo_hi[1]],
+                                    few.source.blocks[0])
+    counts_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    if counts_err != 0.0:
+        raise AssertionError(f"loglh_counts differs from its plain version by {counts_err}")
+    summed = sp.reduce(lambda j: loglh.loglh_counts(
+        sp.blocks[j], sp.cols(j, few.clusters), few.source.blocks[j]))
+    lh = from_counts_of(summed)()
+    plain = loglh.loglh_from_counts_plain(rt.consts, *summed)
+    fc_abs = float((lh - plain).abs().max())
+    fc_rel = fc_abs / float(plain.abs().max())
+    if not fc_rel <= LOGLH_TOL_REL:
+        raise AssertionError(f"loglh_from_counts differs from its plain version by {fc_rel} "
+                             f"relative")
+    packed = whole.source.dtype == torch.int8
+    rows = []
+    for name, run_few, run_all, plain_fn, n_bytes, n_ops, err in (
+            ("loglh_counts", counts_of(few), counts_of(whole),
+             lambda: loglh.loglh_counts_plain(blk, few.clusters[:, :, lo_hi[0]:lo_hi[1]],
+                                              few.source.blocks[0]),
+             loglh.counts_bytes_moved(blk, SCALE_KERNEL_CHAINS, packed),
+             loglh.counts_operations(blk, SCALE_KERNEL_CHAINS, packed), counts_err),
+            ("loglh_from_counts", from_counts_of(summed), None,
+             lambda: loglh.loglh_from_counts_plain(rt.consts, *summed),
+             loglh.from_counts_bytes_moved(rt.consts, SCALE_KERNEL_CHAINS),
+             loglh.from_counts_operations(*summed), fc_abs)):
+        b_ms, b_by = bound_ms(n_bytes, n_ops)
+        row = {"name": name, "route": "cuda", "source": "sbayes_tpu_torch/csrc/loglh.cu",
+               "replaces": "sbayes_tpu/ops/pallas_kernels.py:82", "inputs": "scale",
+               "chains": SCALE_KERNEL_CHAINS, "launches": launches.get(name, 0),
+               "launches_by_path": {"data_mesh": launches.get(name, 0)},
+               "max_abs_err": err, "ms": cuda_time_ms(run_few, 5),
+               "device_ms": device_time_ms(run_few, 2, 3),
+               "plain_ms": cuda_time_ms(plain_fn, 3), "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": None, "bytes": n_bytes, "operations": n_ops}
+        if name == "loglh_counts":
+            row["block_objects"] = lo_hi[1] - lo_hi[0]
+            row["all_chains"] = {"chains": states.n_chains, "ms": cuda_time_ms(run_all, 3),
+                                 "device_ms": device_time_ms(run_all, 2, 3)}
+        else:
+            row["max_rel_err"] = fc_rel
+            row["equals_fused_kernel_bits"] = bit_equal
+        rows.append(row)
+    return rows
+
+
+def phase_data_mesh(rt, states) -> tuple:
+    """The object-axis split at the scale shape: ``scale``'s in-bounds states
+    on a 1 x 2 chains x objects grid (``data_mesh``; ``mesh_devices``' first
+    two: one card each, or both on cuda:0), DATA_MESH["steps"] drawn steps of
+    ``run_chunk`` and the exact ``refresh``, then the unsplit run from the same
+    start and generators; then DATA_MESH["wide_steps"] steps of the wide
+    operator split and unsplit. Checks: the carried state against the split
+    recompute, the counts of the gathered states against the unsplit
+    recompute (bit-equal), the split log-likelihood (``loglh_from_counts``
+    of the summed block counts) against the fused kernel on the whole state
+    (bit-equal) and against the unsplit recompute (tolerance), the counts
+    entry and the marginal launched on each block's stream. Numbers:
+    steps/s split and unsplit, kernels per step of each (profiled windows),
+    bytes copied between the shards per step, the bytes each shard holds
+    and the peak a card of a two-card split would hold. Returns (phase
+    info, the launches of the split steps and refresh, the kernel rows)."""
+    from sbayes_tpu_torch.ops import loglh
+    from sbayes_tpu_torch.parallel.mesh import ShardGenerators, data_mesh
+    from sbayes_tpu_torch.sampling.runner import grid_runtime, make_generators
+
+    t_phase = time.perf_counter()
+    devices = list(mesh_devices()[:DATA_MESH["shards"]])
+    grid = data_mesh(1, DATA_MESH["shards"], devices)
+    n, steps = states.n_chains, DATA_MESH["steps"]
+    t0 = time.perf_counter()
+    sh = grid_runtime(rt, grid)
+    sp = sh.splits[0]
+    split = sh.split(states)
+    sync_all()
+    t_setup = time.perf_counter() - t0
+    held = object_split_bytes(sp, split[0])
+
+    cards = sorted(set(devices))
+    base = {d: torch.cuda.memory_allocated(d) for d in cards}
+    for d in cards:
+        torch.cuda.reset_peak_memory_stats(d)
+    gen, op_gen = make_generators(61, DEVICE)
+    reset_counters()
+    sp.traffic.reset()
+    sync_all()
+    t0 = time.perf_counter()
+    shards, stats = sh.run_chunk(ShardGenerators(gen), op_gen, split, sh.new_stats(n), steps)
+    sync_all()
+    t_split = time.perf_counter() - t0
+    traffic_steps = dict(sp.traffic.bytes)
+    sp.traffic.reset()
+    refs = sh.refresh(shards)
+    sync_all()
+    traffic_refresh = dict(sp.traffic.bytes)
+    transient = {d: (torch.cuda.max_memory_allocated(d) - base[d]) / 1e9 for d in cards}
+    launches = counters()
+    per_block = [block_launches(sp, j) for j in range(sp.n_blocks)]
+    for j, counts in enumerate(per_block):
+        if not counts.get("loglh_counts") or not counts.get("marginal"):
+            raise AssertionError(f"data_mesh: block {j} launched {counts}")
+    if not launches.get("loglh_from_counts"):
+        raise AssertionError(f"data_mesh: loglh_from_counts never launched: {launches}")
+    errs = check_carried_state(sp.head, shards[0], refs[0], stats[0])
+
+    whole = sh.gather(shards)
+    ref_unsplit = rt.refresh(whole)
+    for key in ("cl_counts", "conf_counts", "pat_counts"):
+        if not torch.equal(getattr(refs[0], key), getattr(ref_unsplit, key)):
+            raise AssertionError(f"data_mesh: split {key} differ from the unsplit recompute")
+    fused = loglh.log_likelihood(rt.consts, whole.clusters, whole.source)
+    bit_equal = bool(torch.equal(refs[0].log_lh, fused))
+    if not bit_equal:
+        raise AssertionError("data_mesh: loglh_from_counts of the summed block counts differs "
+                             "from the fused kernel")
+    lh_rel = float((refs[0].log_lh - ref_unsplit.log_lh).abs().max()
+                   / ref_unsplit.log_lh.abs().max())
+    if not lh_rel <= LOGLH_TOL_REL:
+        raise AssertionError(f"data_mesh: split log-likelihood vs unsplit recompute {lh_rel}")
+    del whole, ref_unsplit, refs, fused
+
+    gen, op_gen = make_generators(61, DEVICE)
+    sync_all()
+    t0 = time.perf_counter()
+    plain, _ = rt.run_chunk(gen, op_gen, states, rt.new_stats(n), steps)
+    sync_all()
+    t_plain = time.perf_counter() - t0
+    del plain
+
+    wide = [i for i, name in enumerate(rt.op_names) if "wide" in name]
+    ops = [i for i in wide for _ in range(DATA_MESH["wide_steps"])]
+    gen, _ = make_generators(67, DEVICE)
+    sp.traffic.reset()
+    sync_all()
+    t0 = time.perf_counter()
+    sh.run_ops(ShardGenerators(gen), ops, sh.split(states), sh.new_stats(n))
+    sync_all()
+    t_wide_split = time.perf_counter() - t0
+    traffic_wide = dict(sp.traffic.bytes)
+    gen, _ = make_generators(67, DEVICE)
+    sync_all()
+    t0 = time.perf_counter()
+    rt.run_ops(gen, ops, states, rt.new_stats(n))
+    sync_all()
+    t_wide_plain = time.perf_counter() - t0
+
+    k = DATA_MESH["profile_steps"]
+    prof_ops = rt.draw_ops(make_generators(71, DEVICE)[1], k)
+    kernels_split = profiled_kernels(lambda: sh.run_ops(
+        ShardGenerators(make_generators(73, DEVICE)[0]), prof_ops, sh.split(states),
+        sh.new_stats(n)), k)
+    kernels_plain = profiled_kernels(lambda: rt.run_ops(
+        make_generators(73, DEVICE)[0], prof_ops, states, rt.new_stats(n)), k)
+
+    rows = loglh_split_rows(rt, sp, states, launches, bit_equal)
+    gb = 1e9
+    resident = [(b["constants"] + b["source"]) / gb for b in held["blocks"]]
+    resident[0] += (held["head"]["constants"] + held["head"]["state"]) / gb
+    one_card = len(cards) == 1
+    info = {"grid": [[str(d) for d in row] for row in grid],
+            "split": "two object shards on cuda:0 (one card)" if one_card
+            else "one object shard per card",
+            "chains": n, "N": rt.consts.N, "F": rt.consts.F, "bounds": list(sp.bounds),
+            "setup_s": t_setup, "steps": steps,
+            "steps_per_s": steps / t_split, "unsplit_steps_per_s": steps / t_plain,
+            "split_over_unsplit": t_plain / t_split,
+            "wide": {"operators": [rt.op_names[i] for i in wide], "steps": len(ops),
+                     "steps_per_s": len(ops) / t_wide_split,
+                     "unsplit_steps_per_s": len(ops) / t_wide_plain,
+                     "split_over_unsplit": t_wide_plain / t_wide_split,
+                     "bytes_copied_per_step": {kk: v / len(ops)
+                                               for kk, v in traffic_wide.items()}},
+            "kernels_per_step": {"split": kernels_split, "unsplit": kernels_plain,
+                                 "added": kernels_split - kernels_plain,
+                                 "profiled_steps": k},
+            "bytes_copied_per_step": {kk: v / steps for kk, v in traffic_steps.items()},
+            "bytes_copied_refresh": traffic_refresh,
+            "bytes_held": held, "resident_gb": resident,
+            "step_transient_gb": transient,
+            # One card holds both shards here: a card of a two-card split
+            # would hold its shard's tensors plus at most the whole step's
+            # transient (both shards' work landed on this card).
+            "card_estimate_gb": ([r + transient[cards[0]] for r in resident] if one_card
+                                 else {str(d): torch.cuda.max_memory_allocated(d) / gb
+                                       for d in cards}),
+            "launches": launches, "launches_per_block": per_block,
+            "launches_per_step": {kk: v / steps for kk, v in launches.items()},
+            "carried_vs_recompute_max_abs": errs, "loglh_vs_unsplit_rel": lh_rel,
+            "loglh_from_counts_equals_fused": bit_equal}
+    del sh, sp, split, shards
+    info["phase_s"] = time.perf_counter() - t_phase
+    return info, launches, rows
 
 
 def add_launches(*launch_counts) -> dict:
@@ -2526,12 +2880,16 @@ def main() -> int:
         mesh, mesh_launches, mesh_scale_launches = phase_mesh(
             rt_k3, states_k3, rt_mc3, states_mc3, temps, rt_scale, states_scale, Path(tmp))
     print(phase_line({"phase": "mesh", "card": card, **mesh}), flush=True)
+    torch.cuda.empty_cache()
+    data_mesh, data_mesh_launches, data_mesh_rows = phase_data_mesh(rt_scale, states_scale)
+    print(phase_line({"phase": "data_mesh", "card": card, **data_mesh}), flush=True)
     del rt_scale, states_scale
     torch.cuda.empty_cache()
     later_scale = {**geo_launches, "scale_mc3": mc3_launches}
     # The scale rows' "mesh" path is the split at scale; the other rows have
     # it as "mesh_scale" beside their own "mesh".
-    add_scale_paths(scale_rows, {**later_scale, "mesh": mesh_scale_launches}, heat_mc3)
+    add_scale_paths(scale_rows, {**later_scale, "mesh": mesh_scale_launches,
+                                 "data_mesh": data_mesh_launches}, heat_mc3)
 
     by_path = {"main_path": main_path["launches"], "main_path_k3": main_path_k3["launches"],
                "main_path_mc3": main_path_mc3["launches"], "jump_512": jump_512["launches"],
@@ -2543,11 +2901,15 @@ def main() -> int:
                "alt_operators": add_launches(*(a["launches"] for a in alt.values())),
                "prior_samples": prior["launches"], "scale": scale["launches"],
                "scale_in_bounds": scale["in_bounds"]["launches"], **later_scale,
-               "mesh": mesh_launches, "mesh_scale": mesh_scale_launches}
+               "mesh": mesh_launches, "mesh_scale": mesh_scale_launches,
+               "data_mesh": data_mesh_launches}
     residual_launches = add_launches(*(alt[k]["launches"] for k in (
         "wide_residual", "wide_residual_counts", "wide_residual_counts_mc3")))
     kernels = phase_kernels(rt, states, rt_k3, states_k3, rt_mc3, states_mc3, temps, by_path,
-                            jump_512["two_eff"], residual_launches) + scale_rows
+                            jump_512["two_eff"], residual_launches) + scale_rows + data_mesh_rows
+    left = child_processes()
+    if left:
+        raise RuntimeError(f"processes started by the script still run: {left}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -71,6 +71,22 @@
 //    At the scale shape (10,000 x 5,000 x 5, C = 3) the packed source is
 //    50 MB a chain against 150 MB; the counts of 25 rows leave about 80
 //    features per tile, so the source is read where it lies.
+//
+// Two more entry points serve the object-axis split (parallel/mesh.py),
+// where one shard holds a block of the objects. The i-th observation of a
+// cell adds a term that depends on the i - 1 before it, wherever they lie,
+// so the likelihood itself does not split over objects; its counts do.
+//  * sbt_loglh_counts: the same kernel (template COUNTS) on one block of
+//    objects, with the block's feature index and groups, counts the
+//    observations and writes each tile's integer counts out as float32
+//    (B, K, F, S) and (B, C-1, G, F, S); no logs.
+//  * sbt_loglh_from_counts: the terms of the counts summed over the blocks.
+//    A cell of count c adds log(a + i) for i < c and its row of total n
+//    subtracts log(sum a + i) for i < n: the very terms of the fused kernel,
+//    computed the same way and summed in the same fixed point, so the
+//    result equals the fused kernel's bit for bit, however the objects were
+//    split. One warp takes a (chain, row) and 32 features; its lanes split
+//    the i of each cell, so a count of thousands costs a warp c / 32 turns.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -135,6 +151,17 @@ __device__ __forceinline__ long long observe(int* row, const float* __restrict__
   return __float2ll_rn(log_cell * kFixedPoint) - __float2ll_rn(log_row * kFixedPoint);
 }
 
+// One observation joins state s of a row: its term (observe), or with
+// COUNTS its count alone.
+template <bool COUNTS>
+__device__ __forceinline__ long long take(int* row, const float* __restrict__ conc, int s, int S) {
+  if (COUNTS) {
+    atomicAdd(row + s, 1);
+    return 0;
+  }
+  return observe(row, conc, s, S);
+}
+
 // The row of the cluster that holds object n (-1: none); sets *many when
 // several do.
 __device__ __forceinline__ int cluster_of(const uint8_t* __restrict__ cl_b, int K, int N, int n,
@@ -156,7 +183,9 @@ __device__ __forceinline__ int cluster_of(const uint8_t* __restrict__ cl_b, int 
 // STAGED: the source slab is copied to shared memory first (then
 // f_tile = F), else it is read from device memory. PACKED: the source is the
 // int8 component index (B, N, F), sentinel C, else the bool one-hot.
-template <int CT, bool STAGED, bool PACKED>
+// COUNTS: write each tile's counts to cl_out / conf_out instead of the
+// likelihood (out and partial unused).
+template <int CT, bool STAGED, bool PACKED, bool COUNTS>
 __global__ void __launch_bounds__(kThreads)
 loglh_kernel(const uint8_t* __restrict__ clusters,    // (B, K, N)
              const uint8_t* __restrict__ source,      // (B, N, F, C) or packed (B, N, F)
@@ -165,6 +194,8 @@ loglh_kernel(const uint8_t* __restrict__ clusters,    // (B, K, N)
              const float* __restrict__ conc_table,    // (R, F, S + 1): a per state, then sum_s a
              float* __restrict__ out,                 // (B,)
              long long* __restrict__ partial,         // (B, gridDim.y) when gridDim.y > 1
+             float* __restrict__ cl_out,              // (B, K, F, S) with COUNTS
+             float* __restrict__ conf_out,            // (B, C-1, G, F, S) with COUNTS
              int K, int N, int F, int S, int C_any, int G, int f_tile, int lpo_log2) {
   // R = 1 + (C-1) G model rows: the cluster prior (shared by the K clusters),
   // then the groups of each confounder. Offsets within a chain and within
@@ -267,7 +298,7 @@ loglh_kernel(const uint8_t* __restrict__ clusters,    // (B, K, N)
         const int f = f0 + fl;
         if (!many) {
           if (t < 0) continue;  // its component has no row for this object
-          acc += observe(counts + (t * ft + fl) * S1, conc_table + conc + f * S1, s, S);
+          acc += take<COUNTS>(counts + (t * ft + fl) * S1, conc_table + conc + f * S1, s, S);
           continue;
         }
         for (int r = 0; r < rows; ++r) {
@@ -276,11 +307,27 @@ loglh_kernel(const uint8_t* __restrict__ clusters,    // (B, K, N)
                                  : group_idx[(c - 1) * N + n] == (r - K) % G;
           if (!hit || !(PACKED ? first == c : src[c] != 0)) continue;
           const int model_row = r < K ? 0 : r - K + 1;
-          acc += observe(counts + (r * ft + fl) * S1, conc_table + (model_row * F + f) * S1, s, S);
+          acc += take<COUNTS>(counts + (r * ft + fl) * S1,
+                              conc_table + (model_row * F + f) * S1, s, S);
         }
       }
     }
+    if (COUNTS) {  // the tile's counts, as float32, to the chain's count tensors
+      __syncthreads();
+      const int cells = rows * ft * S;
+      for (int i = threadIdx.x; i < cells; i += blockDim.x) {
+        const int r = i / (ft * S);
+        const int fl = (i - r * ft * S) / S;
+        const int s = i - (r * ft + fl) * S;
+        const float v = (float)counts[(r * ft + fl) * S1 + s];
+        if (r < K)
+          cl_out[(((size_t)b * K + r) * F + f0 + fl) * S + s] = v;
+        else
+          conf_out[(((size_t)b * (rows - K) + r - K) * F + f0 + fl) * S + s] = v;
+      }
+    }
   }
+  if (COUNTS) return;
 
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
   if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = acc;
@@ -305,11 +352,67 @@ __global__ void loglh_finish(const long long* __restrict__ partial, float* __res
   out[b] = (float)((double)v / (double)kFixedPoint);
 }
 
-template <int CT, bool STAGED, bool PACKED>
+constexpr int kFeaturesPerWarp = 32;
+
+// The likelihood from counts summed over object blocks: warp w takes chain
+// b, row r (the K clusters, then the (C-1) G groups) and 32 features; per
+// cell its lanes take i = lane, lane + 32, ... of the cell's terms, then of
+// the row's. One 64-bit atomic per warp adds its fixed-point sum to the
+// chain's (integer sums: any order gives the same bits).
+__global__ void __launch_bounds__(kThreads)
+loglh_from_counts_kernel(const float* __restrict__ cl,          // (B, K, F, S)
+                         const float* __restrict__ conf,        // (B, C-1, G, F, S)
+                         const float* __restrict__ conc_table,  // (R, F, S + 1)
+                         unsigned long long* __restrict__ sums,  // (B,), zeroed
+                         int B, int K, int F, int S, int rows) {
+  const int lane = threadIdx.x & 31;
+  const int chunks = (F + kFeaturesPerWarp - 1) / kFeaturesPerWarp;
+  const long long n_warps = (long long)B * rows * chunks;
+  const long long stride = (long long)gridDim.x * (blockDim.x >> 5);
+  for (long long w = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5); w < n_warps;
+       w += stride) {
+    const int chunk = (int)(w % chunks);
+    const int r = (int)((w / chunks) % rows);
+    const int b = (int)(w / ((long long)chunks * rows));
+    const float* c_row = r < K ? cl + ((size_t)b * K + r) * F * S
+                               : conf + ((size_t)b * (rows - K) + r - K) * F * S;
+    const float* conc_row = conc_table + (size_t)(r < K ? 0 : 1 + r - K) * F * (S + 1);
+    long long acc = 0;
+    const int f_end = min(F, (chunk + 1) * kFeaturesPerWarp);
+    for (int f = chunk * kFeaturesPerWarp; f < f_end; ++f) {
+      const float* c = c_row + (size_t)f * S;
+      const float* conc = conc_row + (size_t)f * (S + 1);
+      int n = 0;
+      for (int s = 0; s < S; ++s) {
+        const int cs = (int)c[s];
+        n += cs;
+        const float a = __ldg(conc + s);
+        if (a > 0.f)
+          for (int i = lane; i < cs; i += 32)
+            acc += __float2ll_rn(term_log(a + (float)i) * kFixedPoint);
+      }
+      const float sum_a = __ldg(conc + S);
+      if (sum_a > 0.f)
+        for (int i = lane; i < n; i += 32)
+          acc -= __float2ll_rn(term_log(sum_a + (float)i) * kFixedPoint);
+    }
+    for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
+    if (lane == 0 && acc != 0) atomicAdd(sums + b, (unsigned long long)acc);
+  }
+}
+
+__global__ void loglh_sums_to_float(const unsigned long long* __restrict__ sums,
+                                    float* __restrict__ out, int B) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b < B) out[b] = (float)((double)(long long)sums[b] / (double)kFixedPoint);
+}
+
+template <int CT, bool STAGED, bool PACKED, bool COUNTS>
 int launch(const void* clusters, const void* source, const void* feat_idx_t,
-           const void* group_idx, const void* conc_table, void* out, void* partial, int B, int K,
-           int N, int F, int S, int C, int G, const Tiling& t, cudaStream_t stream) {
-  auto kernel = loglh_kernel<CT, STAGED, PACKED>;
+           const void* group_idx, const void* conc_table, void* out, void* partial, void* cl_out,
+           void* conf_out, int B, int K, int N, int F, int S, int C, int G, const Tiling& t,
+           cudaStream_t stream) {
+  auto kernel = loglh_kernel<CT, STAGED, PACKED, COUNTS>;
   if (t.smem > kSmemBudget) {  // one feature's counts alone pass the budget
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          t.smem);
@@ -326,23 +429,55 @@ int launch(const void* clusters, const void* source, const void* feat_idx_t,
       static_cast<const uint8_t*>(clusters), static_cast<const uint8_t*>(source),
       static_cast<const int8_t*>(feat_idx_t), static_cast<const int32_t*>(group_idx),
       static_cast<const float*>(conc_table), static_cast<float*>(out),
-      static_cast<long long*>(partial), K, N, F, S, C, G, t.f_tile, lpo_log2);
-  if (tiles > 1)
+      static_cast<long long*>(partial), static_cast<float*>(cl_out),
+      static_cast<float*>(conf_out), K, N, F, S, C, G, t.f_tile, lpo_log2);
+  if (!COUNTS && tiles > 1)
     loglh_finish<<<(B + 255) / 256, 256, 0, stream>>>(static_cast<const long long*>(partial),
                                                        static_cast<float*>(out), B, tiles);
   return (int)cudaGetLastError();
 }
 
-template <int CT, bool PACKED>
+template <int CT, bool PACKED, bool COUNTS>
 int launch_staging(const void* clusters, const void* source, const void* feat_idx_t,
                    const void* group_idx, const void* conc_table, void* out, void* partial,
-                   int B, int K, int N, int F, int S, int C, int G, const Tiling& t,
-                   cudaStream_t st) {
-  return t.staged ? launch<CT, true, PACKED>(clusters, source, feat_idx_t, group_idx, conc_table,
-                                             out, partial, B, K, N, F, S, C, G, t, st)
-                  : launch<CT, false, PACKED>(clusters, source, feat_idx_t, group_idx,
-                                              conc_table, out, partial, B, K, N, F, S, C, G, t,
-                                              st);
+                   void* cl_out, void* conf_out, int B, int K, int N, int F, int S, int C, int G,
+                   const Tiling& t, cudaStream_t st) {
+  return t.staged
+             ? launch<CT, true, PACKED, COUNTS>(clusters, source, feat_idx_t, group_idx,
+                                                conc_table, out, partial, cl_out, conf_out, B, K,
+                                                N, F, S, C, G, t, st)
+             : launch<CT, false, PACKED, COUNTS>(clusters, source, feat_idx_t, group_idx,
+                                                 conc_table, out, partial, cl_out, conf_out, B,
+                                                 K, N, F, S, C, G, t, st);
+}
+
+// Both the fused likelihood and the counts of one object block.
+template <bool COUNTS>
+int launch_any(const void* clusters, const void* source, const void* feat_idx_t,
+               const void* group_idx, const void* conc_table, void* out, void* partial,
+               void* cl_out, void* conf_out, int B, int K, int N, int F, int S, int C, int G,
+               int packed, cudaStream_t st) {
+  const long long limit = 1LL << 31;
+  if ((long long)N * F * C >= limit || (1LL + (long long)(C - 1) * G) * F * (S + 1) >= limit)
+    return (int)cudaErrorInvalidValue;
+  const Tiling t = tiling(K, N, F, S, C, G, packed != 0);
+  if (t.smem < 0 || (!COUNTS && t.f_tile < F && partial == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+#define SBT_LAUNCH(CT)                                                                       \
+  return packed ? launch_staging<CT, true, COUNTS>(clusters, source, feat_idx_t, group_idx,    \
+                                                   conc_table, out, partial, cl_out, conf_out, \
+                                                   B, K, N, F, S, C, G, t, st)                 \
+                : launch_staging<CT, false, COUNTS>(clusters, source, feat_idx_t, group_idx,   \
+                                                    conc_table, out, partial, cl_out,          \
+                                                    conf_out, B, K, N, F, S, C, G, t, st)
+  switch (C) {
+    case 2: SBT_LAUNCH(2);
+    case 3: SBT_LAUNCH(3);
+    case 4: SBT_LAUNCH(4);
+    default: SBT_LAUNCH(0);
+  }
+#undef SBT_LAUNCH
 }
 
 }  // namespace
@@ -360,23 +495,42 @@ extern "C" int sbt_loglh(const void* clusters, const void* source, const void* f
                          const void* group_idx, const void* conc_table, void* out, void* partial,
                          int B, int K, int N, int F, int S, int C, int G, int packed,
                          void* stream) {
-  const long long limit = 1LL << 31;
-  if ((long long)N * F * C >= limit || (1LL + (long long)(C - 1) * G) * F * (S + 1) >= limit)
-    return (int)cudaErrorInvalidValue;
-  const Tiling t = tiling(K, N, F, S, C, G, packed != 0);
-  if (t.smem < 0 || (t.f_tile < F && partial == nullptr)) return (int)cudaErrorInvalidValue;
+  return launch_any<false>(clusters, source, feat_idx_t, group_idx, conc_table, out, partial,
+                           nullptr, nullptr, B, K, N, F, S, C, G, packed,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// The integer counts of one block of N objects (its clusters (B, K, N), its
+// source, its feat_idx_t (F, N) and group_idx (C-1, N)) as float32:
+// cl_out (B, K, F, S) and conf_out (B, C-1, G, F, S), every cell written.
+extern "C" int sbt_loglh_counts(const void* clusters, const void* source, const void* feat_idx_t,
+                                const void* group_idx, void* cl_out, void* conf_out, int B, int K,
+                                int N, int F, int S, int C, int G, int packed, void* stream) {
+  return launch_any<true>(clusters, source, feat_idx_t, group_idx, nullptr, nullptr, nullptr,
+                          cl_out, conf_out, B, K, N, F, S, C, G, packed,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// The likelihood (B,) from counts cl (B, K, F, S) and conf (B, C-1, G, F, S)
+// (float32 holding integers), with the concentrations of conc_table; sums:
+// B int64 of scratch.
+extern "C" int sbt_loglh_from_counts(const void* cl, const void* conf, const void* conc_table,
+                                     void* out, void* sums, int B, int K, int F, int S, int C,
+                                     int G, void* stream) {
   if (B == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define SBT_LAUNCH(CT)                                                                        \
-  return packed ? launch_staging<CT, true>(clusters, source, feat_idx_t, group_idx, conc_table, \
-                                           out, partial, B, K, N, F, S, C, G, t, st)            \
-                : launch_staging<CT, false>(clusters, source, feat_idx_t, group_idx, conc_table, \
-                                            out, partial, B, K, N, F, S, C, G, t, st)
-  switch (C) {
-    case 2: SBT_LAUNCH(2);
-    case 3: SBT_LAUNCH(3);
-    case 4: SBT_LAUNCH(4);
-    default: SBT_LAUNCH(0);
-  }
-#undef SBT_LAUNCH
+  cudaError_t e = cudaMemsetAsync(sums, 0, sizeof(unsigned long long) * B, st);
+  if (e != cudaSuccess) return (int)e;
+  const int rows = K + (C - 1) * G;
+  const long long warps =
+      (long long)B * rows * ((F + kFeaturesPerWarp - 1) / kFeaturesPerWarp);
+  const long long blocks = (warps + kThreads / 32 - 1) / (kThreads / 32);
+  loglh_from_counts_kernel<<<(unsigned)(blocks < (1LL << 20) ? blocks : (1LL << 20)), kThreads,
+                             0, st>>>(
+      static_cast<const float*>(cl), static_cast<const float*>(conf),
+      static_cast<const float*>(conc_table), static_cast<unsigned long long*>(sums), B, K, F, S,
+      rows);
+  loglh_sums_to_float<<<(B + 255) / 256, 256, 0, st>>>(
+      static_cast<const unsigned long long*>(sums), static_cast<float*>(out), B);
+  return (int)cudaGetLastError();
 }

@@ -19,7 +19,9 @@ chosen at scale). The ``source_*`` helpers, ``gather_rows``,
 ``scatter_rows`` and ``compute_feature_counts`` take either; operators
 compute with one-hot ROWS in both. ``feature_tiles`` cuts the feature axis
 into the tiles of ``ModelConstants.feature_chunk``, over which the
-full-width (B, N, F, ...) computations run at scale.
+full-width (B, N, F, ...) computations run at scale. A source split over
+object blocks (``parallel/mesh.py::SplitSource``) does the work of
+``gather_rows`` and ``scatter_rows`` itself.
 """
 from __future__ import annotations
 
@@ -235,6 +237,8 @@ def gather_rows(src, idx, n_components=None):
     (B, N, F) gives its rows in the one-hot bool form (B, m, F, C), C =
     ``n_components`` (which it needs); padding gives the sentinel's all-zero
     row."""
+    if not isinstance(src, torch.Tensor):
+        return src.gather_rows(idx, n_components)
     N = src.shape[1]
     valid = idx < N
     rows = batch_take(src, torch.clamp(idx, max=N - 1))
@@ -251,6 +255,8 @@ def scatter_rows(src, idx, rows):
     per-chain DISTINCT indices ``idx`` (B, m); ``idx == N`` drops the write.
     A packed source (B, N, F) takes one-hot bool rows (B, m, F, C) and packs
     them."""
+    if not isinstance(src, torch.Tensor):
+        return src.scatter_rows(idx, rows)
     if source_is_packed(src) and rows.dim() == src.dim() + 1:
         rows = pack_source(rows)
     B, N = src.shape[:2]

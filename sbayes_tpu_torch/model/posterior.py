@@ -20,6 +20,13 @@ The source may be bool one-hot or packed int8 (``ModelConstants.
 source_packed``); with ``ModelConstants.feature_chunk`` the counts, pattern
 counts and the source prior run over feature tiles (JAX ``feature_tile`` /
 ``lax.map``), so no (B, N, F, ...) intermediate is built at scale.
+
+``ObjectSplitPosterior`` is the posterior of a chain shard whose objects are
+split over blocks (``parallel/mesh.py``): the counts come from the
+likelihood kernel's ``loglh_counts`` on each block, the pattern counts and
+the source prior from each block's own ``Posterior``, all added on the head
+in block order; the log-likelihood from the summed counts through
+``loglh_from_counts``.
 """
 from __future__ import annotations
 
@@ -33,7 +40,6 @@ from sbayes_tpu_torch.model.math import (
     add_tiles,
     cat_tiles,
     compute_feature_counts,
-    dirichlet_categorical_logpdf,
     dirichlet_logpdf,
     feature_tiles,
     normalize_weights,
@@ -87,10 +93,9 @@ class Posterior:
         return source_onehot(source, self.consts.C)
 
     def log_likelihood_from_counts(self, cluster_counts, conf_counts):
-        c = self.consts
-        lh_cl = dirichlet_categorical_logpdf(cluster_counts, c.conc_cluster[None, None])
-        lh_conf = dirichlet_categorical_logpdf(conf_counts, c.conc_conf[None])
-        return lh_cl.sum((-1, -2)) + lh_conf.sum((-1, -2, -3))
+        """(B,) likelihood of the counts: the Dirichlet-categorical log-pdf
+        (the plain version of the likelihood kernel's ``loglh_from_counts``)."""
+        return loglh.loglh_from_counts_plain(self.consts, cluster_counts, conf_counts)
 
     def log_likelihood_diff_from_counts(self, counts_new, counts_old):
         """Exact ``log_likelihood_from_counts(new) - (old)`` per chain.
@@ -353,6 +358,47 @@ class Posterior:
             geo_agg=geo_agg,
             pat_counts=self.pattern_counts(state.clusters, state.source),
         )
+
+
+class ObjectSplitPosterior(Posterior):
+    """The posterior of a chain shard on a grid row (``parallel.mesh.
+    ObjectSplit``): ``consts`` are the head's (no O(N F) arrays), states hold
+    a ``SplitSource``, and each term that reads the source or the features
+    is a sum of per-block partials, added on the head in block order. The
+    counts are integer-valued, so they and the log-likelihood equal the
+    unsplit ones bit for bit; the source prior is a float sum in another
+    order. Everything of O(K N) (sizes, the geo prior, availabilities) is
+    the unsplit ``Posterior``'s, on the head."""
+
+    def __init__(self, split, sample_from_prior: bool = False):
+        super().__init__(split.head, sample_from_prior)
+        self.split = split
+        self.blocks = [Posterior(c, sample_from_prior) for c in split.blocks]
+
+    def feature_counts(self, clusters, source):
+        sp = self.split
+        return sp.reduce(lambda j: loglh.loglh_counts(sp.blocks[j], sp.cols(j, clusters),
+                                                      source.blocks[j]))
+
+    def log_likelihood_from_counts(self, cluster_counts, conf_counts):
+        return loglh.loglh_from_counts(self.consts, cluster_counts, conf_counts)
+
+    def log_likelihood(self, state):
+        return self.log_likelihood_from_counts(*self.feature_counts(state.clusters,
+                                                                    state.source))
+
+    def source_form(self, source):
+        return source
+
+    def pattern_counts(self, clusters, source):
+        sp = self.split
+        return sp.reduce(lambda j: self.blocks[j].pattern_counts(sp.cols(j, clusters),
+                                                                 source.blocks[j]))
+
+    def source_prior(self, clusters, weights, source):
+        sp = self.split
+        return sp.reduce(lambda j: self.blocks[j].source_prior(
+            sp.cols(j, clusters), sp.to_block(j, weights), source.blocks[j]))
 
 
 def _masked_row_reduce(cost, mask, largest: bool, row_tile=None):

@@ -31,6 +31,8 @@ _I = ctypes.c_int
 SIGNATURES = {
     "sbt_loglh": [_P] * 7 + [_I] * 8 + [_P],
     "sbt_loglh_feature_tile": [_I] * 7,
+    "sbt_loglh_counts": [_P] * 6 + [_I] * 8 + [_P],
+    "sbt_loglh_from_counts": [_P] * 5 + [_I] * 6 + [_P],
     "sbt_marginal": [_P] * 10 + [_I] * 10 + [_P],
     "sbt_marginal_feature_tile": [_I] * 5,
     "sbt_empty": [_P],

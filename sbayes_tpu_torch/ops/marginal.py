@@ -104,12 +104,35 @@ def marginal(consts, p_eff, conf_eff, wh, hc, hc_flip, incl, inv_t=None,
     f32 current membership; inv_t (B,) heating exponent or None.
     Returns (B, N) log-odds (ratio) or (B, N, 2) [log m0, log m1].
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel. In
+    place of ``consts`` an ``ObjectSplit`` (a chain shard's object blocks)
+    takes ``marginal_split``."""
+    if hasattr(consts, "blocks"):
+        return marginal_split(consts, p_eff, conf_eff, wh, hc, hc_flip, incl, inv_t,
+                              ratio, two_eff)
     if not p_eff.is_cuda:
         return marginal_plain(consts, p_eff, conf_eff, wh, hc, hc_flip, incl, inv_t,
                               ratio, two_eff)
     return marginal_cuda(consts, p_eff, conf_eff, wh, hc, hc_flip, incl, inv_t,
                          ratio, two_eff)
+
+
+def marginal_split(split, p_eff, conf_eff, wh, hc, hc_flip, incl, inv_t=None, ratio=True,
+                   two_eff=False):
+    """``marginal`` of a chain shard whose objects are split
+    (``parallel.mesh.ObjectSplit``): one launch per block, on the block's
+    device and stream, with the block's ``hc`` / ``hc_flip`` / ``incl`` and
+    the effects of the summed counts; the per-object results joined on
+    the head (the kernel computes each object on its own, so a block's
+    objects get what they get unsplit)."""
+    def block(j):
+        out = marginal(split.blocks[j], *split.to_block(j, (p_eff, conf_eff, wh)),
+                       split.cols(j, hc, dim=1), split.cols(j, hc_flip, dim=1),
+                       split.cols(j, incl, dim=1), split.to_block(j, inv_t), ratio, two_eff)
+        return split.to_head(j, out)
+
+    parts = split.run(block)
+    return torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
 
 
 def object_tile(n_chains: int, n_objects: int, n_sm: int) -> int:

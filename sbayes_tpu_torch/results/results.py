@@ -4,44 +4,44 @@ Copy of ``sbayes_tpu/results/results.py`` for the PyTorch port (resume reads
 the last logged sample with it). Behavioral counterpart of the reference's
 ``Results`` (sbayes/results.py): same column-name conventions
 (``w_areal_<f>``, ``areal_a<i>_<f>_<s>``, ``<conf>_<grp>_<f>_<s>``,
-``size_a<i>``), burn-in dropping, and bit-string cluster decoding. pandas is
-imported only where a stats file is read.
+``size_a<i>``), burn-in dropping, and bit-string cluster decoding. The
+stats file is read without pandas (absent on the card's machine): the
+parameters are a ``utils.Table`` of numpy columns, typed as pandas'
+``read_csv`` types them (``utils.read_typed_table``); a pandas data frame
+or a dict of columns passed in is turned into one.
 """
 from __future__ import annotations
 
-from typing import TYPE_CHECKING, Dict, List, Sequence
+from typing import Dict, List, Sequence
 
 import numpy as np
 from numpy.typing import NDArray
 
-from sbayes_tpu_torch.utils import PathLike, parse_cluster_columns
-
-if TYPE_CHECKING:
-    import pandas as pd
+from sbayes_tpu_torch.utils import PathLike, Table, parse_cluster_columns, read_typed_table
 
 
 class Results:
-    def __init__(self, clusters: NDArray, parameters: pd.DataFrame, burn_in: float = 0.1):
-        clusters, parameters = self.drop_burnin(clusters, parameters, burn_in)
+    def __init__(self, clusters: NDArray, parameters, burn_in: float = 0.1):
+        clusters, parameters = self.drop_burnin(clusters, Table.of(parameters), burn_in)
         self.clusters = clusters
         self.parameters = parameters
 
-        self.groups_by_confounders = self.get_groups_by_confounder(parameters.columns)
-        self.cluster_names = self.get_cluster_names(parameters.columns)
+        self.groups_by_confounders = self.get_groups_by_confounder(list(parameters))
+        self.cluster_names = self.get_cluster_names(list(parameters))
         self.feature_names = extract_feature_names(parameters)
         self.feature_states = [
             extract_state_names(parameters, prefix=f"areal_{self.cluster_names[0]}_{f}_")
             for f in self.feature_names
         ] if self.cluster_names else []
 
-        self.sample_id = self.parameters["Sample"].to_numpy(dtype=int)
+        self.sample_id = self.parameters["Sample"].astype(int)
         self.weights = self.parse_weights(self.parameters)
         self.areal_effect = self.parse_areal_effect(self.parameters)
         self.confounding_effects = self.parse_confounding_effects(self.parameters)
 
-        self.posterior = self.parameters["posterior"].to_numpy(dtype=float)
-        self.likelihood = self.parameters["likelihood"].to_numpy(dtype=float)
-        self.prior = self.parameters["prior"].to_numpy(dtype=float)
+        self.posterior = self.parameters["posterior"].astype(float)
+        self.likelihood = self.parameters["likelihood"].astype(float)
+        self.prior = self.parameters["prior"].astype(float)
 
         self.posterior_single_clusters = self.read_dictionary(self.parameters, "post_")
         self.likelihood_single_clusters = self.read_dictionary(self.parameters, "lh_")
@@ -84,7 +84,7 @@ class Results:
     def drop_burnin(clusters, parameters, burn_in):
         n_total = clusters.shape[1]
         burn_in_index = int(burn_in * n_total)
-        return clusters[:, burn_in_index:, :], parameters.iloc[burn_in_index:]
+        return clusters[:, burn_in_index:, :], parameters.rows(slice(burn_in_index, None))
 
     @staticmethod
     def read_clusters_from_str(clusters_samples: str) -> NDArray:
@@ -99,31 +99,25 @@ class Results:
             return Results.read_clusters_from_str(f.read())
 
     @staticmethod
-    def read_stats(txt_path: PathLike) -> pd.DataFrame:
-        import pandas as pd
-
-        return pd.read_csv(txt_path, delimiter="\t")
+    def read_stats(txt_path: PathLike) -> Table:
+        return read_typed_table(txt_path, sep="\t")
 
     @staticmethod
-    def read_dictionary(dataframe: pd.DataFrame, search_key: str) -> Dict[str, NDArray]:
-        return {
-            col: dataframe[col].to_numpy(dtype=float)
-            for col in dataframe.columns
-            if col.startswith(search_key)
-        }
+    def read_dictionary(table: Table, search_key: str) -> Dict[str, NDArray]:
+        return {col: table[col].astype(float) for col in table if col.startswith(search_key)}
 
     # ------------------------ parsing ------------------------
 
-    def parse_weights(self, parameters: pd.DataFrame) -> Dict[str, NDArray]:
+    def parse_weights(self, parameters: Table) -> Dict[str, NDArray]:
         components = ["areal"] + list(self.groups_by_confounders.keys())
         return {
             f: np.column_stack(
-                [parameters[f"w_{c}_{f}"].to_numpy(dtype=float) for c in components]
+                [parameters[f"w_{c}_{f}"].astype(float) for c in components]
             )
             for f in self.feature_names
         }
 
-    def parse_probs(self, parameters: pd.DataFrame, prefix: str) -> Dict[str, NDArray]:
+    def parse_probs(self, parameters: Table, prefix: str) -> Dict[str, NDArray]:
         return {
             f: np.column_stack(
                 [parameters[f"{prefix}_{f}_{s}"] for s in self.feature_states[i_f]]
@@ -131,13 +125,13 @@ class Results:
             for i_f, f in enumerate(self.feature_names)
         }
 
-    def parse_areal_effect(self, parameters: pd.DataFrame) -> Dict[str, dict]:
+    def parse_areal_effect(self, parameters: Table) -> Dict[str, dict]:
         return {
             cluster: self.parse_probs(parameters, f"areal_{cluster}")
             for cluster in self.cluster_names
         }
 
-    def parse_confounding_effects(self, parameters: pd.DataFrame) -> Dict[str, dict]:
+    def parse_confounding_effects(self, parameters: Table) -> Dict[str, dict]:
         return {
             conf: {g: self.parse_probs(parameters, f"{conf}_{g}") for g in groups}
             for conf, groups in self.groups_by_confounders.items()
@@ -177,10 +171,10 @@ class Results:
         return names
 
 
-def extract_feature_names(parameters: pd.DataFrame) -> List[str]:
+def extract_feature_names(parameters: Table) -> List[str]:
     prefix = "w_areal_"
-    return [c[len(prefix):] for c in parameters.columns if c.startswith(prefix)]
+    return [c[len(prefix):] for c in parameters if c.startswith(prefix)]
 
 
-def extract_state_names(parameters: pd.DataFrame, prefix: str) -> List[str]:
-    return [c[len(prefix):] for c in parameters.columns if c.startswith(prefix)]
+def extract_state_names(parameters: Table, prefix: str) -> List[str]:
+    return [c[len(prefix):] for c in parameters if c.startswith(prefix)]

@@ -18,6 +18,14 @@ rows are one-hot in both. The full-width computations (component
 likelihoods, the source posterior, the mask engine) take a feature slice
 ``sl`` and run over the model's feature tiles at scale, as the JAX package
 tiles them (``_FeatureSlice``).
+
+``ObjectSplitConditionals`` are the conditionals of a chain shard whose
+objects are split over blocks (``parallel/mesh.py``): the gathered-rows
+engine runs on the head from rows gathered from the blocks, and the
+membership marginal on each block (``object_layout``). The full-width engines
+(the mask engine, the source posterior of all objects, the leave-self-out
+likelihoods of the logger) are not split: the grid samples with the
+scheduled operators from states initialised unsplit.
 """
 from __future__ import annotations
 
@@ -86,6 +94,12 @@ class Conditionals:
         self.inv_T = 1.0 / self.T
         self.inv_Tp = 1.0 / self.Tp
         self.sample_from_prior = posterior.sample_from_prior
+
+    @property
+    def object_layout(self):
+        """What ``ops.marginal.marginal`` takes for its objects: the model
+        constants, or on a grid row the ``ObjectSplit``."""
+        return self.consts
 
     def heat_lh(self, x):
         """``x ** (1/T)`` per chain."""
@@ -410,3 +424,28 @@ class Conditionals:
         g_m = take_cols(c.groups, obj_idx)
         delta_conf = torch.einsum("bcgm,bm,bmfc,bmfs->bcgfs", g_m, sub, dc, feats_m)
         return cl_counts + delta_cl, conf_counts + delta_conf
+
+
+class ObjectSplitConditionals(Conditionals):
+    """The conditionals over an ``ObjectSplitPosterior``: the rows of the
+    gathered-rows engine come from the blocks that hold them, the
+    membership marginal runs on each block."""
+
+    def __init__(self, posterior, temperature=1.0, prior_temperature=1.0):
+        super().__init__(posterior, temperature, prior_temperature)
+        self.split = posterior.split
+
+    def gather_obj(self, obj_idx):
+        """``Conditionals.gather_obj``: the features and NA rows rebuilt on the
+        head from the feature index rows (B, m, F) that the blocks send (one
+        byte a cell; the features are one-hot, NA where the index is S),
+        the confounder availabilities from the head."""
+        c = self.consts
+        idx = torch.clamp(obj_idx, max=c.N - 1)
+        fi = self.split.take_rows([b.feat_idx for b in self.split.blocks], idx, batched=False)
+        feats = (fi[..., None] == torch.arange(c.S, dtype=fi.dtype, device=fi.device)).float()
+        return feats, fi == c.S, c.hc_conf[idx]
+
+    @property
+    def object_layout(self):
+        return self.split

@@ -224,8 +224,9 @@ class OperatorFactory:
         if use_heat:
             inv_t = (self.cond.inv_T if isinstance(self.T, torch.Tensor)
                      else torch.full((B,), self.cond.inv_T, device=p_eff.device))
-        out = marginal(c, p_rows.contiguous(), conf_eff, self.cond.heat_prior(state.weights),
-                       hc.float(), hc_flip.float(), hc[..., 0].float(), inv_t, ratio=ratio)
+        out = marginal(self.cond.object_layout, p_rows.contiguous(), conf_eff,
+                       self.cond.heat_prior(state.weights), hc.float(), hc_flip.float(),
+                       hc[..., 0].float(), inv_t, ratio=ratio)
         if ratio:
             return out / per_chain(self.T, out)
         t = per_chain(self.T, out[..., 0])
@@ -267,7 +268,7 @@ class OperatorFactory:
         c = self.consts
         cl_counts, conf_counts = counts
         ar = torch.arange(obj.shape[0], device=obj.device)
-        feats_o = c.features[obj]                                              # (B, F, S)
+        feats_o = self.cond.gather_obj(obj[:, None])[0][:, 0]                 # (B, F, S)
         old0 = feats_o * src_old_row[..., 0, None].float()
         new0 = feats_o * src_new_row[..., 0, None].float()
         mem_new = clusters_new[ar, :, obj].float()                             # (B, K)
@@ -682,9 +683,11 @@ class OperatorFactory:
         wh = self.cond.heat_prior(state.weights)
         incl = torch.ones(hc.shape[:2], device=hc.device)
         if logspace:
-            diff = marginal(c, p_eff, conf_eff, wh, hc, hc, incl, None, ratio=True, two_eff=True)
+            diff = marginal(self.cond.object_layout, p_eff, conf_eff, wh, hc, hc, incl, None,
+                            ratio=True, two_eff=True)
             return torch.sigmoid(-diff / per_chain(self.T, diff))
-        out = marginal(c, p_eff, conf_eff, wh, hc, hc, incl, None, ratio=False)
+        out = marginal(self.cond.object_layout, p_eff, conf_eff, wh, hc, hc, incl, None,
+                       ratio=False)
         t = per_chain(self.T, out[..., 0])
         lh_jump = torch.exp(out[..., 0] / t) + EPS32
         lh_stay = torch.exp(out[..., 1] / t) + EPS32
@@ -776,6 +779,10 @@ class OperatorFactory:
         n_conf = len(consts.conf_names)
         if N <= 10:
             object_selector = "all"
+        if object_selector == "all" and hasattr(cond, "split"):
+            raise NotImplementedError("the source resample of all objects does not run on a "
+                                      "chains x objects grid (nor does a split of 10 objects "
+                                      "or fewer)")
         k_cap = min(max_size, N)
 
         def select_subset_idx(gen, state):

@@ -23,6 +23,15 @@ races, the ensemble, the MC3 ladder, the timing probe, the refresh), the
 port splits the batch over the mesh of ``parallel/mesh.py::auto_chain_mesh``
 and steps each shard from a host thread of its own; with one shard the same
 code runs inline, unsplit.
+
+``grid_runtime`` runs a chain batch on a chains x objects grid
+(``parallel/mesh.py::data_mesh``): each chain shard is a ``ShardedRuntime``
+shard whose ``SamplerRuntime`` splits its objects (``SamplerRuntime.
+split_objects``), driven from the shard's host thread, one CUDA stream per
+object block. As in the JAX package, where the runner never reaches
+``data_mesh``, neither the CLI nor ``auto_chain_mesh`` builds a grid; its
+states are initialised unsplit and then split (``ShardedRuntime.split``),
+and it runs ``run_chunk`` and ``refresh`` (no MC3 ladder, no logging).
 """
 from __future__ import annotations
 
@@ -41,14 +50,18 @@ import torch
 from sbayes_tpu_torch.data.loader import Data
 from sbayes_tpu_torch.model.math import normalize_weights, sample_categorical_onehot
 from sbayes_tpu_torch.model.model import Model
-from sbayes_tpu_torch.model.posterior import Posterior
+from sbayes_tpu_torch.model.posterior import ObjectSplitPosterior, Posterior
 from sbayes_tpu_torch.parallel.mesh import (
+    ObjectSplit,
     ShardGenerators,
     auto_chain_mesh,
     gather,
     permute_chains,
     replicate,
     shard_chain_batch,
+    shard_objects,
+    shard_state,
+    unshard_state,
 )
 from sbayes_tpu_torch.results.loggers import (
     ClustersLogger,
@@ -60,7 +73,7 @@ from sbayes_tpu_torch.results.loggers import (
     SampleRecord,
     StateDumper,
 )
-from sbayes_tpu_torch.sampling.conditionals import Conditionals
+from sbayes_tpu_torch.sampling.conditionals import Conditionals, ObjectSplitConditionals
 from sbayes_tpu_torch.sampling.initializer import Initializer
 from sbayes_tpu_torch.sampling.kernel import OperatorStats, make_mh_apply_fn
 from sbayes_tpu_torch.sampling.operators import get_operator_schedule
@@ -142,14 +155,18 @@ class SamplerRuntime:
     """The batched sampling programs of one model."""
 
     def __init__(self, model: Model, mcmc_config, sample_from_prior: bool = False,
-                 consts=None):
+                 consts=None, split: Optional[ObjectSplit] = None):
         self.model = model
-        self.consts = model.consts if consts is None else consts
+        self.split = split
+        self.consts = (model.consts if consts is None else consts) if split is None else split.head
         self.device = self.consts.device
         self.mcmc_config = mcmc_config
         self.sample_from_prior = sample_from_prior
         self.p_grow = 0.5
-        self.cond = Conditionals(Posterior(self.consts, sample_from_prior), 1.0, 1.0)
+        if split is None:
+            self.cond = Conditionals(Posterior(self.consts, sample_from_prior), 1.0, 1.0)
+        else:
+            self.cond = ObjectSplitConditionals(ObjectSplitPosterior(split, sample_from_prior))
         self.post = self.cond.post
         self._op_specs = get_operator_schedule(self.cond, mcmc_config.operators, self.p_grow)
         self.op_names = [o.name for o in self._op_specs]
@@ -162,6 +179,13 @@ class SamplerRuntime:
         """The same sampler over ``consts`` (the model constants on another
         device)."""
         return SamplerRuntime(self.model, self.mcmc_config, self.sample_from_prior, consts)
+
+    def split_objects(self, split: ObjectSplit) -> "SamplerRuntime":
+        """The same sampler with its objects split as ``split`` splits them
+        (a row of ``data_mesh``, ``parallel.mesh.shard_objects``): its states
+        hold a ``SplitSource`` (``parallel.mesh.shard_state``)."""
+        return SamplerRuntime(self.model, self.mcmc_config, self.sample_from_prior,
+                              split=split)
 
     def shard(self, n_chains: int, logger=None) -> "ShardedRuntime":
         """The runtime of a batch of ``n_chains`` split over
@@ -194,14 +218,17 @@ class SamplerRuntime:
         ``prior_temps`` on the model's device."""
         if temps is None and prior_temps is None:
             return self._apply
-        cond = Conditionals(self.post, 1.0 if temps is None else temps,
-                            1.0 if prior_temps is None else prior_temps)
+        cond = type(self.cond)(self.post, 1.0 if temps is None else temps,
+                               1.0 if prior_temps is None else prior_temps)
         return make_mh_apply_fn(cond, get_operator_schedule(cond, self.mcmc_config.operators,
                                                             self.p_grow))
 
     def init_chains(self, gen, n_chains: int) -> ChainState:
         """``n_chains`` initial states (best of the configured attempts each),
         with every carried invariant filled."""
+        if self.split is not None:
+            raise NotImplementedError("states of a chains x objects grid are initialised "
+                                      "unsplit, then split (ShardedRuntime.split)")
         init_cfg = self.mcmc_config.initialization
         initializer = Initializer(
             self.cond, initial_size=init_cfg.objects_per_cluster, attempts=init_cfg.attempts,
@@ -401,19 +428,26 @@ class ShardedRuntime:
     whose rung changed (``permute_chains``). A shard's exception is raised
     in the caller. Batches are lists of shards; with one shard (``mesh``
     None) every call runs inline in the calling thread, on its stream: the
-    unsplit batch, whose bits are the ``SamplerRuntime``'s own."""
+    unsplit batch, whose bits are the ``SamplerRuntime``'s own. ``rts``
+    gives each shard's runtime (``grid_runtime``: runtimes that split their
+    objects); by default they are ``rt`` over the constants on each
+    device."""
 
-    def __init__(self, rt: SamplerRuntime, mesh=None):
+    def __init__(self, rt: SamplerRuntime, mesh=None, rts=None):
         mesh = tuple(mesh) if mesh and len(mesh) > 1 else None
         self.rt = rt
-        self.mesh = mesh or (rt.device,)
+        self.mesh = mesh or (rt.device if rts is None else rts[0].device,)
         self.n_shards = len(self.mesh)
-        by_consts = {id(rt.consts): rt}
-        self.rts = []
-        for consts in (replicate(rt.consts, self.mesh) if mesh else (rt.consts,)):
-            if id(consts) not in by_consts:
-                by_consts[id(consts)] = rt.replica(consts)
-            self.rts.append(by_consts[id(consts)])
+        if rts is None:
+            by_consts = {id(rt.consts): rt}
+            rts = []
+            for consts in (replicate(rt.consts, self.mesh) if mesh else (rt.consts,)):
+                if id(consts) not in by_consts:
+                    by_consts[id(consts)] = rt.replica(consts)
+                rts.append(by_consts[id(consts)])
+        self.rts = list(rts)
+        # the object split of each shard (grid_runtime), else None
+        self.splits = [r.split for r in self.rts] if self.rts[0].split is not None else None
         self.streams = [torch.cuda.Stream(d) if mesh and d.type == "cuda" else None
                         for d in self.mesh]
         self._pool = (ThreadPoolExecutor(max_workers=self.n_shards,
@@ -422,11 +456,19 @@ class ShardedRuntime:
     # -------------------- layout --------------------
 
     def split(self, x) -> list:
-        """The shards of a chain batch (ChainState, OperatorStats, (B,) tensor or None)."""
-        return [x] if self.n_shards == 1 else shard_chain_batch(x, self.mesh)
+        """The shards of a chain batch (ChainState, OperatorStats, (B,) tensor
+        or None); on a grid a ChainState's source is split over each shard's
+        object blocks too (``shard_state``)."""
+        shards = [x] if self.n_shards == 1 else shard_chain_batch(x, self.mesh)
+        if self.splits and isinstance(x, ChainState):
+            shards = [shard_state(st, sp) for st, sp in zip(shards, self.splits)]
+        return shards
 
     def gather(self, shards: list):
-        """The chains of every shard as one batch on the model's device."""
+        """The chains of every shard as one batch on the model's device (on a
+        grid, each source joined whole: for checks and checkpoints)."""
+        if self.splits and isinstance(shards[0], ChainState):
+            shards = [unshard_state(st, self.rt.device) for st in shards]
         return shards[0] if self.n_shards == 1 else gather(shards, self.rt.device)
 
     def locate(self, shards: list, chain: int) -> tuple:
@@ -568,6 +610,17 @@ class ShardedRuntime:
     @staticmethod
     def non_finite(stats: list) -> int:
         return sum(int(s.non_finite.sum()) for s in stats)
+
+
+def grid_runtime(rt: SamplerRuntime, grid) -> ShardedRuntime:
+    """The runtime of a chain batch on a chains x objects ``grid``
+    (``parallel.mesh.data_mesh``): row i is chain shard i, its objects split
+    over the row's devices (``SamplerRuntime.split_objects``). Chain shards
+    run in host threads of their own (one row: inline); the blocks of a row
+    are driven from its thread."""
+    splits = shard_objects(rt.consts, grid)
+    return ShardedRuntime(rt, mesh=tuple(sp.head_device for sp in splits),
+                          rts=[rt.split_objects(sp) for sp in splits])
 
 
 class MCMCSetup:

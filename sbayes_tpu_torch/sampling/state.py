@@ -24,7 +24,8 @@ class ChainState(NamedTuple):
     clusters: torch.Tensor                 # bool (B, K, N)
     weights: torch.Tensor                  # f32 (B, F, C)
     # bool one-hot (B, N, F, C), all-zero at NA; or, when the model's
-    # ``source_packed``, the int8 (B, N, F) component index, C at NA
+    # ``source_packed``, the int8 (B, N, F) component index, C at NA; on a
+    # chains x objects grid a ``parallel.mesh.SplitSource`` of either form
     source: torch.Tensor
     log_lh: torch.Tensor                   # f32 (B,)
     log_prior: torch.Tensor                # f32 (B,)

@@ -4,24 +4,22 @@ Counterparts of the reference tools (sbayes/tools/align_clusters.py and
 realign_clusters_within_run.py): Hungarian matching of cluster labels
 between two runs (or within one run over time), with the areal-effect and
 size columns of the stats file permuted consistently. Copy of
-``sbayes_tpu/tools/align_clusters.py`` for the PyTorch port; pandas (the
-stats files) is imported where it is used.
+``sbayes_tpu/tools/align_clusters.py`` for the PyTorch port, without pandas:
+the parameters are a ``utils.Table`` (``Results``), written back as pandas'
+``to_csv`` writes them (``utils.write_table``), so the aligned files equal
+the JAX tool's byte for byte.
 """
 from __future__ import annotations
 
 import argparse
 from pathlib import Path
-from typing import TYPE_CHECKING
 
 import numpy as np
 from numpy.typing import NDArray
 from scipy.optimize import linear_sum_assignment
 
 from sbayes_tpu_torch.results.results import Results
-from sbayes_tpu_torch.utils import format_cluster_columns, parse_cluster_columns
-
-if TYPE_CHECKING:
-    import pandas as pd
+from sbayes_tpu_torch.utils import Table, format_cluster_columns, parse_cluster_columns, write_table
 
 
 def load_clusters(filename) -> NDArray:
@@ -39,13 +37,14 @@ def cluster_agreement(a1, a2):
     return np.matmul(a1, a2.T)
 
 
-def permute_cluster_params(params: pd.DataFrame, cluster_names, permutation) -> pd.DataFrame:
-    """Permute areal-effect and size columns according to ``permutation``."""
+def permute_cluster_params(params: Table, cluster_names, permutation) -> Table:
+    """Permute areal-effect and size columns according to ``permutation``
+    (in place; returns ``params``)."""
     cluster_names = np.array(cluster_names)
     remap = {}
     for clust_i, clust_j in zip(cluster_names, cluster_names[permutation]):
         prefix_i, prefix_j = f"areal_{clust_i}_", f"areal_{clust_j}_"
-        for k in params.columns:
+        for k in params:
             if k.startswith(prefix_i):
                 remap[k] = params[prefix_j + k[len(prefix_i):]].copy()
     for i, j in enumerate(permutation):
@@ -65,16 +64,14 @@ def align_two_runs(results_1: Results, results_2: Results):
 
     clusters_2_aligned = results_2.clusters[perm].transpose((1, 0, 2))
     params_2_aligned = permute_cluster_params(
-        results_2.parameters.copy(), results_2.cluster_names, perm
+        Table(results_2.parameters), results_2.cluster_names, perm
     )
     return clusters_2_aligned, params_2_aligned
 
 
-def realign_within_run(clusters: NDArray, params: pd.DataFrame, cluster_names):
+def realign_within_run(clusters: NDArray, params: Table, cluster_names):
     """Fix label switches within one run: align each sample's labels to the
     running cluster sums (reference: realign_clusters_within_run.py)."""
-    import pandas as pd
-
     clusters = clusters.copy()
     sum_clusters = np.mean(clusters[:, :20, :], axis=1)
     for i_s in range(clusters.shape[1]):
@@ -82,8 +79,9 @@ def realign_within_run(clusters: NDArray, params: pd.DataFrame, cluster_names):
         perm = linear_sum_assignment(d, maximize=True)[1]
         if not np.all(perm == np.arange(len(perm))):
             clusters[:, i_s:] = clusters[perm, i_s:]
-            permuted_params = permute_cluster_params(params.copy(), cluster_names, perm)
-            params = pd.concat([params.iloc[:i_s, :], permuted_params.iloc[i_s:, :]], axis=0)
+            permuted = permute_cluster_params(Table(params), cluster_names, perm)
+            params = Table((k, np.concatenate([params[k][:i_s], permuted[k][i_s:]]))
+                           for k in params)
         sum_clusters += clusters[:, i_s]
     return clusters, params
 
@@ -109,9 +107,8 @@ def cli_align(args=None):
 
     clusters_2_aligned, params_2_aligned = align_two_runs(results_1, results_2)
     write_clusters(path2 / f"K{K}" / f"clusters_K{K}_{ns.run2}.aligned.txt", clusters_2_aligned)
-    params_2_aligned.to_csv(
-        path2 / f"K{K}" / f"stats_K{K}_{ns.run2}.aligned.txt", index=False, sep="\t"
-    )
+    write_table(params_2_aligned, path2 / f"K{K}" / f"stats_K{K}_{ns.run2}.aligned.txt",
+                sep="\t")
 
 
 def cli_realign(args=None):
@@ -130,7 +127,7 @@ def cli_realign(args=None):
     )
     write_clusters(ns.path / f"K{K}" / f"clusters_K{K}_{ns.run}.aligned.txt",
                    clusters.transpose((1, 0, 2)))
-    params.to_csv(ns.path / f"K{K}" / f"stats_K{K}_{ns.run}.aligned.txt", index=False, sep="\t")
+    write_table(params, ns.path / f"K{K}" / f"stats_K{K}_{ns.run}.aligned.txt", sep="\t")
 
 
 if __name__ == "__main__":

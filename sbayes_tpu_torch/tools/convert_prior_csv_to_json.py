@@ -2,7 +2,10 @@
 
 Counterpart of the reference tool (sbayes/tools/convert_prior_csv_to_json.py);
 copy of ``sbayes_tpu/tools/convert_prior_csv_to_json.py`` for the PyTorch
-port, pandas imported where it is used.
+port, without pandas: the CSV is read with its columns typed as pandas'
+``read_csv`` types them (``utils.read_typed_table``) and each row's values
+take the types pandas' ``iterrows`` gives them, so the JSON equals the JAX
+tool's.
 """
 from __future__ import annotations
 
@@ -12,16 +15,31 @@ from pathlib import Path
 
 import numpy as np
 
+from sbayes_tpu_torch.utils import read_typed_table
+
+
+def _row_values(table, i: int) -> dict:
+    """Row ``i`` as ``iterrows().to_dict()`` gives it, NA left out: all
+    columns integer -> ints, all numeric -> floats, else each column's own
+    type."""
+    kinds = {col.dtype.kind for col in table.values()}
+    as_float = kinds <= {"i", "f"} and "f" in kinds
+    row = {}
+    for name, col in table.items():
+        v = col[i]
+        if v is None or (isinstance(v, (float, np.floating)) and np.isnan(v)):
+            continue
+        row[name] = float(v) if as_float else (v.item() if isinstance(v, np.generic) else v)
+    return row
+
 
 def convert(csv_path, output_path):
-    import pandas as pd
-
-    counts_df = pd.read_csv(csv_path, index_col="feature")
+    table = read_typed_table(csv_path)
+    features = table.pop("feature")
     counts_dict = {}
-    for feature, row in counts_df.iterrows():
-        counts_dict[feature] = {
-            k: v for k, v in row.to_dict().items() if not (isinstance(v, float) and np.isnan(v))
-        }
+    for i, feature in enumerate(features):
+        key = feature.item() if isinstance(feature, np.generic) else feature
+        counts_dict[key] = _row_values(table, i)
     with open(output_path, "w") as json_file:
         json.dump(counts_dict, json_file, indent=4)
 

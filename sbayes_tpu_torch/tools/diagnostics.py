@@ -5,8 +5,9 @@ the stats files (user_manual.md:481-489); this tool computes them
 headlessly: per-(experiment, K) effective sample sizes of the posterior /
 likelihood traces and cross-run split-R-hat.
 
-Copy of ``sbayes_tpu/tools/diagnostics.py`` for the PyTorch port; pandas
-(the stats files and the table) is imported where it is used.
+Copy of ``sbayes_tpu/tools/diagnostics.py`` for the PyTorch port, without
+pandas: the stats files through ``Results``, the table a ``utils.Table``
+with the columns and types of the JAX tool's data frame.
 
 Usage: python -m sbayes_tpu_torch.tools.diagnostics <results_dir> [burnin]
 """
@@ -15,20 +16,15 @@ from __future__ import annotations
 import argparse
 from collections import defaultdict
 from pathlib import Path
-from typing import TYPE_CHECKING
 
 import numpy as np
 
 from sbayes_tpu_torch.results.ess import effective_sample_size, split_rhat
 from sbayes_tpu_torch.results.results import Results
-
-if TYPE_CHECKING:
-    import pandas as pd
+from sbayes_tpu_torch.utils import Table
 
 
-def analyze(results_dir: Path, burn_in: float = 0.1) -> pd.DataFrame:
-    import pandas as pd
-
+def analyze(results_dir: Path, burn_in: float = 0.1) -> Table:
     runs = defaultdict(list)
     for stats_path in sorted(Path(results_dir).rglob("stats_K*_*.txt")):
         if ".chain" in stats_path.name or ".aligned" in stats_path.name:
@@ -66,7 +62,7 @@ def analyze(results_dir: Path, burn_in: float = 0.1) -> pd.DataFrame:
                 "ess_min_run": round(min(ess_per_run), 1),
                 "split_rhat": round(float(rhat), 4) if np.isfinite(rhat) else None,
             })
-    return pd.DataFrame(rows)
+    return Table.from_records(rows)
 
 
 def main(args=None):
@@ -75,12 +71,12 @@ def main(args=None):
     parser.add_argument("burnin", type=float, nargs="?", default=0.1)
     ns = parser.parse_args(args)
     df = analyze(ns.results, ns.burnin)
-    if df.empty:
+    if not df.n_rows:
         print(f"No results files found under {ns.results}")
         return df
-    print(df.to_string(index=False))
-    bad = df[(df.split_rhat.notna()) & (df.split_rhat > 1.1)]
-    if len(bad):
+    print(df.to_string())
+    rhat = np.array([np.nan if r is None else r for r in df["split_rhat"]], dtype=float)
+    if np.any(rhat > 1.1):
         print("\nWARNING: split-R-hat > 1.1 for some parameters — chains may not have converged.")
     return df
 

@@ -4,22 +4,21 @@ Counterpart of the reference ELPD tool (sbayes/tools/elpd.py): walks a
 results directory for ``likelihood_K*_*.h5`` files, computes the PSIS-LOO
 ELPD of each run (own PSIS implementation — no arviz dependency) and
 writes a comparison plot + table. Copy of ``sbayes_tpu/tools/elpd.py`` for
-the PyTorch port; pandas (the table), h5py (the likelihood files) and
-matplotlib (the plot) are imported where they are used.
+the PyTorch port, without pandas: the table is a ``utils.Table`` with the
+JAX tool's columns and types. It still needs h5py, which reads the
+likelihood files (``results.log_likelihood``, HDF5 as in the JAX package),
+and matplotlib for the plot; both are imported where they are used.
 """
 from __future__ import annotations
 
 import argparse
 import warnings
 from pathlib import Path
-from typing import TYPE_CHECKING
 
 import numpy as np
 
 from sbayes_tpu_torch.tools.psis import psis_loo
-
-if TYPE_CHECKING:
-    import pandas as pd
+from sbayes_tpu_torch.utils import Table
 
 PathLike = Path | str
 
@@ -57,9 +56,7 @@ def sbayes_psis_loo(likelihood_path: PathLike, burnin: float) -> float:
     return elpd
 
 
-def main(results_dir: Path, burnin: float = 0.1, plot_path: Path | None = None) -> pd.DataFrame:
-    import pandas as pd
-
+def main(results_dir: Path, burnin: float = 0.1, plot_path: Path | None = None) -> Table:
     rows = []
     for run_path in sorted(Path(results_dir).rglob("likelihood_K*_*.h5")):
         *_, experiment, k_folder, file_name = run_path.parts
@@ -76,8 +73,8 @@ def main(results_dir: Path, burnin: float = 0.1, plot_path: Path | None = None) 
                 f"Error in likelihood file '{run_path}'. Skipped in model comparison.\n\t| {e}"
             )
 
-    df = pd.DataFrame(rows)
-    if df.empty:
+    df = Table.from_records(rows)
+    if not df.n_rows:
         warnings.warn(f"No results with valid likelihood files found in '{results_dir}'.")
         return df
 
@@ -88,12 +85,18 @@ def main(results_dir: Path, burnin: float = 0.1, plot_path: Path | None = None) 
         import matplotlib.pyplot as plt
 
         fig, ax = plt.subplots(figsize=(6, 4))
-        if df.k.nunique() == 1:
-            df.boxplot(column="elpd_loo", by="experiment", ax=ax)
+        experiments = sorted(set(df["experiment"]))
+        if len(set(df["k"])) == 1:
+            ax.boxplot([df["elpd_loo"][df["experiment"] == e] for e in experiments],
+                       tick_labels=experiments)
+            ax.set_xlabel("experiment")
+            ax.set_title("elpd_loo")
         else:
-            for exp, g in df.groupby("experiment"):
-                gm = g.groupby("k")["elpd_loo"].mean()
-                ax.plot(gm.index, gm.values, ls="dashed", lw=0.8, marker="o", label=exp)
+            for exp in experiments:
+                at = df["experiment"] == exp
+                ks = sorted(set(df["k"][at]))
+                means = [df["elpd_loo"][at & (df["k"] == k)].mean() for k in ks]
+                ax.plot(ks, means, ls="dashed", lw=0.8, marker="o", label=exp)
             ax.set_xlabel("number of clusters K")
             ax.set_ylabel("ELPD (PSIS-LOO)")
             ax.legend()

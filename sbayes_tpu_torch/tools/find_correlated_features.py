@@ -3,44 +3,54 @@
 Counterpart of the reference tool (sbayes/tools/find_correlated_features.py):
 pairwise chi-squared contingency tests over all feature pairs, a heatmap of
 significant correlations and a CSV of p-values. Copy of
-``sbayes_tpu/tools/find_correlated_features.py`` for the PyTorch port: the
-data load through the port's CSV reader; pandas and matplotlib are imported
-where they are used.
+``sbayes_tpu/tools/find_correlated_features.py`` for the PyTorch port,
+without pandas: the data load through the port's CSV reader, the
+contingency tables of ``crosstab`` (rows and columns in sorted order, as
+pandas' ``crosstab`` gives them) from ``np.unique``, and the p-values
+written as pandas' ``to_csv`` writes the JAX tool's data frame
+(``utils.write_table``); matplotlib is imported where it is used.
 """
 from __future__ import annotations
 
 import argparse
 from itertools import combinations
 from pathlib import Path
-from typing import TYPE_CHECKING
 
 import numpy as np
+from numpy.typing import NDArray
 from scipy.stats import chi2_contingency
 
-from sbayes_tpu_torch.utils import normalize_str, read_data_csv
-
-if TYPE_CHECKING:
-    import pandas as pd
+from sbayes_tpu_torch.utils import Table, normalize_str, read_data_csv, write_table
 
 METADATA_COLUMNS = ["id", "name", "family", "x", "y"]
 
 
-def pairwise_chi2(features: pd.DataFrame) -> pd.DataFrame:
-    """Symmetric matrix of chi-squared p-values between feature pairs."""
-    import pandas as pd
+def crosstab(a: NDArray, b: NDArray) -> NDArray:
+    """Counts of each (value of ``a``, value of ``b``) pair, rows and columns
+    in sorted order of the values."""
+    rows, i = np.unique(a, return_inverse=True)
+    cols, j = np.unique(b, return_inverse=True)
+    table = np.zeros((len(rows), len(cols)), dtype=np.int64)
+    np.add.at(table, (i, j), 1)
+    return table
 
-    names = list(features.columns)
-    p_values = pd.DataFrame(np.ones((len(names), len(names))), index=names, columns=names)
-    for f1, f2 in combinations(names, 2):
-        both = features[[f1, f2]].dropna()
-        if both.empty or both[f1].nunique() < 2 or both[f2].nunique() < 2:
+
+def pairwise_chi2(features: Table) -> NDArray:
+    """Symmetric (F, F) matrix of chi-squared p-values between the feature
+    columns of ``features`` (``None`` is NA), in their order."""
+    names = list(features)
+    p_values = np.ones((len(names), len(names)))
+    for i1, i2 in combinations(range(len(names)), 2):
+        a, b = features[names[i1]], features[names[i2]]
+        keep = np.array([x is not None and y is not None for x, y in zip(a, b)], dtype=bool)
+        a, b = a[keep], b[keep]
+        if not keep.any() or len(set(a)) < 2 or len(set(b)) < 2:
             continue
-        contingency = pd.crosstab(both[f1], both[f2])
         try:
-            _chi2, p, _dof, _exp = chi2_contingency(contingency)
+            _chi2, p, _dof, _exp = chi2_contingency(crosstab(a, b))
         except ValueError:
             continue
-        p_values.loc[f1, f2] = p_values.loc[f2, f1] = p
+        p_values[i1, i2] = p_values[i2, i1] = p
     return p_values
 
 
@@ -55,29 +65,29 @@ def main(args=None):
                         help="Significance level for plotting correlations.")
     ns = parser.parse_args(args)
 
-    import pandas as pd
-
-    data = pd.DataFrame(read_data_csv(ns.input))
+    data = read_data_csv(ns.input)
     for column in METADATA_COLUMNS:
-        if column not in data.columns:
+        if column not in data:
             raise ValueError(f"Required column '{column}' missing in data file.")
-    features = data.drop(METADATA_COLUMNS, axis=1).map(normalize_str)
+    names = [c for c in data if c not in METADATA_COLUMNS]
+    features = Table((c, np.array([normalize_str(v) for v in data[c]], dtype=object))
+                     for c in names)
 
     p_values = pairwise_chi2(features)
-    p_values.to_csv(Path(ns.output).with_suffix(".csv"))
+    write_table(Table((n, p_values[:, j]) for j, n in enumerate(names)),
+                Path(ns.output).with_suffix(".csv"), index=names)
 
     import matplotlib
 
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
 
-    # a copy: under pandas' copy-on-write ``DataFrame.values`` is read-only
-    significant = (p_values < ns.pThreshold).to_numpy(dtype=float, copy=True)
+    significant = (p_values < ns.pThreshold).astype(float)
     np.fill_diagonal(significant, 0.0)
     fig, ax = plt.subplots(figsize=(max(6, len(p_values) // 4),) * 2)
-    im = ax.imshow(-np.log10(np.maximum(p_values.values, 1e-300)), cmap="viridis")
-    ax.set_xticks(range(len(p_values)), p_values.columns, rotation=90, fontsize=6)
-    ax.set_yticks(range(len(p_values)), p_values.index, fontsize=6)
+    im = ax.imshow(-np.log10(np.maximum(p_values, 1e-300)), cmap="viridis")
+    ax.set_xticks(range(len(p_values)), names, rotation=90, fontsize=6)
+    ax.set_yticks(range(len(p_values)), names, fontsize=6)
     fig.colorbar(im, label="-log10(p)")
     fig.tight_layout()
     fig.savefig(ns.output)

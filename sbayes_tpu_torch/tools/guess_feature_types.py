@@ -4,20 +4,17 @@ The reference ships this as a tkinter GUI (sbayes/tools/guess_feature_types.py);
 this is a headless CLI producing the same kind of summary: per feature, the
 guessed type (binary / categorical / numeric-like / constant), the state
 inventory, and NA counts, written as a CSV for manual review. Copy of
-``sbayes_tpu/tools/guess_feature_types.py`` for the PyTorch port: the data
-load through the port's CSV reader into a ``Table``, the summary is a pandas
-data frame (pandas imported where it is used).
+``sbayes_tpu/tools/guess_feature_types.py`` for the PyTorch port, without
+pandas: the data load through the port's CSV reader into a ``Table``, the
+summary is a ``Table`` written as pandas' ``to_csv`` writes it
+(``utils.write_table``).
 """
 from __future__ import annotations
 
 import argparse
 from pathlib import Path
-from typing import TYPE_CHECKING
 
-from sbayes_tpu_torch.utils import Table, normalize_str, read_data_csv
-
-if TYPE_CHECKING:
-    import pandas as pd
+from sbayes_tpu_torch.utils import Table, normalize_str, read_data_csv, write_table
 
 METADATA_COLUMNS = ["id", "name", "family", "x", "y"]
 
@@ -30,17 +27,12 @@ def _is_number(s: str) -> bool:
         return False
 
 
-def guess_types(data: Table) -> pd.DataFrame:
-    import pandas as pd
-
-    data = pd.DataFrame(data)
-    features = data.drop(columns=[c for c in METADATA_COLUMNS if c in data.columns])
-    features = features.map(normalize_str)
+def guess_types(data: Table) -> Table:
     rows = []
-    for f in features.columns:
-        col = features[f]
-        states = sorted(col.dropna().unique())
-        n_na = int(col.isna().sum())
+    for f in (c for c in data if c not in METADATA_COLUMNS):
+        col = [normalize_str(v) for v in data[f]]
+        states = sorted({v for v in col if v is not None})
+        n_na = sum(v is None for v in col)
         if len(states) <= 1:
             ftype = "constant"
         elif len(states) == 2:
@@ -56,7 +48,7 @@ def guess_types(data: Table) -> pd.DataFrame:
             "states": "|".join(str(s) for s in states[:20]),
             "n_na": n_na,
         })
-    return pd.DataFrame(rows)
+    return Table.from_records(rows)
 
 
 def main(args=None):
@@ -64,7 +56,7 @@ def main(args=None):
     parser.add_argument("--input", required=True, type=Path, help="The input CSV file")
     parser.add_argument("--output", required=True, type=Path, help="The output CSV file")
     ns = parser.parse_args(args)
-    guess_types(read_data_csv(ns.input)).to_csv(ns.output, index=False)
+    write_table(guess_types(read_data_csv(ns.input)), ns.output)
 
 
 if __name__ == "__main__":

@@ -7,6 +7,7 @@ load where pandas is absent.
 from __future__ import annotations
 
 import csv
+import re
 import unicodedata
 from pathlib import Path
 from typing import Sequence, Union
@@ -137,11 +138,39 @@ DEFAULT_NA_VALUES = frozenset([
 
 class Table(dict):
     """A CSV file as ``{column name: numpy object array of str | None}``
-    in the header's order; ``None`` is NA."""
+    in the header's order; ``None`` is NA. The tools and ``Results`` hold
+    typed columns in it too (``read_typed_table``, ``column``): the port's
+    counterpart of the pandas data frames of the JAX package."""
 
     @property
     def n_rows(self) -> int:
         return len(next(iter(self.values()))) if self else 0
+
+    def rows(self, index) -> "Table":
+        """The rows ``index`` (a slice, or an index or mask array) of every column."""
+        return Table((name, col[index]) for name, col in self.items())
+
+    @classmethod
+    def of(cls, columns) -> "Table":
+        """A Table of numpy arrays from any mapping of column names to
+        sequences (a dict, a Table, a pandas data frame)."""
+        return cls((name, np.asarray(columns[name])) for name in columns)
+
+    @classmethod
+    def from_records(cls, records: list) -> "Table":
+        """The columns of a list of dicts (all with the same keys), each typed
+        by ``column``."""
+        names = list(records[0]) if records else []
+        return cls((name, column([r[name] for r in records])) for name in names)
+
+    def to_string(self) -> str:
+        """The table as fixed-width text, the column names above their
+        values, each column right-aligned (the form of pandas'
+        ``to_string(index=False)``)."""
+        cols = [[name] + [format_cell(v, na="NaN") for v in col] for name, col in self.items()]
+        widths = [max(map(len, c)) for c in cols]
+        return "\n".join(" ".join(c[i].rjust(w) for c, w in zip(cols, widths))
+                         for i in range(self.n_rows + 1))
 
 
 def _column_names(header: list) -> list:
@@ -158,14 +187,14 @@ def _column_names(header: list) -> list:
     return names
 
 
-def read_csv_table(path: PathLike, na_values=frozenset()) -> Table:
-    """Every cell of a comma-separated file as a string, or ``None`` where it
-    is one of ``na_values``. A UTF-8 BOM is dropped, blank lines (empty or
-    spaces and tabs only) are skipped, quoted fields keep their commas and
-    line breaks, short rows are padded with NA; a row longer than the header
-    raises."""
+def read_csv_table(path: PathLike, na_values=frozenset(), sep: str = ",") -> Table:
+    """Every cell of a ``sep``-separated file as a string, or ``None`` where
+    it is one of ``na_values``. A UTF-8 BOM is dropped, blank lines (empty
+    or spaces and tabs only) are skipped, quoted fields keep their
+    separators and line breaks, short rows are padded with NA; a row longer
+    than the header raises."""
     with open(path, newline="", encoding="utf-8-sig") as f:
-        rows = [(i, r) for i, r in enumerate(csv.reader(f), start=1)
+        rows = [(i, r) for i, r in enumerate(csv.reader(f, delimiter=sep), start=1)
                 if len(r) > 1 or (r and r[0].strip(" \t"))]
     if not rows:
         raise ValueError(f"No columns to parse from file {path}")
@@ -177,6 +206,97 @@ def read_csv_table(path: PathLike, na_values=frozenset()) -> Table:
                              f"{len(names)}")
         cells[i_row, :len(row)] = [None if v in na_values else v for v in row]
     return Table((name, cells[:, j]) for j, name in enumerate(names))
+
+
+_INT_LITERAL = re.compile(r"\s*[+-]?\d+\s*")
+_TRUE, _FALSE = frozenset(["True", "TRUE", "true"]), frozenset(["False", "FALSE", "false"])
+
+
+def _float_or_none(v):
+    if "_" in v:             # float() reads "1_0"; a CSV number has no underscore
+        return None
+    try:
+        return float(v)
+    except ValueError:
+        return None
+
+
+def infer_column(cells: NDArray) -> NDArray:
+    """A column of strings (``None`` = NA) typed as pandas' ``read_csv``
+    types it: int64 when every cell is an integer literal, bool when every
+    cell is ``True`` or ``False``, float64 when every cell that is not NA is
+    a number (NA as NaN), else the strings themselves (object)."""
+    present = [v for v in cells if v is not None]
+    if len(present) == len(cells) and present:
+        if all(_INT_LITERAL.fullmatch(v) for v in present):
+            ints = [int(v) for v in present]
+            if all(-2 ** 63 <= i < 2 ** 63 for i in ints):
+                return np.array(ints, dtype=np.int64)
+        if all(v in _TRUE or v in _FALSE for v in present):
+            return np.array([v in _TRUE for v in present], dtype=bool)
+    floats = [_float_or_none(v) for v in present]
+    if present and all(f is not None for f in floats):
+        it = iter(floats)
+        return np.array([np.nan if v is None else next(it) for v in cells], dtype=np.float64)
+    return np.asarray(cells, dtype=object)
+
+
+def read_typed_table(path: PathLike, sep: str = ",") -> Table:
+    """A CSV (or with ``sep`` a TSV) file with each column typed by
+    ``infer_column``, pandas' default NA tokens as NA: what the JAX package
+    reads with ``pd.read_csv(path, delimiter=sep)``."""
+    table = read_csv_table(path, DEFAULT_NA_VALUES, sep=sep)
+    return Table((name, infer_column(col)) for name, col in table.items())
+
+
+def column(values: Sequence) -> NDArray:
+    """Python values typed as pandas types a column of records: int64 for
+    ints, float64 for numbers (``None`` as NaN) unless all are ``None``,
+    bool for bools, else object."""
+    vals = list(values)
+    present = [v for v in vals if v is not None]
+    whole = bool(present) and len(present) == len(vals)
+    if whole and all(isinstance(v, (bool, np.bool_)) for v in present):
+        return np.array(vals, dtype=bool)
+    if present and all(isinstance(v, (int, float, np.integer, np.floating))
+                       and not isinstance(v, (bool, np.bool_)) for v in present):
+        if whole and all(isinstance(v, (int, np.integer)) for v in present):
+            return np.array(vals, dtype=np.int64)
+        return np.array([np.nan if v is None else v for v in vals], dtype=np.float64)
+    out = np.empty(len(vals), dtype=object)
+    out[:] = vals
+    return out
+
+
+def format_cell(v, na: str = "") -> str:
+    """A cell as pandas' ``to_csv`` writes it: NA (``None``, NaN) as ``na``,
+    a float by its shortest round-trip form, anything else by ``str``."""
+    if v is None:
+        return na
+    if isinstance(v, (float, np.floating)):
+        return na if v != v else repr(float(v))
+    if isinstance(v, (bool, np.bool_)):
+        return str(bool(v))
+    if isinstance(v, np.integer):
+        return str(int(v))
+    return str(v)
+
+
+def write_table(table: Table, path: PathLike, sep: str = ",", index=None,
+                index_label: str = ""):
+    """Write ``table`` as pandas' ``to_csv(path, sep=sep, index=False)``
+    writes a data frame of its columns, or with ``index`` (one label per
+    row) as ``to_csv`` with that index: a first column headed
+    ``index_label``. Fields that hold the separator, a quote or a line
+    break are quoted."""
+    names = list(table)
+    with open(path, "w", newline="", encoding="utf-8") as f:
+        w = csv.writer(f, delimiter=sep, lineterminator="\n", quoting=csv.QUOTE_MINIMAL)
+        w.writerow(([index_label] if index is not None else []) + names)
+        cols = [table[n] for n in names]
+        for i in range(table.n_rows):
+            row = [format_cell(c[i]) for c in cols]
+            w.writerow(([format_cell(index[i])] if index is not None else []) + row)
 
 
 def to_floats(cells: NDArray) -> NDArray[np.float64]:

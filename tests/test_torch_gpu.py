@@ -219,3 +219,81 @@ def test_two_shards_on_one_card_equal_their_runs_alone():
                             rt.new_stats(512))
         for a, b in zip(list(st) + list(ss), list(shards[j]) + list(stats[j])):
             assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("packed", [False, True], ids=["bool", "packed"])
+def test_loglh_split_entries_on_the_card(packed):
+    """The likelihood kernel's two entries of the object split on random
+    valid states of 64 chains at the south_america width and at 400
+    features (feature tiles): ``loglh_counts`` of each block of 1 to 4
+    blocks equal to its plain version (integer counts, exactly), and
+    ``loglh_from_counts`` of the counts summed over the blocks bit-equal to
+    the fused kernel and within chip_smoke's tolerance of its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from sbayes_tpu_torch.model.math import pack_source
+    from sbayes_tpu_torch.model.model import Model
+    from sbayes_tpu_torch.ops import loglh
+    from sbayes_tpu_torch.parallel.mesh import ObjectSplit
+    from sbayes_tpu_torch.testing import synthetic_config, synthetic_data
+
+    for n_features in (36, 400):
+        c = Model(synthetic_data(n_features=n_features), synthetic_config(n_clusters=3).model,
+                  device="cuda").consts
+        inputs = chip_smoke.random_kernel_inputs(c, 64, 5)
+        clusters = inputs["clusters"]
+        source = pack_source(inputs["source"]) if packed else inputs["source"]
+        fused = loglh.log_likelihood(c, clusters, source)
+        for n_blocks in (1, 2, 3, 4):
+            sp = ObjectSplit(c, ["cuda:0"] * n_blocks)
+            total = None
+            for (lo, hi), blk in zip(sp.bounds, sp.blocks):
+                part = loglh.loglh_counts(blk, clusters[:, :, lo:hi], source[:, lo:hi])
+                want = loglh.loglh_counts_plain(blk, clusters[:, :, lo:hi], source[:, lo:hi])
+                assert all(torch.equal(a, b) for a, b in zip(part, want))
+                total = part if total is None else tuple(a + b for a, b in zip(total, part))
+            got = loglh.loglh_from_counts(c, *total)
+            assert torch.equal(got, fused), (n_features, n_blocks)
+            plain = loglh.loglh_from_counts_plain(c, *total)
+            rel = float((got - plain).abs().max() / plain.abs().max())
+            assert rel <= chip_smoke.LOGLH_TOL_REL
+
+
+@pytest.mark.gpu
+def test_object_split_run_on_the_card():
+    """A 1 x 2 chains x objects grid on cuda:0 at K = 3 (256 chains, 20 steps
+    of ``run_chunk`` and the refresh): the counts entry and the marginal
+    launched on each block's stream, ``loglh_from_counts`` on the head, the
+    carried counts equal to the unsplit recompute of the gathered states and
+    the split log-likelihood bit-equal to the fused kernel's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from sbayes_tpu_torch.ops import loglh
+    from sbayes_tpu_torch.parallel.mesh import ShardGenerators, data_mesh
+    from sbayes_tpu_torch.sampling.runner import grid_runtime, make_generators
+
+    rt, states, _ = chip_smoke.phase_full_width(256, 200, n_clusters=3, geo_prior="cost_based")
+    sh = grid_runtime(rt, data_mesh(1, 2, ["cuda:0", "cuda:0"]))
+    sp = sh.splits[0]
+    gen, op_gen = make_generators(3, "cuda")
+    chip_smoke.reset_counters()
+    shards, stats = sh.run_chunk(ShardGenerators(gen), op_gen, sh.split(states),
+                                 sh.new_stats(256), 20)
+    refs = sh.refresh(shards)
+    torch.cuda.synchronize()
+    for j in range(2):
+        counts = chip_smoke.block_launches(sp, j)
+        assert counts["loglh_counts"] > 0 and counts["marginal"] > 0, (j, counts)
+    assert loglh.from_counts_launches.count > 0
+    whole = sh.gather(shards)
+    ref = rt.refresh(whole)
+    for key in ("cl_counts", "conf_counts", "pat_counts"):
+        assert torch.equal(getattr(refs[0], key), getattr(ref, key)), key
+    assert torch.equal(refs[0].log_lh, loglh.log_likelihood(rt.consts, whole.clusters,
+                                                            whole.source))
+    chip_smoke.check_carried_state(sp.head, shards[0], refs[0], stats[0])

@@ -282,3 +282,40 @@ def test_step_time_column_holds_the_probe(fixture_dir, probe):
         assert len(set(times)) > 1
     else:
         assert mcmc._op_step_times is None and len(set(times)) == 1
+
+
+RESUME_WITHOUT_PANDAS = r"""
+import json, sys, warnings
+from pathlib import Path
+sys.modules["pandas"] = None
+root = Path(sys.argv[1])
+from sbayes_tpu_torch.cli import main
+with warnings.catch_warnings():
+    warnings.simplefilter("ignore")
+    main(root / "config.yaml", experiment_name="csv", custom_settings=json.loads(sys.argv[2]),
+         resume=True, device="cpu")
+print(json.dumps(sorted(m for m in ("pandas",) if sys.modules.get(m) is not None)))
+"""
+
+
+def test_resume_from_the_results_files_without_pandas(fixture_dir):
+    """The card's machine has no pandas: with the pickle deleted, ``-r``
+    reads the clusters and stats files with pandas unimportable (a
+    subprocess) and appends the remaining rows after the last sample, as
+    ``test_resume_from_the_results_files_imputes_a_valid_source`` does with
+    pandas."""
+    import json
+    import subprocess
+    import sys
+
+    out = _port(fixture_dir, "csv", _settings(fixture_dir, {"steps": 200, "samples": 10}))
+    (out / "state_K1_0.pickle").unlink()
+    full = _settings(fixture_dir, {"steps": 400, "samples": 20})
+    proc = subprocess.run([sys.executable, "-c", RESUME_WITHOUT_PANDAS, str(fixture_dir),
+                           json.dumps(full)], cwd=Path(__file__).parent.parent,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+    ids = [int(r["Sample"]) for r in _rows(out / "stats_K1_0.txt")]
+    assert ids == list(range(20, 201, 20)) + list(range(221, 402, 20))
+    assert (out / "state_K1_0.pickle").exists()

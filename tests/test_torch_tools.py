@@ -82,7 +82,7 @@ def test_elpd_over_the_port_results_equals_jax(port_results, tmp_path):
     from sbayes_tpu.tools.elpd import main as jax_main
     from sbayes_tpu_torch.tools.elpd import main
 
-    df = main(port_results, burnin=0.1, plot_path=tmp_path / "elpd.png")
+    df = pd.DataFrame(main(port_results, burnin=0.1, plot_path=tmp_path / "elpd.png"))
     want = jax_main(port_results, burnin=0.1, plot_path=tmp_path / "elpd_jax.png")
     assert (tmp_path / "elpd.png").exists()
     assert df[["experiment", "k", "run"]].values.tolist() == [
@@ -97,12 +97,12 @@ def test_diagnostics_over_the_port_results_equals_jax(port_results):
     from sbayes_tpu.tools.diagnostics import analyze as jax_analyze
     from sbayes_tpu_torch.tools.diagnostics import analyze, main
 
-    df = analyze(port_results, 0.1)
+    df = pd.DataFrame(analyze(port_results, 0.1))
     pd.testing.assert_frame_equal(df, jax_analyze(port_results, 0.1), check_exact=True)
     assert df[["K", "parameter", "runs", "samples_per_run"]].values.tolist() == [
         [1, "posterior", 2, 90], [1, "likelihood", 2, 90],
         [2, "posterior", 2, 90], [2, "likelihood", 2, 90]]
-    pd.testing.assert_frame_equal(main([str(port_results)]), df)
+    pd.testing.assert_frame_equal(pd.DataFrame(main([str(port_results)])), df)
 
 
 @pytest.mark.parametrize("tool", ["align", "realign"])
@@ -151,7 +151,7 @@ def test_align_clusters_roundtrip():
     aligned_clusters, aligned_params = align_two_runs(
         Results(clusters1, params1, burn_in=0), Results(clusters1[perm], params2, burn_in=0))
     np.testing.assert_array_equal(aligned_clusters.transpose((1, 0, 2)), clusters1)
-    pd.testing.assert_frame_equal(aligned_params, params1)
+    pd.testing.assert_frame_equal(pd.DataFrame(aligned_params), params1)
 
 
 def test_subsample_over_the_port_results_equals_jax(port_results, tmp_path):
@@ -288,3 +288,142 @@ def test_find_correlated_features_equals_jax(tmp_path):
     assert (tmp_path / "corr.png").exists()
     p = pd.read_csv(tmp_path / "corr.csv", index_col=0)
     assert p.loc["A", "B"] < 1e-4 < p.loc["A", "C"]
+
+
+TOOLS_WITHOUT_PANDAS = r"""
+import json, sys, warnings
+from pathlib import Path
+sys.modules["pandas"] = None
+results, work, data, prior = (Path(a) for a in sys.argv[1:5])
+out = {}
+from sbayes_tpu_torch.results.results import Results
+k2 = results / "elpd_exp" / "K2"
+res = Results.from_csv_files(k2 / "clusters_K2_0.txt", k2 / "stats_K2_0.txt")
+out["results"] = {
+    "sample_id": res.sample_id.tolist(), "posterior": res.posterior.tolist(),
+    "likelihood": res.likelihood.tolist(), "prior": res.prior.tolist(),
+    "weights": {f: w.tolist() for f, w in res.weights.items()},
+    "areal_effect": {c: {f: p.tolist() for f, p in e.items()}
+                     for c, e in res.areal_effect.items()},
+    "confounding_effects": {c: {g: {f: p.tolist() for f, p in e.items()} for g, e in gs.items()}
+                            for c, gs in res.confounding_effects.items()},
+    "clusters": res.clusters.tolist(), "cluster_names": res.cluster_names}
+from sbayes_tpu_torch.tools import elpd, diagnostics, align_clusters, realign_clusters_within_run
+from sbayes_tpu_torch.tools import convert_prior_csv_to_json, guess_feature_types
+from sbayes_tpu_torch.tools import find_correlated_features
+with warnings.catch_warnings():
+    warnings.simplefilter("ignore")
+    out["elpd"] = {k: v.tolist() for k, v in elpd.main(results, 0.1, work / "elpd.png").items()}
+out["diagnostics"] = {k: v.tolist() for k, v in diagnostics.main([str(results)]).items()}
+align_clusters.cli_align(["-k", "2", str(work / "align"), "0", str(work / "align"), "1"])
+realign_clusters_within_run.main([str(work / "realign"), "2", "0"])
+convert_prior_csv_to_json.main(["--csv", str(prior), "--output", str(work / "prior.json")])
+guess_feature_types.main(["--input", str(data), "--output", str(work / "types.csv")])
+find_correlated_features.main(["--input", str(data), "--output", str(work / "corr.png")])
+out["modules"] = sorted(m for m in ("pandas",) if sys.modules.get(m) is not None)
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def tools_without_pandas(port_results, tmp_path_factory):
+    """``Results`` and the seven tools that read or wrote tables with pandas
+    in the JAX package, run in a subprocess with pandas unimportable (as on
+    the card's machine) over the port's results, a prior CSV and a data
+    CSV; the JAX tools then write their files from the same inputs."""
+    import subprocess
+    import sys
+
+    work = tmp_path_factory.mktemp("no_pandas")
+    jax_dir = tmp_path_factory.mktemp("jax_tools")
+    for d in (work, jax_dir):
+        for name in ("align", "realign"):
+            shutil.copytree(port_results / "elpd_exp", d / name)
+    prior = work / "prior.csv"
+    prior.write_text("feature,A,B,C\nF1,1.5,2.5,\nF2,3.0,4.0,5.0\n")
+    data = work / "data.csv"
+    rng = np.random.default_rng(7)
+    a = rng.integers(0, 3, 40)
+    rows = ["id,name,family,x,y,A,B,C"] + [
+        f"o{i},n{i},{'f1' if i % 2 else 'f2'},{i},{-i},{a[i]},{(a[i] + (i % 7 == 0)) % 3},"
+        f"{'' if i % 9 == 0 else rng.integers(0, 2)}" for i in range(40)]
+    data.write_text("\n".join(rows) + "\n")
+    proc = subprocess.run([sys.executable, "-c", TOOLS_WITHOUT_PANDAS, str(port_results),
+                           str(work), str(data), str(prior)],
+                          cwd=Path(__file__).parent.parent, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+
+    from sbayes_tpu.tools import align_clusters as jax_align
+    from sbayes_tpu.tools import convert_prior_csv_to_json, find_correlated_features
+    from sbayes_tpu.tools import guess_feature_types
+    from sbayes_tpu.utils import normalize_str, read_data_csv
+
+    jax_align.cli_align(["-k", "2", str(jax_dir / "align"), "0", str(jax_dir / "align"), "1"])
+    jax_align.cli_realign([str(jax_dir / "realign"), "2", "0"])
+    convert_prior_csv_to_json.main(["--csv", str(prior), "--output", str(jax_dir / "prior.json")])
+    guess_feature_types.main(["--input", str(data), "--output", str(jax_dir / "types.csv")])
+    features = read_data_csv(data).drop(find_correlated_features.METADATA_COLUMNS,
+                                        axis=1).map(normalize_str)
+    find_correlated_features.pairwise_chi2(features).to_csv(jax_dir / "corr.csv")
+    return out, work, jax_dir
+
+
+def test_results_without_pandas_equals_jax(port_results, tools_without_pandas):
+    """``Results.from_csv_files`` with pandas blocked gives the JAX
+    ``Results``' arrays (burn-in dropped, weights, effects, traces)."""
+    from sbayes_tpu.results.results import Results as JaxResults
+
+    out = tools_without_pandas[0]["results"]
+    k2 = port_results / "elpd_exp" / "K2"
+    want = JaxResults.from_csv_files(k2 / "clusters_K2_0.txt", k2 / "stats_K2_0.txt")
+    assert out["sample_id"] == want.sample_id.tolist() and len(out["sample_id"]) == 90
+    for key in ("posterior", "likelihood", "prior"):
+        assert out[key] == getattr(want, key).tolist(), key
+    assert out["weights"] == {f: w.tolist() for f, w in want.weights.items()}
+    assert out["areal_effect"] == {c: {f: np.asarray(p).tolist() for f, p in e.items()}
+                                   for c, e in want.areal_effect.items()}
+    assert out["confounding_effects"] == {
+        c: {g: {f: np.asarray(p).tolist() for f, p in e.items()} for g, e in gs.items()}
+        for c, gs in want.confounding_effects.items()}
+    assert out["clusters"] == want.clusters.tolist()
+    assert out["cluster_names"] == want.cluster_names == ["a0", "a1"]
+
+
+@pytest.mark.parametrize("tool", ["elpd", "diagnostics"])
+def test_table_tools_without_pandas_equal_jax(port_results, tools_without_pandas, tool):
+    """The tables of ``elpd`` (h5py still reads the likelihood files) and
+    ``diagnostics``, computed with pandas blocked, equal the JAX tools'."""
+    from sbayes_tpu.tools import diagnostics as jax_diagnostics, elpd as jax_elpd
+
+    out = tools_without_pandas[0]
+    assert out["modules"] == []
+    if tool == "elpd":
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            want = jax_elpd.main(port_results, 0.1)
+        got = pd.DataFrame(out["elpd"])
+        assert got[["experiment", "k", "run"]].values.tolist() == \
+            want[["experiment", "k", "run"]].values.tolist()
+        _assert_close(got.elpd_loo, want.elpd_loo)
+        assert (tools_without_pandas[1] / "elpd.png").exists()
+    else:
+        want = jax_diagnostics.analyze(port_results, 0.1)
+        assert out["diagnostics"] == {c: want[c].tolist() for c in want.columns}
+
+
+@pytest.mark.parametrize("name", ["align/K2/clusters_K2_1.aligned.txt",
+                                  "align/K2/stats_K2_1.aligned.txt",
+                                  "realign/K2/clusters_K2_0.aligned.txt",
+                                  "realign/K2/stats_K2_0.aligned.txt",
+                                  "prior.json", "types.csv", "corr.csv"])
+def test_file_tools_without_pandas_equal_jax(tools_without_pandas, name):
+    """Each file that ``align_clusters``, ``realign_clusters_within_run``,
+    ``convert_prior_csv_to_json``, ``guess_feature_types`` and
+    ``find_correlated_features`` write with pandas blocked equals the JAX
+    tool's, byte for byte."""
+    _out, work, jax_dir = tools_without_pandas
+    got = (work / name).read_bytes()
+    assert got == (jax_dir / name).read_bytes()
+    assert len(got.splitlines()) >= 3
