@@ -34,7 +34,8 @@ turns in one call (a, b, b, a).
    500 steps, then ``cli.main(..., resume=True)`` for 1000, of one chain
    and of an MC3 ladder of four rungs: continuous sample ids in every
    rung's stats file and the resumed run's carried state equal to its
-   recompute; then one chain once more with its state pickle deleted, so
+   recompute, the one chain's likelihood file at 20 rows with its first 10
+   unchanged by the resume; then one chain once more with its state pickle deleted, so
    that it resumes from its clusters and stats files at the last sample +
    1, with pandas unimportable. These two phases run the CLI on JSON configs;
    its data load returns ``synthetic_data()``;
@@ -62,9 +63,9 @@ turns in one call (a, b, b, a).
    trace=True)``): steps per second, the multichain ESS of the log-posterior,
    ESS per second and split-R-hat, the trace's last row against the carried
    log-posterior, CUDA kernels per step with and without the trace (same
-   draws; the median of three 20-step windows), and steps per second of
-   100-step windows
-   without, with, with and without it. ``alt_operators``: on the
+   draws; the larger of two profiles of a 50-step window), and steps per
+   second of ESS_RATE_WINDOW-step windows without, with, with and without
+   it. ``alt_operators``: on the
    ``full_width_k3`` states each of the wide operator with the residual and
    the residual-counts effect, with the EM proposal, and ``alter_weights``
    alone for ALT_STEPS MH steps (ms per step, launches, the carried state
@@ -85,8 +86,8 @@ turns in one call (a, b, b, a).
    against their plain versions on SCALE_KERNEL_CHAINS chains. Then
    ``scale_geo``: the same workload and data under ``GEO_K3`` (cost-based,
    mean, rate 1e6), from the EM start (the EM's geo term, the ML steps that
-   weigh membership by the geo prior) and from an in-bounds start: the
-   carried state (skeleton aggregates included) against its recompute, a
+   weigh membership by the geo prior) and from an in-bounds start,
+   SCALE_GEO_CHUNKS chunks of SCALE_CHUNK steps each: the carried state (skeleton aggregates included) against its recompute, a
    finite, non-zero geo-prior part of every chain's log-prior, sizes within
    bounds, both kernels against their plain versions; peak memory, steps
    per second, ms per step of each operator, one ``_update_geo`` at the
@@ -107,11 +108,24 @@ turns in one call (a, b, b, a).
    (36 features), the universal prior counts extracted from the simulated
    CSVs, ``cli.main`` at K = 1 and 3 (main_path's runs and steps, the
    cost-based geo prior on the simulated locations, the extracted counts as
-   the universal prior, ``log_likelihood: false``): the results files and
-   stats rows, ``loglh`` and ``marginal`` launched at both K and
-   ``marginal_abs`` at K = 3, each true cluster's best F1 against run 0's
-   clusters at K = 3 (at least one at 0.5 or above), the thinned stats and
-   clusters files, and the config template's top-level sections. Then
+   the universal prior, its config a YAML file read by the port's reader,
+   ``results.log_likelihood`` at its default, true; PyYAML and h5py
+   unimportable): the results files and stats rows, ``loglh`` and
+   ``marginal`` launched at both K and ``marginal_abs`` at K = 3, each true
+   cluster's best F1 against run 0's clusters at K = 3 (at least one at 0.5
+   or above), the K comparison by PSIS-LOO (``tools.elpd`` over every run's
+   likelihood file: K = 3's ELPD above K = 1's in every run where both are
+   finite), the thinned stats and clusters files, and the config
+   template's top-level sections; then ``entry_point``, the reference's
+   own entry point as a user runs it where PyYAML, h5py, pandas and JAX are
+   not installed (importing them fails): ``python -m sbayes_tpu_torch
+   config.yaml -n cli -K 1 2`` in a child process on the card, on a copy
+   of ``tests/fixtures/`` (its YAML config, its CSVs, the default
+   ``results.log_likelihood: true``), then ``-r True`` with
+   ENTRY_POINT_RESUME's steps (the likelihood files gain the rows, their
+   first rows bit-equal), then in this process ``cli.run_experiment`` on
+   the fixture config and ``tools.elpd.main`` over the results: files,
+   rows, each ELPD, wall times and the launches of all three runs. Then
    ``mesh``, the parallel layer, over every visible card or, on a one-card
    machine, two shards on cuda:0 (``mesh_devices``; ``split_over`` makes
    ``auto_chain_mesh`` see them): (a) the K = 3 ensemble of CHAINS chains
@@ -123,7 +137,7 @@ turns in one call (a, b, b, a).
    sequence of wide steps; each with every shard's
    carried state against its recompute, the launches on shard 1's stream
    and both kernels against their plain versions on shard 1's chains; (d)
-   ``cli.main`` on the fixture config (JSON) with 2 runs as one ensemble,
+   ``cli.main`` on the fixture config (as JSON) with 2 runs as one ensemble,
    as ``-t 2`` (spawned processes) and as ``-i 0; -i 1``: wall times, every
    run's files complete with finite likelihoods (MESH: the step counts).
    Then ``data_mesh``, the object-axis split: ``scale``'s in-bounds states
@@ -178,6 +192,7 @@ from __future__ import annotations
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -197,12 +212,16 @@ STEPS = 1000
 STEPS_K3 = 600
 GEO_K3 = {"type": "cost_based", "rate": 1e6, "aggregation": "mean"}   # bench.py's geo model
 MC3_LADDER = {"chains": 8, "temperature_diff": 0.1}                    # rungs of the MC3 phases
-ESS_WARMUP, ESS_STEPS = 200, 1000
+ESS_WARMUP, ESS_STEPS = 200, 600     # the traced window cut from 1000 steps
+ESS_RATE_WINDOW = 100                 # steps of each rate window, cut from 200
 ALT_STEPS = 50
 PRIOR_SAMPLES = 4096
 # benchmarks/scale10k.py's workload (BASELINE.json configs[4]); steps cut, not width
 SCALE_SHAPE = {"n_objects": 10_000, "n_features": 5_000, "n_states": 5, "n_families": 10}
 SCALE_CHAINS, SCALE_CHUNK, SCALE_CHUNKS = 16, 20, 3
+# scale_geo: one chunk from each start (cut from 3: the EM start's steps run
+# at 1.4-2 steps/s), each operator timed over 2 steps (cut from 3)
+SCALE_GEO_CHUNKS, SCALE_GEO_OP_REPS = 1, 2
 SCALE_KERNEL_CHAINS = 2          # the plain marginal's (B, N, F, S) temporaries stay 2 GB
 # benchmarks/mc3_scale.py's ladder at the scale shape: 4 rungs, T = 1 + 0.02 i,
 # prior temperatures 1, a swap phase every 10 steps of 1 attempt between
@@ -237,25 +256,117 @@ MESH = {"window": 50, "pairs": 3, "mc3_steps": 105, "mc3_plain_steps": 105,
 # scale's 16 in-bounds states (no second init), 20 drawn steps and 3 steps of
 # the wide operator, split and unsplit; profiled windows of 5 steps; within 60 s
 DATA_MESH = {"shards": 2, "steps": 20, "wide_steps": 3, "profile_steps": 5}
-# tests/fixtures/config.yaml as JSON (the card's machine has no PyYAML); the
-# data paths are filled in with the fixture's CSV files
-FIXTURE_CONFIG = {
-    "mcmc": {"steps": 400, "samples": 20, "runs": 1, "screen_log_interval": 200,
-             "operators": {"clusters": 40, "weights": 10, "source": 10},
-             "initialization": {"objects_per_cluster": 1, "attempts": 2, "em_steps": 10},
-             "warmup": {"warmup_steps": 50, "warmup_chains": 2}, "sample_from_prior": False},
-    "model": {"clusters": 1, "confounders": ["universal", "family"], "prior": {
-        "objects_per_cluster": {"type": "uniform_area", "min": 1, "max": 100},
-        "geo": {"type": "cost_based", "aggregation": "sum", "rate": 50000.0},
-        "weights": {"type": "uniform"}, "cluster_effect": {"type": "uniform"},
-        "confounding_effects": {
-            "universal": {"<ALL>": {"type": "uniform"}},
-            "family": {"famA": {"type": "dirichlet", "parameters": {
-                "F1": {"A": 8.0, "B": 2.0, "C": 1.0}, "F2": {"X": 2.0, "Y": 3.0}}},
-                "famB": {"type": "uniform"}}}}}}
+FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures"
+# The entry_point phase's resume: the fixture's 400 steps / 20 samples and 200
+# steps more; the packages the card's machine lacks, unimportable around the
+# entry points (the child processes and the in-process runs)
+ENTRY_POINT_RESUME = {"steps": 600, "samples": 30}
+NOT_INSTALLED = ("yaml", "h5py", "pandas", "jax", "jaxlib")
 LOGLH_TOL_REL = 1e-5             # lgammaf vs torch.lgamma, summation order (of the total)
 MARGINAL_TOL_ABS = 1e-4          # 36 logs summed in another order (per object)
 MARGINAL_TOL_FEATURES = 36       # wider data: the tolerance grows with the logs summed
+
+
+def fixture_config() -> dict:
+    """``tests/fixtures/config.yaml``, read by the port's YAML reader."""
+    from sbayes_tpu_torch.config.yaml_reader import load
+
+    return load(FIXTURES / "config.yaml")
+
+
+def yaml_scalar(v) -> str:
+    """A value as a YAML scalar or flow collection that reads back as it is
+    (floats with a dot and a signed exponent: YAML 1.1 reads ``1e-06`` as a
+    string)."""
+    if v is None or isinstance(v, bool):
+        return {None: "null", True: "true", False: "false"}[v]
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        if not np.isfinite(v):
+            return ".nan" if v != v else ("-.inf" if v < 0 else ".inf")
+        mantissa, _, exponent = repr(v).partition("e")
+        mantissa += "" if "." in mantissa else ".0"
+        return mantissa + (f"e{'' if exponent[0] == '-' else '+'}{exponent}" if exponent else "")
+    if isinstance(v, str):
+        return json.dumps(v)
+    if isinstance(v, list):
+        return "[" + ", ".join(yaml_scalar(x) for x in v) + "]"
+    if v == {}:
+        return "{}"
+    raise TypeError(f"no YAML scalar for {v!r}")
+
+
+def yaml_text(cfg: dict, indent: int = 0) -> str:
+    """Nested dicts (of scalars and lists of scalars) as block YAML."""
+    lines = []
+    for key, v in cfg.items():
+        if isinstance(v, dict) and v:
+            lines += [f"{'  ' * indent}{yaml_scalar(key)}:", yaml_text(v, indent + 1)]
+        else:
+            lines.append(f"{'  ' * indent}{yaml_scalar(key)}: {yaml_scalar(v)}")
+    return "\n".join(lines)
+
+
+class NotInstalled:
+    """A meta-path finder under which importing one of ``names`` fails as
+    for a package that is not installed. Not ``sys.modules[name] = None``:
+    libraries that look a module up in ``sys.modules`` (scipy does for
+    ``jax``) take that entry for an installed module."""
+
+    def __init__(self, names):
+        self.names = set(names)
+
+    def find_spec(self, name, path=None, target=None):
+        if name.partition(".")[0] in self.names:
+            raise ModuleNotFoundError(f"No module named {name!r}", name=name)
+
+
+@contextmanager
+def without_modules(*names):
+    """Importing any of ``names`` fails inside the block; those already
+    imported are out of ``sys.modules`` meanwhile."""
+    finder = NotInstalled(names)
+    hidden = {m: sys.modules.pop(m) for m in list(sys.modules)
+              if m.partition(".")[0] in finder.names}
+    sys.meta_path.insert(0, finder)
+    try:
+        yield
+    finally:
+        sys.meta_path.remove(finder)
+        sys.modules.update(hidden)
+
+
+# ``python -m <module> <args>`` with the packages named by the first argument
+# (comma-separated) unimportable; its last line: the process's launch counts
+# and any of those packages that got loaded anyway
+CHILD_MAIN = r"""
+import json, runpy, sys
+from chip_smoke import NotInstalled, counters
+names = sys.argv.pop(1).split(",")
+sys.meta_path.insert(0, NotInstalled(names))
+runpy.run_module(sys.argv.pop(1), run_name="__main__", alter_sys=True)
+print(json.dumps({"launches": counters(), "loaded": sorted(set(names) & set(sys.modules))}))
+"""
+
+
+def run_without(cwd: Path, names, module: str, *args) -> tuple:
+    """``python -m module args`` in a child process (waited for) with
+    ``names`` unimportable: (its last line, parsed, and its wall seconds)."""
+    root = str(Path(__file__).resolve().parent)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(filter(None, (
+        root, os.environ.get("PYTHONPATH"))))}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", CHILD_MAIN, ",".join(names), module, *args],
+                          cwd=cwd, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"python -m {module} {' '.join(args)} exited {proc.returncode}:\n"
+                           f"{proc.stderr[-3000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    if out["loaded"]:
+        raise AssertionError(f"python -m {module} loaded {out['loaded']}")
+    return out, wall
 
 
 def stop_resource_tracker():
@@ -512,9 +623,12 @@ def phase_main_path_mc3(tmp: Path) -> dict:
 def phase_resume(tmp: Path) -> dict:
     """K = 3, cost-based geo: ``cli.main`` for 500 steps / 10 samples, then
     ``cli.main(..., resume=True)`` for 1000 / 20: 20 rows with continuous
-    sample ids and the resumed run's carried state equal to its recompute;
-    the same for an MC3 ladder of four rungs, each resuming from its pickle."""
+    sample ids and the resumed run's carried state equal to its recompute,
+    its likelihood file at 20 rows, the first 10 bit-equal to the file
+    before the resume; the same for an MC3 ladder of four rungs, each
+    resuming from its pickle."""
     from sbayes_tpu_torch import cli
+    from sbayes_tpu_torch.results.hdf5 import read_datasets
     from sbayes_tpu_torch.sampling.runner import ShardedRuntime
 
     out = {}
@@ -526,17 +640,27 @@ def phase_resume(tmp: Path) -> dict:
         if mc3:
             mcmc["mc3"] = mc3
         name = f"resume_{label}"
+        results_cfg = {"log_likelihood": not mc3}
         first = smoke_config(tmp, tmp / "results", 3, GEO_K3, name=f"{name}_first",
-                             mcmc={**mcmc, "steps": 500, "samples": 10})
+                             mcmc={**mcmc, "steps": 500, "samples": 10}, results_cfg=results_cfg)
         second = smoke_config(tmp, tmp / "results", 3, GEO_K3, name=f"{name}_second",
-                              mcmc={**mcmc, "steps": 1000, "samples": 20})
+                              mcmc={**mcmc, "steps": 1000, "samples": 20},
+                              results_cfg=results_cfg)
+        res = tmp / "results" / name / "K3"
         t0 = time.perf_counter()
         with synthetic_data_for_cli():
             cli.main(first, experiment_name=name, device=DEVICE)
+            if not mc3:
+                before = read_datasets(res / "likelihood_K3_0.h5")["likelihood"]
             with last_call(ShardedRuntime, method) as seen:
                 cli.main(second, experiment_name=name, resume=True, device=DEVICE)
         torch.cuda.synchronize()
-        res = tmp / "results" / name / "K3"
+        if not mc3:
+            after = read_datasets(res / "likelihood_K3_0.h5")["likelihood"]
+            if after.shape[0] != 20 or not np.array_equal(after[:10].view(np.uint32),
+                                                          before.view(np.uint32)):
+                raise AssertionError(f"{name}: likelihood rows {before.shape} then "
+                                     f"{after.shape}, the first 10 changed or lost")
         files = [res / "stats_K3_0.txt"] + ([res / "hot_chains" / f"stats_K3_0.chain{c}.txt"
                                              for c in range(1, mc3["chains"])] if mc3 else [])
         for f in files:
@@ -546,6 +670,8 @@ def phase_resume(tmp: Path) -> dict:
         out[label] = {"wall_s": time.perf_counter() - t0, "rows": len(files) * 20,
                       "carried_vs_recompute_max_abs": check_shards(seen["runtime"],
                                                                    *seen["out"][:2])}
+        if not mc3:
+            out[label]["likelihood_rows"] = [len(before), len(after)]
     # Without the pickle (deleted, as when a run wrote none) the run resumes
     # from its clusters and stats files at the last sample + 1, as the JAX
     # package does; pandas is made unimportable for it (as it is on a
@@ -561,7 +687,7 @@ def phase_resume(tmp: Path) -> dict:
     with synthetic_data_for_cli():
         cli.main(first, experiment_name=name, device=DEVICE)
         (res / "state_K3_0.pickle").unlink()
-        with last_call(ShardedRuntime, "run_chunk") as seen, without_module("pandas"):
+        with last_call(ShardedRuntime, "run_chunk") as seen, without_modules("pandas"):
             cli.main(second, experiment_name=name, resume=True, device=DEVICE)
     torch.cuda.synchronize()
     ids = [int(v) for v in stats_column(res / "stats_K3_0.txt", "Sample")]
@@ -574,20 +700,6 @@ def phase_resume(tmp: Path) -> dict:
                         "carried_vs_recompute_max_abs": check_shards(seen["runtime"],
                                                                      *seen["out"][:2])}
     return out
-
-
-@contextmanager
-def without_module(name: str):
-    """``import name`` raises ImportError inside the block."""
-    saved = sys.modules.get(name)
-    sys.modules[name] = None
-    try:
-        yield
-    finally:
-        if saved is None:
-            del sys.modules[name]
-        else:
-            sys.modules[name] = saved
 
 
 def phase_init_methods(tmp: Path) -> dict:
@@ -715,6 +827,8 @@ def phase_workflow(tmp: Path) -> dict:
     from sbayes_tpu_torch import cli, simulation
     from sbayes_tpu_torch.config.schema import SBayesConfig
     from sbayes_tpu_torch.config.template import generate_template
+    from sbayes_tpu_torch.config.yaml_reader import load
+    from sbayes_tpu_torch.tools import elpd
     from sbayes_tpu_torch.tools.extract_prior_counts import extract_universal
     from sbayes_tpu_torch.tools.subsample import subsample_file
 
@@ -746,12 +860,17 @@ def phase_workflow(tmp: Path) -> dict:
         "feature_states": "sim/simulated_feature_states.csv", "projection": "epsg:4326"},
         results_cfg={"log_operator_step_times": False})
     cfg = json.loads(cfg_path.read_text())
+    cfg_path.unlink()
     cfg["model"]["prior"]["confounding_effects"]["universal"]["<ALL>"] = {
         "type": "dirichlet", "file": "universal.json"}
-    cfg_path.write_text(json.dumps(cfg))
+    del cfg["results"]["log_likelihood"]       # the default (true): elpd reads the files
+    cfg_path = d / "config.yaml"
+    cfg_path.write_text(yaml_text(cfg) + "\n")
+    if load(cfg_path) != cfg:
+        raise AssertionError("the workflow's YAML config does not read back as written")
     reset_counters()
     t0 = time.perf_counter()
-    with launches_per_k() as by_k:
+    with launches_per_k() as by_k, without_modules("yaml", "h5py"):
         cli.main(cfg_path, experiment_name="workflow", n_clusters=[1, 3],
                  device=DEVICE)
     torch.cuda.synchronize()
@@ -785,6 +904,23 @@ def phase_workflow(tmp: Path) -> dict:
     if max(f1_runs[0]) < 0.5:
         raise AssertionError(f"no true cluster recovered at F1 >= 0.5 by run 0: {f1_runs}")
 
+    # The K comparison by PSIS-LOO over every run's likelihood file: K = 3
+    # (the true number of clusters) must predict better than K = 1 in every
+    # run where both ELPDs are finite (PSIS-LOO can give NaN, ROADMAP C.11)
+    t0 = time.perf_counter()
+    with without_modules("yaml", "h5py"):
+        table = elpd.main(res)
+    wall["elpd_s"] = time.perf_counter() - t0
+    elpd_by_k = {k: [float(v) for kk, _, v in sorted(zip(table["k"], table["run"],
+                                                          table["elpd_loo"])) if kk == k]
+                 for k in (1, 3)}
+    if [len(elpd_by_k[k]) for k in (1, 3)] != [runs, runs]:
+        raise AssertionError(f"ELPDs of {elpd_by_k}: not one per run and K")
+    finite = [(a, b) for a, b in zip(elpd_by_k[1], elpd_by_k[3]) if np.isfinite([a, b]).all()]
+    if not finite or any(b <= a for a, b in finite):
+        raise AssertionError(f"K = 3's ELPD is not above K = 1's in every run where both are "
+                             f"finite: {elpd_by_k}")
+
     t0 = time.perf_counter()
     thinned = [subsample_file(res / "K3" / f"{p}_K3_0.txt", 2) for p in ("stats", "clusters")]
     n_rows = [len(f.read_text().splitlines()) for f in thinned]
@@ -800,9 +936,101 @@ def phase_workflow(tmp: Path) -> dict:
     wall["template_s"] = time.perf_counter() - t0
     return {"sites": w["sites"], "features": w["features"], "K": [1, 3], "runs": runs,
             "steps": cfg["mcmc"]["steps"], "wall": wall, "launches": launches,
-            "launches_by_k": by_k, "f1_run0": f1_runs[0],
+            "launches_by_k": by_k, "f1_run0": f1_runs[0], "elpd_by_k": elpd_by_k,
+            "elpd_finite_pairs": len(finite), "config": cfg_path.name,
             "f1_best_over_runs": np.max(f1_runs, axis=0).tolist(),
             "thinned_rows": n_rows, "template_lines": len(template)}
+
+
+def phase_entry_point(tmp: Path) -> dict:
+    """The reference's own entry point on a copy of ``tests/fixtures/`` (its
+    YAML config as it is, ``results.log_likelihood`` at its default, true),
+    with NOT_INSTALLED unimportable: ``python -m sbayes_tpu_torch config.yaml
+    -n cli -K 1 2`` in a child process on the card, then ``-r True`` with
+    ENTRY_POINT_RESUME's steps, then in this process ``cli.run_experiment``
+    on the fixture config and ``tools.elpd.main`` over the results. The
+    likelihood files of the resumed runs keep their first rows bit for bit;
+    every stats file has continuous sample ids; ``loglh`` and ``marginal``
+    run in each process and ``marginal_abs`` at K = 2."""
+    from sbayes_tpu_torch.cli import run_experiment
+    from sbayes_tpu_torch.config.yaml_reader import load
+    from sbayes_tpu_torch.data.loader import read_features_from_csv
+    from sbayes_tpu_torch.results.hdf5 import read_datasets
+    from sbayes_tpu_torch.tools import elpd
+
+    d = tmp / "entry_point"
+    d.mkdir()
+    for f in ("config.yaml", "features.csv", "feature_states.csv"):
+        shutil.copy(FIXTURES / f, d / f)
+    cfg = fixture_config()
+    steps, samples = cfg["mcmc"]["steps"], cfg["mcmc"]["samples"]
+    _, features, _ = read_features_from_csv(d / "features.csv", d / "feature_states.csv",
+                                            cfg["model"]["confounders"])
+    na = features.na_values.ravel()
+    wall, launches = {}, {}
+    cli_args = ("sbayes_tpu_torch", "config.yaml", "-n", "cli", "-K", "1", "2",
+                "--device", DEVICE)
+    out, wall["cli_s"] = run_without(d, NOT_INSTALLED, *cli_args)
+    launches["cli"] = out["launches"]
+    lh_files = {k: d / "results" / "cli" / f"K{k}" / f"likelihood_K{k}_0.h5" for k in (1, 2)}
+    first = {k: read_datasets(path)["likelihood"] for k, path in lh_files.items()}
+
+    text = (d / "config.yaml").read_text()
+    more = ENTRY_POINT_RESUME
+    (d / "config.yaml").write_text(text.replace(f"steps: {steps}", f"steps: {more['steps']}")
+                                   .replace(f"samples: {samples}", f"samples: {more['samples']}"))
+    if [load(d / "config.yaml")["mcmc"][k] for k in ("steps", "samples")] != [
+            more["steps"], more["samples"]]:
+        raise AssertionError("the resume's config does not hold the resume's steps")
+    out, wall["resume_s"] = run_without(d, NOT_INSTALLED, *cli_args, "-r", "True")
+    launches["resume"] = out["launches"]
+    rows = {}
+    interval = steps // samples
+    for k, path in lh_files.items():
+        datasets = read_datasets(path)
+        lh = datasets["likelihood"]
+        rows[f"K{k}"] = [len(first[k]), len(lh)]
+        if lh.shape != (more["samples"], na.size) or first[k].shape != (samples, na.size):
+            raise AssertionError(f"K = {k}: likelihood rows {first[k].shape} then {lh.shape}")
+        if not np.array_equal(datasets["na_values"], na):
+            raise AssertionError(f"K = {k}: na_values {datasets['na_values']}, the data's {na}")
+        if not np.array_equal(lh[:samples].view(np.uint32), first[k].view(np.uint32)):
+            raise AssertionError(f"K = {k}: the resume changed the likelihood file's first rows")
+        if not (np.isfinite(lh).all() and (lh > 0).all()):
+            raise AssertionError(f"K = {k}: likelihoods not finite and positive")
+        ids = [int(v) for v in stats_column(path.parent / f"stats_K{k}_0.txt", "Sample")]
+        if ids != list(range(interval, more["steps"] + 1, interval)):
+            raise AssertionError(f"K = {k}: samples {ids}")
+    (d / "config.yaml").write_text(text)
+
+    reset_counters()
+    with without_modules(*NOT_INSTALLED):
+        t0 = time.perf_counter()
+        run_experiment(d / "config.yaml", "api", device=DEVICE)
+        torch.cuda.synchronize()
+        wall["run_experiment_s"] = time.perf_counter() - t0
+        launches["run_experiment"] = counters()
+        t0 = time.perf_counter()
+        table = elpd.main(d / "results")
+        wall["elpd_s"] = time.perf_counter() - t0
+    api_rows = len(read_datasets(d / "results" / "api" / "K1" / "likelihood_K1_0.h5")[
+        "likelihood"])
+    if api_rows != samples:
+        raise AssertionError(f"run_experiment wrote {api_rows} likelihood rows")
+    elpds = {f"{e}_K{k}_{r}": float(v) for e, k, r, v in zip(
+        table["experiment"], table["k"], table["run"], table["elpd_loo"])}
+    if sorted(elpds) != ["api_K1_0", "cli_K1_0", "cli_K2_0"]:
+        raise AssertionError(f"ELPDs of {sorted(elpds)}")
+    need = {"cli": ("loglh", "marginal", "marginal_abs"), "resume": ("loglh", "marginal"),
+            "run_experiment": ("loglh", "marginal")}
+    for run, names in need.items():
+        if any(launches[run].get(n, 0) == 0 for n in names):
+            raise AssertionError(f"{run}: a kernel never launched: {launches[run]}")
+    return {"files": sorted(str(p.relative_to(d / "results")) for p in
+                            (d / "results").rglob("*") if p.is_file()),
+            "likelihood_rows": rows, "run_experiment_rows": api_rows, "elpd": elpds,
+            "wall": wall, "launches_by_run": launches,
+            "launches": add_launches(*launches.values()), "not_installed": list(NOT_INSTALLED)}
 
 
 def check_carried_state(consts, states, ref, stats, jump_idx=None, init_sizes=None) -> dict:
@@ -1163,8 +1391,8 @@ def wide_cap_check(rt, states, cap: int = 1, n_steps: int = 3) -> dict:
             "tries": n_steps * states.n_chains, "carried_vs_recompute_max_abs": errs}
 
 
-def scale_run(rt, gen, op_gen, states, init_sizes=None) -> tuple:
-    """SCALE_CHUNKS chunks of SCALE_CHUNK steps of the full schedule from
+def scale_run(rt, gen, op_gen, states, init_sizes=None, chunks: int = SCALE_CHUNKS) -> tuple:
+    """``chunks`` chunks of SCALE_CHUNK steps of the full schedule from
     ``states`` and the exact refresh a logged sample takes (from the carried
     counts: the likelihood kernel runs at init); the carried state against
     it (sizes within the bounds, or moved towards them from ``init_sizes``),
@@ -1175,7 +1403,7 @@ def scale_run(rt, gen, op_gen, states, init_sizes=None) -> tuple:
     stats = rt.new_stats(states.n_chains)
     reset_counters()
     t0 = time.perf_counter()
-    for _ in range(SCALE_CHUNKS):
+    for _ in range(chunks):
         states, stats = rt.run_chunk(gen, op_gen, states, stats, SCALE_CHUNK)
     torch.cuda.synchronize()
     t_run = time.perf_counter() - t0
@@ -1189,7 +1417,7 @@ def scale_run(rt, gen, op_gen, states, init_sizes=None) -> tuple:
     for i, name in enumerate(rt.op_names):
         if name.startswith("gibbs_sample_sources") and int(stats.rejects[:, i].sum()):
             raise AssertionError(f"{name} rejected a sweep")
-    n_steps = SCALE_CHUNK * SCALE_CHUNKS
+    n_steps = SCALE_CHUNK * chunks
     return states, {
         "steps": n_steps, "run_s": t_run, "steps_per_s": n_steps / t_run,
         "chain_steps_per_s": states.n_chains * n_steps / t_run, "peak_run_gb": peak_run / 1e9,
@@ -1352,7 +1580,7 @@ def phase_scale_geo(data) -> tuple:
     cost-based geo prior ``GEO_K3`` (bench.py's geo model), SCALE_CHAINS
     chains: from the EM start (the EM's geo term, the ML steps that weigh
     membership by the geo prior) and again from an in-bounds start, each
-    SCALE_CHUNKS chunks of SCALE_CHUNK steps of the full schedule, in which
+    SCALE_GEO_CHUNKS chunks of SCALE_CHUNK steps of the full schedule, in which
     the geo-weighted Gibbsish and wide operators weigh their proposals by
     the geo prior. Checks, each fatal, after each run: the carried state
     against its exact recompute (``check_carried_state``: counts exactly,
@@ -1396,12 +1624,13 @@ def phase_scale_geo(data) -> tuple:
             start, bounds = em_states, init_sizes
         else:
             start, bounds = in_bounds_start(rt, em_states, gen, size), None
-        states, run, launches = scale_run(rt, gen, op_gen, start, init_sizes=bounds)
+        states, run, launches = scale_run(rt, gen, op_gen, start, init_sizes=bounds,
+                                          chunks=SCALE_GEO_CHUNKS)
         if not launches.get("marginal"):
             raise AssertionError(f"scale_geo {name}: the marginal was not launched: {launches}")
         few = states.select(torch.arange(SCALE_KERNEL_CHAINS, device=c.device))
         info[name] = {**run, "geo_prior_parts": geo_prior_check(states),
-                      **scale_operator_times(rt, states, cap),
+                      **scale_operator_times(rt, states, cap, reps=SCALE_GEO_OP_REPS),
                       "update_geo": update_geo_cost(rt, states, reps=2),
                       "kernels_vs_plain": compare_with_plain(c, path_kernel_inputs(rt, few))}
         if name == "em_start":
@@ -1540,8 +1769,8 @@ def phase_ess(geo_prior: str) -> dict:
     window and split-R-hat; the trace's last row equal to the carried
     ``log_lh + log_prior``, the carried state equal to its recompute; kernels
     per step of a 50-step window with and without the trace (each profiled
-    twice), and steps per second of 200-step windows without, with, with and
-    without the trace (the same draws in each)."""
+    twice), and steps per second of ESS_RATE_WINDOW-step windows without,
+    with, with and without the trace (the same draws in each)."""
     from sbayes_tpu_torch.results.ess import multichain_ess, split_rhat
     from sbayes_tpu_torch.sampling.runner import make_generators
 
@@ -1595,7 +1824,7 @@ def phase_ess(geo_prior: str) -> dict:
     rates = {"with_trace": [], "without_trace": []}
     for on in (False, True, True, False):
         rates["with_trace" if on else "without_trace"].append(
-            schedule_window(rt, states, 200, trace=on)[0])
+            schedule_window(rt, states, ESS_RATE_WINDOW, trace=on)[0])
     return {"geo": geo_prior, "K": 3, "chains": CHAINS, "warmup_steps": ESS_WARMUP,
             "steps": ESS_STEPS, "run_s": wall, "steps_per_s": ESS_STEPS / wall,
             "multichain_ess": ess, "ess_per_s": ess / wall, "split_rhat": split_rhat(x),
@@ -2390,18 +2619,17 @@ def mesh_scale(rt, states, devices) -> dict:
 
 
 def mesh_pool(tmp: Path) -> dict:
-    """(d) The CLI's run pool: ``cli.main`` on the fixture's config (as
-    JSON, its CSV files) with 2 runs and MESH["pool_steps"] steps, three
+    """(d) The CLI's run pool: ``cli.main`` on the fixture's config (read by
+    the port's YAML reader, written as JSON, its CSV files) with 2 runs and MESH["pool_steps"] steps, three
     ways: one process (the runs as one ensemble), two spawned processes
     (``-t 2``, each run alone on the card) and ``-i 0; -i 1`` one after the
     other; the wall time of each, and each run's stats and clusters files
     complete with finite likelihoods."""
     from sbayes_tpu_torch import cli
 
-    fixtures = Path(__file__).resolve().parent / "tests" / "fixtures"
-    cfg = json.loads(json.dumps(FIXTURE_CONFIG))
-    cfg["data"] = {"features": str(fixtures / "features.csv"),
-                   "feature_states": str(fixtures / "feature_states.csv")}
+    cfg = fixture_config()
+    cfg["data"] = {"features": str(FIXTURES / "features.csv"),
+                   "feature_states": str(FIXTURES / "feature_states.csv")}
     samples = MESH["pool_samples"]
     cfg["mcmc"].update(runs=2, steps=MESH["pool_steps"], samples=samples)
     cfg["results"] = {"path": str(tmp / "pool"), "log_likelihood": False, "log_file": False,
@@ -2825,6 +3053,8 @@ def main() -> int:
         print(phase_line({"phase": "init_methods", **init_methods}), flush=True)
         workflow = phase_workflow(Path(tmp))
         print(phase_line({"phase": "workflow", "card": card, **workflow}), flush=True)
+        entry_point = phase_entry_point(Path(tmp))
+        print(phase_line({"phase": "entry_point", "card": card, **entry_point}), flush=True)
 
     rt, states, full = phase_full_width(CHAINS, STEPS)
     full.update({"device": torch.cuda.get_device_name(0), "card": card})
@@ -2897,7 +3127,7 @@ def main() -> int:
                "ess_cost_based": ess["cost_based"]["launches"],
                "init_seed_points": init_methods["seed_points"]["launches"],
                "init_random_growth": init_methods["random_growth"]["launches"],
-               "workflow": workflow["launches"],
+               "workflow": workflow["launches"], "entry_point": entry_point["launches"],
                "alt_operators": add_launches(*(a["launches"] for a in alt.values())),
                "prior_samples": prior["launches"], "scale": scale["launches"],
                "scale_in_bounds": scale["in_bounds"]["launches"], **later_scale,

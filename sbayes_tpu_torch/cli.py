@@ -3,13 +3,15 @@
 Port of ``sbayes_tpu/cli.py``: a config file (asked for in a file dialog
 when none is given and a display is there), ``-n/--name -t/--threads
 -r/--resume -K/--numClusters -i/--runID``, plus ``--device`` (default
-``cuda``; a CUDA device without a card raises). With one process, several
-runs of one K execute as one batched chain ensemble (split over the cards
-by ``parallel/mesh.py``); one run executes alone, and so does each run
-under MC3 (its ladder is the batch) or ``-r`` (the runs may resume at
-different steps). With ``-t N`` (N > 1) every (run, K) configuration runs
-alone (``mcmc.runs: 1``, its run id) in a pool of N spawned processes;
-under ``--device cuda`` configuration i runs on ``cuda:{i % device_count}``.
+``cuda``; a CUDA device without a card raises), and ``run_experiment``,
+the JAX package's entry point for one run (plus ``device``). With one
+process, several runs of one K execute as one batched chain ensemble
+(split over the cards by ``parallel/mesh.py``); one run executes alone
+through ``run_experiment``, and so does each run under MC3 (its ladder is
+the batch) or ``-r`` (the runs may resume at different steps). With ``-t
+N`` (N > 1) every (run, K) configuration runs alone (``mcmc.runs: 1``, its
+run id) in a pool of N spawned processes; under ``--device cuda``
+configuration i runs on ``cuda:{i % device_count}``.
 A configuration's exception reaches this process.
 """
 from __future__ import annotations
@@ -26,20 +28,30 @@ from sbayes_tpu_torch.experiment import Experiment
 from sbayes_tpu_torch.utils import PathLike, update_recursive
 
 
-def _run(config, experiment_name, custom_settings, run_ids, device, resume=False):
+def _mcmc_setup(config, experiment_name, custom_settings, i_run, device):
     from sbayes_tpu_torch.data.loader import Data
     from sbayes_tpu_torch.sampling.runner import MCMCSetup
 
     experiment = Experiment(config_file=config, experiment_name=experiment_name,
-                            custom_settings=custom_settings, log=True, i_run=run_ids[0])
+                            custom_settings=custom_settings, log=True, i_run=i_run)
     data = Data.from_experiment(experiment)
     data.logger = None
     mcmc = MCMCSetup(data=data, experiment=experiment, device=device)
     mcmc.log_setup()
-    if experiment.config.mcmc.mc3.activate:
-        mcmc.sample_mc3(run=run_ids[0], resume=resume)
+    return mcmc
+
+
+def run_experiment(config: PathLike, experiment_name: str, custom_settings: dict = None,
+                   resume: bool = False, i_run: int = 0, device: str = "cuda"):
+    """One run (``i_run``) of the config's model, as the JAX package's
+    ``cli.run_experiment``: MC3 when ``mcmc.mc3.activate``, else one chain;
+    ``resume`` continues the run's files. ``device``: the torch device to
+    sample on (default the card; a CUDA device without a card raises)."""
+    mcmc = _mcmc_setup(config, experiment_name, custom_settings, i_run, device)
+    if mcmc.config.mcmc.mc3.activate:
+        mcmc.sample_mc3(run=i_run, resume=resume)
     else:
-        mcmc.sample_ensemble(run_ids=run_ids, resume=resume)
+        mcmc.sample(run=i_run, resume=resume)
 
 
 def runner(args):
@@ -48,7 +60,7 @@ def runner(args):
     run_settings = deepcopy(custom_settings) if custom_settings else {}
     update_recursive(run_settings, {"model": {"clusters": int(n_clusters)},
                                     "mcmc": {"runs": 1}})
-    _run(config, experiment_name, run_settings, [i_run], device, resume)
+    run_experiment(config, experiment_name, run_settings, resume, i_run, device)
 
 
 def pool_device(device: str, i: int) -> str:
@@ -87,13 +99,17 @@ def main(config: PathLike, experiment_name: str = None, custom_settings: dict = 
                                  mp_context=multiprocessing.get_context("spawn")) as pool:
             list(pool.map(runner, tasks))
         return
-    one_at_a_time = resume or experiment.config.mcmc.mc3.activate
-    batches = [[r] for r in run_ids] if one_at_a_time else [run_ids]
+    one_at_a_time = resume or experiment.config.mcmc.mc3.activate or len(run_ids) == 1
     for k in n_clusters:
         run_settings = deepcopy(custom_settings) if custom_settings else {}
         update_recursive(run_settings, {"model": {"clusters": int(k)}})
-        for ids in batches:
-            _run(config, experiment.experiment_name, run_settings, ids, device, resume)
+        if one_at_a_time:
+            for r in run_ids:
+                run_experiment(config, experiment.experiment_name, run_settings, resume, r,
+                               device)
+        else:
+            _mcmc_setup(config, experiment.experiment_name, run_settings, run_ids[0],
+                        device).sample_ensemble(run_ids=run_ids)
 
 
 def _ask_config_file_dialog() -> "str | None":

@@ -14,8 +14,8 @@ defaults, enums and validators and builds from nested dicts through
 * relative file and directory paths resolve against the config file's
   directory (``RelativePath.BASE_DIR``).
 
-JSON configs are read with ``json``; PyYAML is imported only to read a
-``.yaml`` file.
+JSON configs are read with ``json``, YAML configs with the port's own
+reader (``config/yaml_reader.py``, no PyYAML).
 """
 from __future__ import annotations
 
@@ -27,6 +27,7 @@ from enum import Enum
 from pathlib import Path
 from typing import Dict, List, Optional, Union
 
+from sbayes_tpu_torch.config import yaml_reader
 from sbayes_tpu_torch.utils import PathLike, decompose_config_path, fix_relative_path, update_recursive
 
 
@@ -617,13 +618,11 @@ class SBayesConfig(BaseConfig):
         base_directory, _config_file = decompose_config_path(path)
         RelativePath.BASE_DIR = base_directory
 
-        with open(path, "r") as f:
-            path_str = str(path).lower()
-            if path_str.endswith(".yaml") or path_str.endswith("yml"):
-                import yaml
-
-                config_dict = yaml.safe_load(f)
-            else:
+        path_str = str(path).lower()
+        if path_str.endswith(".yaml") or path_str.endswith("yml"):
+            config_dict = yaml_reader.load(path)
+        else:
+            with open(path, "r") as f:
                 config_dict = json.load(f)
 
         if custom_settings:

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 from numpy.typing import NDArray
 
+from sbayes_tpu_torch.config import yaml_reader
 from sbayes_tpu_torch.config.schema import (
     ConfoundingEffectPriorConfig,
     DirichletPriorConfig,
@@ -73,11 +74,9 @@ def _oneovern_concentration(applicable: NDArray) -> NDArray:
 
 
 def _load_concentration_dict(path: Path) -> dict:
+    if Path(path).suffix.lower() in (".yaml", ".yml"):
+        return yaml_reader.load(path)
     with open(path, "r") as f:
-        if Path(path).suffix.lower() in (".yaml", ".yml"):
-            import yaml
-
-            return yaml.safe_load(f)
         return json.load(f)
 
 

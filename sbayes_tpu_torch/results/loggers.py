@@ -7,12 +7,14 @@ unchanged (sBlot plots, Tracer traces, the ELPD tool):
   * ``clusters_K{k}_{run}.txt``   — one row per sample: tab-separated
     bit-strings per cluster (ref: loggers.py:265-301)
   * ``likelihood_K{k}_{run}.h5``  — float32 per-observation likelihoods
-    (ref: loggers.py:304-359; h5py instead of PyTables, same dataset names)
+    (ref: loggers.py:304-359; HDF5 written by ``results/hdf5.py`` instead of
+    PyTables, same dataset names)
   * ``operator_stats_K{k}_{run}.txt`` — per-operator statistics table
   * ``state_K{k}_{run}.pickle``   — full chain state for resume
 """
 from __future__ import annotations
 
+import logging
 import pickle
 from abc import ABC, abstractmethod
 from dataclasses import dataclass, field
@@ -23,6 +25,7 @@ import numpy as np
 from numpy.typing import NDArray
 
 from sbayes_tpu_torch.model.constants import ModelConstants
+from sbayes_tpu_torch.results.hdf5 import LikelihoodFile
 from sbayes_tpu_torch.utils import format_cluster_columns, get_best_permutation
 
 
@@ -296,69 +299,31 @@ class ClustersLogger(ResultsLogger):
         self.file.write(format_cluster_columns(clusters) + "\n")
 
 
-def require_likelihood_writer(config) -> None:
-    """Raise before a run starts if it would log the likelihood file (HDF5,
-    written with h5py) where h5py is not installed."""
-    if config.mcmc.sample_from_prior or not config.results.log_likelihood:
-        return
-    try:
-        import h5py  # noqa: F401
-    except ImportError as e:
-        raise ImportError(
-            "`results.log_likelihood` is true, and the likelihood file is HDF5, written with "
-            "h5py, which is not installed: set `results.log_likelihood: false` or install "
-            "h5py.") from e
-
-
 class LikelihoodLogger(ResultsLogger):
-    """Per-observation likelihoods to HDF5 (same dataset names as the
-    reference's PyTables file: 'likelihood' and 'na_values')."""
-
-    def __init__(self, *args, **kwargs):
-        super().__init__(*args, **kwargs)
-        self._lh_ds = None
+    """Per-observation likelihoods, one row per sample, to the HDF5 file of
+    ``results/hdf5.py`` (the reference's dataset names, 'likelihood' and
+    'na_values'; read by h5py as the JAX logger's file). A resumed run
+    appends to the file; one this writer cannot append to (h5py's, chunked)
+    is overwritten after a warning."""
 
     def open(self):
-        import h5py
-
+        n_columns = self.consts.N * self.consts.F
         if self.resume and self.path.exists():
             try:
-                self.file = h5py.File(self.path, "a")
+                self.file = LikelihoodFile.append_to(self.path, n_columns)
                 return
-            except OSError:
-                import logging
-
+            except ValueError:              # UnsupportedLayout, or a truncated file
                 logging.warning(
                     f"Could not append to existing likelihood file '{self.path.name}'. Overwriting."
                 )
                 self.resume = False
-        self.file = h5py.File(self.path, "w")
+        self.file = LikelihoodFile.create(self.path, _np(self.consts.na).ravel())
 
     def write_header(self, sample: SampleRecord):
-        n_obs = self.consts.N * self.consts.F
-        if self.resume and "likelihood" in self.file:
-            self._lh_ds = self.file["likelihood"]
-        else:
-            self._lh_ds = self.file.create_dataset(
-                "likelihood", shape=(0, n_obs), maxshape=(None, n_obs),
-                dtype=np.float32, compression="gzip", compression_opts=4,
-                fletcher32=True,
-            )
-            self.file.create_dataset(
-                "na_values", data=_np(self.consts.na).ravel(),
-                dtype=bool, compression="gzip", fletcher32=True,
-            )
+        pass
 
     def _write_sample(self, sample: SampleRecord):
-        lh = np.asarray(sample.observation_lh, dtype=np.float32).ravel()[None, :]
-        self._lh_ds.resize(self._lh_ds.shape[0] + 1, axis=0)
-        self._lh_ds[-1] = lh
-        self.file.flush()
-
-    def close(self):
-        if self.file:
-            self.file.close()
-            self.file = None
+        self.file.append(np.asarray(sample.observation_lh, dtype=np.float32).ravel())
 
 
 @dataclass

@@ -5,9 +5,10 @@ results directory for ``likelihood_K*_*.h5`` files, computes the PSIS-LOO
 ELPD of each run (own PSIS implementation — no arviz dependency) and
 writes a comparison plot + table. Copy of ``sbayes_tpu/tools/elpd.py`` for
 the PyTorch port, without pandas: the table is a ``utils.Table`` with the
-JAX tool's columns and types. It still needs h5py, which reads the
-likelihood files (``results.log_likelihood``, HDF5 as in the JAX package),
-and matplotlib for the plot; both are imported where they are used.
+JAX tool's columns and types. The likelihood files are read by
+``results/hdf5.py``; h5py is imported only for a file in a layout that
+reader does not read (chunked, as the JAX logger writes it), and
+matplotlib only for the plot.
 """
 from __future__ import annotations
 
@@ -17,26 +18,39 @@ from pathlib import Path
 
 import numpy as np
 
+from sbayes_tpu_torch.results.hdf5 import UnsupportedLayout, read_datasets
 from sbayes_tpu_torch.tools.psis import psis_loo
 from sbayes_tpu_torch.utils import Table
 
 PathLike = Path | str
 
 
+def _read_with_h5py(likelihood_path: PathLike) -> dict:
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError(
+            f"'{likelihood_path}' is an HDF5 file in a layout that only h5py reads (chunked or "
+            f"compressed, as the JAX logger writes it), and h5py is not installed") from e
+    with h5py.File(likelihood_path, "r") as f:
+        return {name: np.asarray(f[name]) for name in ("likelihood", "na_values") if name in f}
+
+
 def read_log_likelihood(likelihood_path: PathLike, burnin: float) -> np.ndarray:
     """(n_samples, n_valid_observations) log-likelihood matrix."""
-    import h5py
-
-    with h5py.File(likelihood_path, "r") as f:
-        lik = np.asarray(f["likelihood"])
-        if "na_values" in f:
-            is_na = np.asarray(f["na_values"])
-        else:
-            warnings.warn(
-                f"No `na_values` array found in `{likelihood_path}`. Assuming observations "
-                f"with constant likelihood 1.0 are NAs."
-            )
-            is_na = np.all(np.isclose(lik, 1), axis=0)
+    try:
+        datasets = read_datasets(likelihood_path)
+    except UnsupportedLayout:
+        datasets = _read_with_h5py(likelihood_path)
+    lik = datasets["likelihood"]
+    if "na_values" in datasets:
+        is_na = datasets["na_values"]
+    else:
+        warnings.warn(
+            f"No `na_values` array found in `{likelihood_path}`. Assuming observations "
+            f"with constant likelihood 1.0 are NAs."
+        )
+        is_na = np.all(np.isclose(lik, 1), axis=0)
 
     lik = lik[:, ~is_na]
     burnin_int = int(burnin * len(lik))

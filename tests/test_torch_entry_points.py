@@ -1,7 +1,8 @@
-"""Two rules of the port, checked on its source: no module of
+"""Rules of the port, checked on its source: no module of
 ``sbayes_tpu_torch`` and not ``chip_smoke.py`` imports JAX or the JAX package
-(the card's machine has neither), and every entry point defaults to the CUDA
-device and raises without a card instead of falling back to the CPU."""
+(the card's machine has neither), nor PyYAML, nor h5py outside the ELPD
+tool's fallback; and every entry point defaults to the CUDA device and
+raises without a card instead of falling back to the CPU."""
 import ast
 import inspect
 import subprocess
@@ -32,6 +33,38 @@ def test_no_jax_import():
     banned = {str(p.relative_to(ROOT)): m for p in PORT_FILES for m in _imported_modules(p)
               if m.split(".")[0] in ("jax", "jaxlib", "sbayes_tpu")}
     assert not banned, banned
+
+
+def _import_sites(path: Path, package: str) -> list:
+    """The functions (None: module level) whose body imports ``package``."""
+    sites = []
+
+    def visit(node, function):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                visit(child, child.name)
+                continue
+            names = ([a.name for a in child.names] if isinstance(child, ast.Import) else
+                     [child.module] if isinstance(child, ast.ImportFrom) and child.module else [])
+            if any(n.split(".")[0] == package for n in names):
+                sites.append(function)
+            visit(child, function)
+
+    visit(ast.parse(path.read_text()), None)
+    return sites
+
+
+def test_no_yaml_and_h5py_only_in_the_elpd_fallback():
+    """The card's machine has neither PyYAML nor h5py: no file of the port
+    imports ``yaml`` (YAML goes through ``config/yaml_reader.py``), and
+    ``h5py`` is imported at one place only, ``tools/elpd.py``'s reader of a
+    file in a layout only h5py reads (the likelihood files go through
+    ``results/hdf5.py``)."""
+    sites = {package: {str(p.relative_to(ROOT)): _import_sites(p, package)
+                       for p in PORT_FILES if _import_sites(p, package)}
+             for package in ("yaml", "h5py")}
+    assert sites == {"yaml": {},
+                     "h5py": {"sbayes_tpu_torch/tools/elpd.py": ["_read_with_h5py"]}}
 
 
 def test_the_workflow_modules_are_scanned():

@@ -297,3 +297,32 @@ def test_object_split_run_on_the_card():
     assert torch.equal(refs[0].log_lh, loglh.log_likelihood(rt.consts, whole.clusters,
                                                             whole.source))
     chip_smoke.check_carried_state(sp.head, shards[0], refs[0], stats[0])
+
+
+@pytest.mark.gpu
+def test_run_experiment_on_the_fixture_yaml_on_the_card(tmp_path):
+    """``cli.run_experiment`` on ``tests/fixtures/config.yaml`` on the card,
+    the YAML read by the port's reader and ``results.log_likelihood`` at its
+    default (true): both kernels launched, and the likelihood file (20 rows of
+    objects x features, float32, finite and positive; ``na_values`` as bool)
+    read back by the plain reader."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import shutil
+
+    from sbayes_tpu_torch.cli import run_experiment
+    from sbayes_tpu_torch.ops import loglh, marginal
+    from sbayes_tpu_torch.results.hdf5 import read_datasets
+
+    for f in ("config.yaml", "features.csv", "feature_states.csv"):
+        shutil.copy(ROOT / "tests" / "fixtures" / f, tmp_path / f)
+    loglh.launches.reset()
+    marginal.launches.reset()
+    run_experiment(tmp_path / "config.yaml", "gpu",
+                   custom_settings={"results": {"path": str(tmp_path / "results")}})
+    assert loglh.launches.count > 0 and marginal.launches.count > 0
+    out = read_datasets(tmp_path / "results" / "gpu" / "K1" / "likelihood_K1_0.h5")
+    lh = out["likelihood"]
+    assert lh.dtype == "<f4" and lh.shape == (20, 10)
+    assert bool(((lh > 0) & (lh < float("inf"))).all())
+    assert out["na_values"].dtype == bool and int(out["na_values"].sum()) == 1

@@ -234,11 +234,8 @@ from sbayes_tpu_torch.tools.subsample import subsample_file
 stats = d / "results" / "blocked" / "K1" / "stats_K1_0.txt"
 out["subsampled_rows"] = len(subsample_file(stats, 2).read_text().splitlines())
 out["results"] = sorted(p.name for p in (d / "results" / "blocked" / "K1").iterdir())
-try:
-    cli.cli([str(d / "config_lh.json"), "-n", "with_lh", "--device", "cpu"])
-except ImportError as e:
-    out["log_likelihood_error"] = str(e)
-out["with_lh_written"] = (d / "results" / "with_lh").exists()
+cli.cli([str(d / "config_lh.json"), "-n", "with_lh", "--device", "cpu"])
+out["with_lh_results"] = sorted(p.name for p in (d / "results" / "with_lh" / "K1").iterdir())
 out["modules"] = sorted(m for m in ("pandas", "h5py", "yaml", "jax", "matplotlib")
                         if sys.modules.get(m) is not None)
 print(json.dumps(out))
@@ -299,10 +296,17 @@ def test_workflow_runs_without_pandas_h5py_yaml_jax_matplotlib(blocked_run):
     assert out["modules"] == []
 
 
-def test_log_likelihood_without_h5py_raises_before_the_run(blocked_run):
-    """``results.log_likelihood: true`` without h5py: an ImportError that
-    names the setting, raised before the results directory of the run
-    exists."""
+def test_log_likelihood_without_h5py_writes_the_file(blocked_run):
+    """``results.log_likelihood: true`` without h5py: the run writes the
+    likelihood file beside the others, and h5py reads it here: float32
+    (samples, objects x features) and the data's NA mask as bool."""
+    import h5py
+
     d, out = blocked_run
-    assert "results.log_likelihood" in out["log_likelihood_error"]
-    assert out["with_lh_written"] is False
+    assert out["with_lh_results"] == ["clusters_K1_0.txt", "likelihood_K1_0.h5",
+                                      "operator_stats_K1_0.txt", "state_K1_0.pickle",
+                                      "stats_K1_0.txt"]
+    with h5py.File(d / "results" / "with_lh" / "K1" / "likelihood_K1_0.h5", "r") as f:
+        assert f["likelihood"].dtype == np.dtype("<f4") and f["likelihood"].shape == (10, 10)
+        assert f["na_values"].dtype == np.dtype(bool) and f["na_values"][()].sum() == 1
+        assert np.all(np.isfinite(f["likelihood"][()]))
