@@ -262,9 +262,6 @@ FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures"
 # entry points (the child processes and the in-process runs)
 ENTRY_POINT_RESUME = {"steps": 600, "samples": 30}
 NOT_INSTALLED = ("yaml", "h5py", "pandas", "jax", "jaxlib")
-LOGLH_TOL_REL = 1e-5             # lgammaf vs torch.lgamma, summation order (of the total)
-MARGINAL_TOL_ABS = 1e-4          # 36 logs summed in another order (per object)
-MARGINAL_TOL_FEATURES = 36       # wider data: the tolerance grows with the logs summed
 
 
 def fixture_config() -> dict:
@@ -442,11 +439,9 @@ def smoke_config(path: Path, results: Path, n_clusters: int = 1, geo: dict = Non
 
 
 def reset_counters():
-    from sbayes_tpu_torch.ops import loglh, marginal
+    from sbayes_tpu_torch.ops.check import reset_launches
 
-    for counter in (loglh.launches, loglh.counts_launches, loglh.from_counts_launches,
-                    marginal.launches):
-        counter.reset()
+    reset_launches()
 
 
 def counters() -> dict:
@@ -1228,6 +1223,7 @@ def phase_jump_512(n_chains: int = 64, n_steps: int = 50) -> dict:
     must have been launched, and the carried state must equal its recompute."""
     from sbayes_tpu_torch.model.math import normalize_weights, sample_categorical_onehot
     from sbayes_tpu_torch.model.model import Model
+    from sbayes_tpu_torch.ops.check import compare_with_plain, jump_kernel_inputs
     from sbayes_tpu_torch.sampling.conditionals import Conditionals
     from sbayes_tpu_torch.sampling.kernel import OperatorStats, make_mh_apply_fn
     from sbayes_tpu_torch.sampling.operators import OperatorFactory, OperatorSpec
@@ -1442,6 +1438,7 @@ def phase_scale() -> tuple:
     ``phase_scale_mc3`` starts from the first SCALE_MC3 rungs, the ``mesh``
     phase splits all of them)."""
     from sbayes_tpu_torch.ops import marginal
+    from sbayes_tpu_torch.ops.check import compare_with_plain, path_kernel_inputs
     from sbayes_tpu_torch.sampling.operators import OperatorFactory
     from sbayes_tpu_torch.sampling.runner import make_generators
 
@@ -1592,6 +1589,7 @@ def phase_scale_geo(data) -> tuple:
     ``_update_geo`` (launches, wall ms, Prim iterations) and one tiled
     against one untiled ``geo_prior_costs_per_object``. Returns (phase
     info, launches by start)."""
+    from sbayes_tpu_torch.ops.check import compare_with_plain, path_kernel_inputs
     from sbayes_tpu_torch.sampling.operators import OperatorFactory
     from sbayes_tpu_torch.sampling.runner import make_generators
 
@@ -1658,6 +1656,7 @@ def phase_scale_mc3(rt, start) -> tuple:
     SCALE_KERNEL_CHAINS hottest rungs at their own temperatures. Returns
     (phase info, the ladder's launches, the heat variant timed on those
     rungs' inputs)."""
+    from sbayes_tpu_torch.ops.check import compare_with_plain, mc3_kernel_inputs
     from sbayes_tpu_torch.sampling.runner import make_generators
     from sbayes_tpu_torch.sampling.state import ChainState
 
@@ -1908,6 +1907,7 @@ def phase_prior_samples(rt) -> dict:
     the bounds, weights on the simplex, ``log_lh`` (the likelihood kernel)
     against the plain likelihood of the same samples."""
     from sbayes_tpu_torch.ops import loglh
+    from sbayes_tpu_torch.ops.check import LOGLH_TOL_REL
     from sbayes_tpu_torch.sampling.prior_sampling import generate_prior_samples
     from sbayes_tpu_torch.sampling.runner import make_generators
 
@@ -2002,72 +2002,6 @@ def marginal_variant_args(inputs: dict, ratio: bool, heat: bool, two_eff: bool) 
     return args, dict(ratio=ratio, two_eff=two_eff)
 
 
-def path_kernel_inputs(rt, states) -> dict:
-    """The inputs both kernels get on the main path, from the chains' own
-    state: memberships and sources, and the effects, weights and
-    availabilities the Gibbsish operators hand to the marginal."""
-    from sbayes_tpu_torch.model.math import normalize
-    from sbayes_tpu_torch.sampling.conditionals import _pick_cluster
-
-    c = rt.consts
-    B = states.n_chains
-    dev = states.clusters.device
-    hc = rt.post.has_components(states.clusters)
-    hc_flip = hc.clone()
-    hc_flip[..., 0] = ~hc[..., 0]
-    i_cluster = torch.zeros(B, dtype=torch.long, device=dev)
-    p_eff = normalize(_pick_cluster(states.cl_counts, i_cluster) + c.conc_cluster[None])
-    return {"clusters": states.clusters, "source": states.source, "p_eff": p_eff,
-            "p_other": normalize(torch.roll(p_eff, 1, dims=0) + 0.1),
-            "conf_eff": normalize(states.conf_counts + c.conc_conf[None]),
-            "wh": states.weights.contiguous(), "hc": hc.float(), "hc_flip": hc_flip.float(),
-            "incl": hc[..., 0].float(), "inv_t": torch.full((B,), 1.0 / 1.3, device=dev)}
-
-
-def jump_kernel_inputs(cond, states) -> dict:
-    """The inputs the jump operator gives both kernels, from the chains' own
-    state: the effects of clusters 0 (source) and 1 (target) as the two
-    effect rows, ``hc_flip = hc`` and ``incl = 1``."""
-    from sbayes_tpu_torch.model.math import normalize
-
-    c = cond.consts
-    B = states.n_chains
-    hc = cond.post.has_components(states.clusters).float()
-    effects = normalize(states.cl_counts[:, :2] + c.conc_cluster[None, None])
-    return {"clusters": states.clusters, "source": states.source, "p_eff": effects[:, 0],
-            "p_other": effects[:, 1],
-            "conf_eff": normalize(states.conf_counts + c.conc_conf[None]),
-            "wh": states.weights.contiguous(), "hc": hc, "hc_flip": hc,
-            "incl": torch.ones((B, c.N), device=hc.device),
-            "inv_t": torch.full((B,), 1.0 / 1.3, device=hc.device)}
-
-
-def mc3_kernel_inputs(rt, states, temps, prior_temps=None) -> dict:
-    """The inputs the wide operator gives the heat variant under per-chain
-    likelihood temperatures ``temps`` and prior temperatures
-    ``prior_temps`` (None: ``temps``), from the chains' own state: the
-    heated effect of cluster 0 (counts over T, concentration over Tp), the
-    weights to the power 1/Tp and ``inv_t = 1/T`` per chain."""
-    from sbayes_tpu_torch.model.math import conditional_effect_mean, normalize, per_chain
-
-    c = rt.consts
-    if prior_temps is None:
-        prior_temps = temps
-    hc = rt.post.has_components(states.clusters)
-    hc_flip = hc.clone()
-    hc_flip[..., 0] = ~hc[..., 0]
-    p_eff = conditional_effect_mean(c.conc_cluster[None], states.cl_counts[:, 0],
-                                    c.unif_conc[None], prior_temps, temps)
-    inv_t = 1.0 / temps
-    inv_tp = 1.0 / prior_temps
-    return {"clusters": states.clusters, "source": states.source, "p_eff": p_eff,
-            "p_other": normalize(torch.roll(p_eff, 1, dims=0) + 0.1),
-            "conf_eff": normalize(states.conf_counts + c.conc_conf[None]),
-            "wh": (states.weights ** per_chain(inv_tp, states.weights)).contiguous(),
-            "hc": hc.float(), "hc_flip": hc_flip.float(), "incl": hc[..., 0].float(),
-            "inv_t": inv_t}
-
-
 def residual_kernel_inputs(cond, states) -> dict:
     """The inputs the residual-counts wide operator gives the marginal at the
     temperatures of ``cond``: the residual-counts effect of cluster 0, the
@@ -2144,51 +2078,13 @@ def random_kernel_inputs(c, n_chains: int, seed: int) -> dict:
             "inv_t": 0.5 + rand(B)}
 
 
-def compare_with_plain(c, inputs: dict) -> dict:
-    """Both kernels and every marginal variant against their plain versions
-    on ``inputs``; the likelihood on both source forms (the packed kernel
-    bit-equal to the bool one: the same terms in fixed point); raises beyond
-    a tolerance, returns the largest errors."""
-    from sbayes_tpu_torch.model.math import pack_source, source_is_packed, source_onehot
-    from sbayes_tpu_torch.ops import loglh, marginal
-
-    src = inputs["source"]
-    forms = {"packed": src if source_is_packed(src) else pack_source(src),
-             "bool": source_onehot(src, c.C)}
-    got = {k: loglh.log_likelihood(c, inputs["clusters"], v) for k, v in forms.items()}
-    want = loglh.log_likelihood_plain(c, inputs["clusters"], src)
-    again = [loglh.log_likelihood(c, inputs["clusters"], forms["packed"]) for _ in range(4)]
-    torch.cuda.synchronize()
-    if not all(torch.equal(got["packed"], other) for other in again + [got["bool"]]):
-        raise AssertionError("loglh kernel: launches on the same inputs (either source form) "
-                             "differ in bits")
-    got = got["bool"]
-    errs = {"loglh_abs": float((got - want).abs().max()),
-            "loglh_rel": float(((got - want).abs() / want.abs()).max()),
-            "loglh_packed_equals_bool": True}
-    if not errs["loglh_rel"] <= LOGLH_TOL_REL:
-        raise AssertionError(f"loglh kernel vs plain (N, F, S = {c.N, c.F, c.S}): relative "
-                             f"error {errs['loglh_rel']} > {LOGLH_TOL_REL}")
-    for variant in marginal.VARIANTS:
-        args, kw = marginal_variant_args(inputs, *variant)
-        got = marginal.marginal(c, *args, **kw)
-        want = marginal.marginal_plain(c, *args, **kw)
-        torch.cuda.synchronize()
-        name = marginal.variant_name(*variant)
-        errs[name] = float((got - want).abs().max())
-        tol = MARGINAL_TOL_ABS * max(1.0, c.F / MARGINAL_TOL_FEATURES)
-        if not errs[name] <= tol:
-            raise AssertionError(f"{name} kernel vs plain (N, F, S = {c.N, c.F, c.S}): "
-                                 f"{errs[name]} > {tol}")
-    return errs
-
-
 def tiled_check(n_features: int = 400, n_chains: int = 64) -> dict:
     """Both kernels against their plain versions on data wide enough that
     their tables pass the shared-memory budget, so each walks the features
     in tiles; random memberships, valid sources, random effects."""
     from sbayes_tpu_torch.model.model import Model
     from sbayes_tpu_torch.ops import loglh, marginal
+    from sbayes_tpu_torch.ops.check import compare_with_plain
     from sbayes_tpu_torch.testing import synthetic_config, synthetic_data
 
     c = Model(synthetic_data(n_features=n_features), synthetic_config(n_clusters=1).model,
@@ -2209,6 +2105,7 @@ def odd_shape_check(n_chains: int = 3) -> dict:
     a multiple of 16 bytes, so every table takes the kernels' plain-load
     path, and the ragged edges of every loop are exercised."""
     from sbayes_tpu_torch.model.model import Model
+    from sbayes_tpu_torch.ops.check import compare_with_plain
     from sbayes_tpu_torch.testing import synthetic_config, synthetic_data
 
     data = synthetic_data(n_objects=37, n_features=7, n_states=5, n_families=5,
@@ -2234,6 +2131,7 @@ def components_check(n_chains: int = 5) -> dict:
     kernels are compiled for 2, 3, 4 and for any other number of components:
     this launches each of those."""
     from sbayes_tpu_torch.model.model import Model
+    from sbayes_tpu_torch.ops.check import compare_with_plain
     from sbayes_tpu_torch.testing import synthetic_config, synthetic_data
 
     out = {}
@@ -2256,6 +2154,7 @@ def many_groups_check(n_chains: int = 2) -> dict:
     block (up to 227 KB) and walks the features one at a time."""
     from sbayes_tpu_torch.model.model import Model
     from sbayes_tpu_torch.ops import loglh, marginal
+    from sbayes_tpu_torch.ops.check import compare_with_plain
     from sbayes_tpu_torch.testing import synthetic_config, synthetic_data
 
     data = synthetic_data(n_objects=1200, n_features=3, n_states=6, n_families=1100, seed=3)
@@ -2303,6 +2202,8 @@ def phase_kernels(rt, states, rt_k3, states_k3, rt_mc3, states_mc3, temps_mc3,
     ``temps_mc3``), with ``residual_launches``: the residual wide operators'
     launches in ``alt_operators``."""
     from sbayes_tpu_torch.ops import marginal
+    from sbayes_tpu_torch.ops.check import (
+        compare_with_plain, jump_kernel_inputs, mc3_kernel_inputs, path_kernel_inputs)
     from sbayes_tpu_torch.sampling.conditionals import Conditionals
 
     c = rt.consts
@@ -2408,10 +2309,12 @@ def shard_launches(sh, j: int) -> dict:
     return out
 
 
-def split_runtime(rt, n_chains: int, devices):
-    """``rt.shard(n_chains)`` as ``auto_chain_mesh`` splits it over ``devices``."""
+def split_runtime(rt, n_chains: int, devices, processes: bool = False):
+    """The split of ``n_chains`` over ``devices`` as ``auto_chain_mesh`` gives
+    it: the thread split (``rt.sharded``), or with ``processes`` the one
+    ``rt.shard`` gives (a process per shard)."""
     with split_over(devices):
-        sh = rt.shard(n_chains)
+        sh = rt.shard(n_chains) if processes else rt.sharded(rt.split_mesh(n_chains))
     if sh.n_shards != len(devices):
         raise AssertionError(f"{n_chains} chains split into {sh.n_shards} shards, "
                              f"not {len(devices)}")
@@ -2435,6 +2338,8 @@ def mesh_ensemble(rt, states, devices) -> dict:
     carried counts and ``geo_agg`` against the recompute; the launches on
     shard 1's device and stream; both kernels against their plain versions
     on shard 1's chains (from its device, whatever the current device)."""
+    from sbayes_tpu_torch.ops.check import (
+        compare_with_plain, jump_kernel_inputs, path_kernel_inputs)
     from sbayes_tpu_torch.parallel.mesh import ShardGenerators
     from sbayes_tpu_torch.sampling.runner import make_generators
 
@@ -2508,6 +2413,7 @@ def mesh_mc3(rt, states, temps, devices) -> dict:
     accepted overall and across the shard boundary, every shard's carried
     state against the recompute, the heat variant launched on shard 1 and
     held against its plain version on shard 1's rungs."""
+    from sbayes_tpu_torch.ops.check import compare_with_plain, mc3_kernel_inputs
     from sbayes_tpu_torch.parallel.mesh import ShardGenerators
     from sbayes_tpu_torch.sampling.runner import make_generators
 
@@ -2532,6 +2438,7 @@ def mesh_mc3(rt, states, temps, devices) -> dict:
     rt1 = sh.rts[1]
     kernels = compare_with_plain(rt1.consts, mc3_kernel_inputs(rt1, shards[1], t_split[1]))
 
+    bits = (sh.gather(shards), sh.gather(stats), swaps.copy())
     gen, op_gen = make_generators(47, DEVICE)
     plain_swaps = np.zeros_like(swaps)
     sync_all()
@@ -2552,7 +2459,7 @@ def mesh_mc3(rt, states, temps, devices) -> dict:
             "unsplit_chain_steps_per_s": n * MESH["mc3_plain_steps"] / t_plain,
             "unsplit_swaps_accepted": int(plain_swaps[0].sum()),
             "launches": launches, "launches_shard1": shard1,
-            "carried_vs_recompute_max_abs": errs, "shard1_kernels_vs_plain": kernels}
+            "carried_vs_recompute_max_abs": errs, "shard1_kernels_vs_plain": kernels}, bits
 
 
 def mesh_scale(rt, states, devices) -> dict:
@@ -2661,23 +2568,226 @@ def mesh_pool(tmp: Path) -> dict:
             "t2_over_ensemble": wall["t2"] / wall["t1"], "launches_in_process": launches}
 
 
+def worker_launches(counts: dict) -> dict:
+    """A worker's ``ops.check.launch_counts`` in the form of ``counters``."""
+    from sbayes_tpu_torch.ops import marginal
+
+    out = {"loglh": counts["loglh"]["count"]}
+    for key, n in counts["marginal"]["variants"].items():
+        out[marginal.variant_name(*key)] = n
+    return out
+
+
+def unequal_fields(a, b) -> list:
+    """The fields in which two chain batches (ChainState, OperatorStats)
+    differ in bits."""
+    return [name for name, x, y in zip(a._fields, a, b)
+            if (x is None) != (y is None) or (x is not None and not torch.equal(x, y))]
+
+
+def timed(fn) -> tuple:
+    """(fn(), seconds) with every card synchronised before and after."""
+    sync_all()
+    t0 = time.perf_counter()
+    out = fn()
+    sync_all()
+    return out, time.perf_counter() - t0
+
+
+def processes_ensemble(rt, states, devices) -> dict:
+    """(e)(a) The K = 3 ensemble split over ``devices`` with one process per
+    shard (``SamplerRuntime.shard``): the spawn-to-ready time, a split init
+    (the likelihood kernel), then MESH["pairs"] rounds of MESH["window"]-step
+    windows from ``states``, alternating the process split, the thread split
+    (both from generators of one seed) and the unsplit batch, chain-steps/s
+    of each; the process split's states and statistics bit-equal to the
+    thread split's, its carried state against the recompute, the launches
+    in this process (shard 0) and in worker 1 on the path, then both
+    kernels against their plain versions inside worker 1."""
+    from sbayes_tpu_torch.ops.check import shard_vs_plain
+    from sbayes_tpu_torch.parallel.mesh import ShardGenerators
+    from sbayes_tpu_torch.sampling.runner import ProcessShardedRuntime, make_generators
+
+    n, w = states.n_chains, MESH["window"]
+    sh = split_runtime(rt, n, devices, processes=True)
+    threads = split_runtime(rt, n, devices)
+    if not isinstance(sh, ProcessShardedRuntime):
+        raise AssertionError(f"rt.shard gave {type(sh).__name__}, not the process split")
+    _, t_spawn = timed(sh.start)
+    reset_counters()
+    sh.reset_launches()
+    gens = {k: ShardGenerators(make_generators(61, DEVICE)[0]) for k in ("processes", "threads")}
+    _, t_init = timed(lambda: sh.init_chains(ShardGenerators(make_generators(60, DEVICE)[0]), n))
+    launches = counters()
+    op_gens = {k: make_generators(61, DEVICE)[1] for k in ("processes", "threads", "unsplit")}
+    gen_unsplit = make_generators(62, DEVICE)[0]
+    runs = {"processes": [sh, sh.split(states), sh.new_stats(n)],
+            "threads": [threads, threads.split(states), threads.new_stats(n)],
+            "unsplit": [None, states, rt.new_stats(n)]}
+    rates = {k: [] for k in runs}
+    for _ in range(MESH["pairs"]):
+        for name, run in runs.items():
+            if name == "processes":
+                reset_counters()
+            if run[0] is None:
+                (run[1], run[2]), t = timed(lambda: rt.run_chunk(
+                    gen_unsplit, op_gens[name], run[1], run[2], w))
+            else:
+                (run[1], run[2]), t = timed(lambda: run[0].run_chunk(
+                    gens[name], op_gens[name], run[1], run[2], w))
+            rates[name].append(n * w / t)
+            if name == "processes":
+                launches = add_launches(launches, counters())
+    p_states, p_stats = runs["processes"][1:]
+    reset_counters()
+    refs = sh.refresh(p_states)
+    launches = add_launches(launches, counters())
+    worker1 = worker_launches(sh.launch_counts()[1])
+    for name in ("loglh", "marginal", "marginal_abs"):
+        if not worker1.get(name):
+            raise AssertionError(f"mesh processes: {name} never launched in worker 1: {worker1}")
+    gathered = (sh.gather(p_states), sh.gather(p_stats))
+    unequal = (unequal_fields(gathered[0], threads.gather(runs["threads"][1]))
+               + unequal_fields(gathered[1], threads.gather(runs["threads"][2])))
+    if unequal:
+        raise AssertionError(f"mesh processes: the process split differs from the thread "
+                             f"split in {unequal}")
+    errs = check_carried_state(rt.consts, gathered[0], sh.gather(refs), gathered[1],
+                               rt.op_names.index("cluster_jump_gibbsish"))
+    kernels = {inputs: sh.on_shard(1, shard_vs_plain, states=p_states[1], inputs=inputs)
+               for inputs in ("path", "jump")}
+    p, t, u = (np.array(rates[k]) for k in ("processes", "threads", "unsplit"))
+    return {"chains": n, "shards": sh.n_shards, "spawn_to_ready_s": sh.startup_s,
+            "start_s": t_spawn, "split_init_s": t_init, "window_steps": w,
+            "chain_steps_per_s": rates, "processes_over_unsplit": (p / u).tolist(),
+            "processes_over_threads": (p / t).tolist(), "equal_to_threads": True,
+            "launches": launches, "launches_worker1": worker1,
+            "carried_vs_recompute_max_abs": errs, "worker1_kernels_vs_plain": kernels}
+
+
+def processes_mc3(rt, states, temps, devices, thread_bits, threads_info: dict) -> dict:
+    """(e)(b) (b)'s ladder with one process per shard: the same generators,
+    MESH["mc3_steps"] steps, a swap phase every MESH["swap_interval"];
+    chain-steps/s beside (b)'s thread and unsplit rates, the swap
+    acceptance, the states, statistics and swap counts bit-equal to (b)'s
+    thread split, the heat variant launched in worker 1 and held against
+    its plain version there."""
+    from sbayes_tpu_torch.ops.check import shard_vs_plain
+    from sbayes_tpu_torch.parallel.mesh import ShardGenerators
+    from sbayes_tpu_torch.sampling.runner import make_generators
+
+    n, steps, interval = states.n_chains, MESH["mc3_steps"], MESH["swap_interval"]
+    sh = split_runtime(rt, n, devices, processes=True)
+    _, t_spawn = timed(sh.start)
+    t_split = sh.split(temps)
+    gen, op_gen = make_generators(47, DEVICE)
+    swaps = np.zeros((2, n, n), dtype=np.int64)
+    reset_counters()
+    sh.reset_launches()
+    (shards, stats, n_acc, n_att), t_mc3 = timed(lambda: sh.run_mc3_chunk(
+        ShardGenerators(gen), op_gen, sh.split(states), sh.new_stats(n), t_split, t_split,
+        swaps, 0, steps, interval, n - 1, True))
+    launches = counters()
+    worker1 = worker_launches(sh.launch_counts()[1])
+    if not worker1.get("marginal_heat"):
+        raise AssertionError(f"mesh processes MC3: no heat launch in worker 1: {worker1}")
+    unequal = (unequal_fields(sh.gather(shards), thread_bits[0])
+               + unequal_fields(sh.gather(stats), thread_bits[1]))
+    if unequal or not np.array_equal(swaps, thread_bits[2]):
+        raise AssertionError(f"mesh processes MC3: the process split differs from the thread "
+                             f"split in {unequal}, swaps equal {np.array_equal(swaps, thread_bits[2])}")
+    kernels = sh.on_shard(1, shard_vs_plain, states=shards[1], inputs="mc3", temps=t_split[1])
+    rate = n * steps / t_mc3
+    return {"rungs": n, "shards": sh.n_shards, "steps": steps, "spawn_to_ready_s": sh.startup_s,
+            "start_s": t_spawn, "chain_steps_per_s": rate,
+            "threads_chain_steps_per_s": threads_info["chain_steps_per_s"],
+            "unsplit_chain_steps_per_s": threads_info["unsplit_chain_steps_per_s"],
+            "processes_over_threads": rate / threads_info["chain_steps_per_s"],
+            "processes_over_unsplit": rate / threads_info["unsplit_chain_steps_per_s"],
+            "swaps_accepted": n_acc, "swaps_attempted": n_att,
+            "swap_acceptance": n_acc / n_att, "equal_to_threads": True,
+            "launches": launches, "launches_worker1": worker1,
+            "worker1_kernels_vs_plain": kernels}
+
+
+def processes_scale(rt, states, devices, threads_info: dict) -> dict:
+    """(e)(c) ``scale``'s 16 in-bounds states split 2 x 8 with one process per
+    shard: MESH["scale_steps"] drawn steps, steps/s beside (c)'s thread and
+    unsplit rates, finite log-likelihoods, no non-finite accept, the
+    marginal launched in worker 1."""
+    from sbayes_tpu_torch.parallel.mesh import ShardGenerators
+    from sbayes_tpu_torch.sampling.runner import make_generators
+
+    n, steps = states.n_chains, MESH["scale_steps"]
+    sh = split_runtime(rt, n, devices, processes=True)
+    _, t_spawn = timed(sh.start)
+    gen, op_gen = make_generators(53, DEVICE)
+    shards, t_split = timed(lambda: sh.split(states))
+    reset_counters()
+    sh.reset_launches()
+    (shards, stats), t_run = timed(lambda: sh.run_chunk(ShardGenerators(gen), op_gen, shards,
+                                                         sh.new_stats(n), steps))
+    launches = counters()
+    worker1 = worker_launches(sh.launch_counts()[1])
+    ll, _ = sh.log_lh_prior(shards)
+    if not worker1.get("marginal") or sh.non_finite(stats) or not np.isfinite(ll).all():
+        raise AssertionError(f"mesh processes scale: worker 1 launches {worker1}, non-finite "
+                             f"{sh.non_finite(stats)}, finite log_lh {np.isfinite(ll).all()}")
+    rate = steps / t_run
+    return {"chains": n, "shards": sh.n_shards, "steps": steps, "spawn_to_ready_s": sh.startup_s,
+            "start_s": t_spawn, "split_s": t_split, "steps_per_s": rate,
+            "threads_steps_per_s": threads_info["steps_per_s"],
+            "unsplit_steps_per_s": threads_info["unsplit_steps_per_s"],
+            "processes_over_threads": rate / threads_info["steps_per_s"],
+            "processes_over_unsplit": rate / threads_info["unsplit_steps_per_s"],
+            "launches": launches, "launches_worker1": worker1}
+
+
+def mesh_processes(rt_k3, states_k3, rt_mc3, states_mc3, temps, rt_scale, states_scale,
+                   devices, mc3_bits, info: dict) -> dict:
+    """(e) The process split, the one ``SamplerRuntime.shard`` gives: (a)-(c)
+    again with one process per shard, then every worker ended and
+    multiprocessing's resource tracker stopped (a spawn starts it)."""
+    t0 = time.perf_counter()
+    try:
+        out = {"ensemble": processes_ensemble(rt_k3, states_k3, devices),
+               "mc3": processes_mc3(rt_mc3, states_mc3, temps, devices, mc3_bits, info["mc3"]),
+               "scale": processes_scale(rt_scale, states_scale, devices, info["scale"])}
+    finally:
+        for rt in (rt_k3, rt_mc3, rt_scale):
+            rt.close()
+        stop_resource_tracker()
+    out["subphase_s"] = time.perf_counter() - t0
+    out["launches_scale"] = add_launches(out["scale"]["launches"],
+                                         out["scale"]["launches_worker1"])
+    out["launches"] = add_launches(*(out[k]["launches"] for k in ("ensemble", "mc3")),
+                                   *(out[k]["launches_worker1"] for k in ("ensemble", "mc3")),
+                                   out["launches_scale"])
+    return out
+
+
 def phase_mesh(rt_k3, states_k3, rt_mc3, states_mc3, temps, rt_scale, states_scale,
                tmp: Path) -> tuple:
-    """The chain split and the run pool, (a)-(d). Returns (phase info, the
-    launches of (a), (b) and (d) in this process, the launches of (c))."""
+    """The chain split and the run pool, (a)-(d), then (e) the process split.
+    Returns (phase info, the launches of (a), (b) and (d) in this process,
+    the launches of (c), the launches of (e) in this process and worker 1,
+    those of (e)(c) alone)."""
     devices = mesh_devices()
     t0 = time.perf_counter()
     info = {"devices": list(devices),
             "split": ("every visible card" if torch.cuda.device_count() > 1
                       else "two shards on cuda:0 (one card)")}
     info["ensemble"] = mesh_ensemble(rt_k3, states_k3, devices)
-    info["mc3"] = mesh_mc3(rt_mc3, states_mc3, temps, devices)
+    info["mc3"], mc3_bits = mesh_mc3(rt_mc3, states_mc3, temps, devices)
     info["scale"] = mesh_scale(rt_scale, states_scale, devices)
     info["pool"] = mesh_pool(tmp)
+    info["processes"] = mesh_processes(rt_k3, states_k3, rt_mc3, states_mc3, temps, rt_scale,
+                                       states_scale, devices, mc3_bits, info)
     info["phase_s"] = time.perf_counter() - t0
     launches = add_launches(info["ensemble"]["launches"], info["mc3"]["launches"],
                             info["pool"]["launches_in_process"])
-    return info, launches, info["scale"]["launches"]
+    return (info, launches, info["scale"]["launches"], info["processes"]["launches"],
+            info["processes"]["launches_scale"])
 
 
 def tensor_bytes(*tensors) -> int:
@@ -2729,6 +2839,7 @@ def loglh_split_rows(rt, sp, states, launches: dict, bit_equal: bool) -> list:
     on the summed counts; each against its plain version on
     SCALE_KERNEL_CHAINS chains and timed there and on all chains."""
     from sbayes_tpu_torch.ops import loglh
+    from sbayes_tpu_torch.ops.check import LOGLH_TOL_REL
     from sbayes_tpu_torch.parallel.mesh import shard_state
 
     few = shard_state(states.select(torch.arange(SCALE_KERNEL_CHAINS, device=DEVICE)), sp)
@@ -2806,6 +2917,7 @@ def phase_data_mesh(rt, states) -> tuple:
     and the peak a card of a two-card split would hold. Returns (phase
     info, the launches of the split steps and refresh, the kernel rows)."""
     from sbayes_tpu_torch.ops import loglh
+    from sbayes_tpu_torch.ops.check import LOGLH_TOL_REL
     from sbayes_tpu_torch.parallel.mesh import ShardGenerators, data_mesh
     from sbayes_tpu_torch.sampling.runner import grid_runtime, make_generators
 
@@ -3107,7 +3219,8 @@ def main() -> int:
     del mc3_start
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        mesh, mesh_launches, mesh_scale_launches = phase_mesh(
+        (mesh, mesh_launches, mesh_scale_launches, mesh_process_launches,
+         mesh_process_scale_launches) = phase_mesh(
             rt_k3, states_k3, rt_mc3, states_mc3, temps, rt_scale, states_scale, Path(tmp))
     print(phase_line({"phase": "mesh", "card": card, **mesh}), flush=True)
     torch.cuda.empty_cache()
@@ -3119,6 +3232,7 @@ def main() -> int:
     # The scale rows' "mesh" path is the split at scale; the other rows have
     # it as "mesh_scale" beside their own "mesh".
     add_scale_paths(scale_rows, {**later_scale, "mesh": mesh_scale_launches,
+                                 "mesh_processes": mesh_process_scale_launches,
                                  "data_mesh": data_mesh_launches}, heat_mc3)
 
     by_path = {"main_path": main_path["launches"], "main_path_k3": main_path_k3["launches"],
@@ -3132,7 +3246,7 @@ def main() -> int:
                "prior_samples": prior["launches"], "scale": scale["launches"],
                "scale_in_bounds": scale["in_bounds"]["launches"], **later_scale,
                "mesh": mesh_launches, "mesh_scale": mesh_scale_launches,
-               "data_mesh": data_mesh_launches}
+               "mesh_processes": mesh_process_launches, "data_mesh": data_mesh_launches}
     residual_launches = add_launches(*(alt[k]["launches"] for k in (
         "wide_residual", "wide_residual_counts", "wide_residual_counts_mc3")))
     kernels = phase_kernels(rt, states, rt_k3, states_k3, rt_mc3, states_mc3, temps, by_path,

@@ -7,8 +7,10 @@ shards on one card, eight on the CPU). A chain-batched ``ChainState``,
 chains, block i on ``mesh[i]``; the model constants are copied once to each
 distinct device. Every chain is independent of the others between MC3 swap
 phases, so the only traffic between shards is ``permute_chains``: the
-chains whose rung a swap phase changed. The runner's ``ShardedRuntime``
-(``sampling/runner.py``) steps each block from a host thread of its own.
+chains whose rung a swap phase changed. The runner's
+``ProcessShardedRuntime`` (``sampling/runner.py``) steps each block in a
+process of its own (``processes.py``), ``ShardedRuntime`` from a host
+thread of its own.
 
 ``auto_chain_mesh`` is the JAX package's policy: every visible device, and
 only when the chains split evenly over more than one; the environment
@@ -106,22 +108,23 @@ def _n_chains(x) -> int:
     return (x if isinstance(x, torch.Tensor) else x[0]).shape[0]
 
 
-def _block(x, idx, device):
-    """The chains ``idx`` (a slice or an index tensor) of ``x`` on ``device``."""
-    return x[idx].to(device) if isinstance(x, torch.Tensor) else x.select(idx).to(device)
+def chain_block(x, i: int, n_blocks: int):
+    """Block ``i`` of ``n_blocks`` contiguous, equal chain blocks of ``x`` (a
+    ChainState, an OperatorStats or a (B, ...) tensor), where ``x`` lies."""
+    n = _n_chains(x)
+    if n % n_blocks:
+        raise ValueError(f"{n} chains do not split evenly over {n_blocks} devices")
+    b = n // n_blocks
+    idx = slice(i * b, (i + 1) * b)
+    return x[idx] if isinstance(x, torch.Tensor) else x.select(idx)
 
 
 def shard_chain_batch(x, mesh) -> list:
     """Contiguous, equal chain blocks of ``x`` (a ChainState, an
     OperatorStats, a (B, ...) tensor or None), block i on ``mesh[i]``."""
-    S = len(mesh)
     if x is None:
-        return [None] * S
-    n = _n_chains(x)
-    if n % S:
-        raise ValueError(f"{n} chains do not split evenly over {S} devices")
-    b = n // S
-    return [_block(x, slice(i * b, (i + 1) * b), mesh[i]) for i in range(S)]
+        return [None] * len(mesh)
+    return [chain_block(x, i, len(mesh)).to(dev) for i, dev in enumerate(mesh)]
 
 
 def replicate(model_or_consts, mesh) -> tuple:
@@ -146,36 +149,64 @@ def gather(shards: list, device):
     return torch.cat(moved) if isinstance(first, torch.Tensor) else type(first).concat(moved)
 
 
-def permute_chains(shards: list, perm) -> list:
+def permute_plan(perm, b: int) -> list:
+    """The moves of an MC3 swap across shards of ``b`` chains, where rung r
+    takes the state of chain ``perm[r]`` of the whole batch: for each shard,
+    None where its rungs all keep their chains, else (local, moves):
+    ``local`` (b,) the indices into the shard of the chains it keeps (its
+    own index at a row that another shard fills) and ``moves`` a list of
+    (k, at, idx): chains ``idx`` of shard k go to the rows ``at``."""
+    perm = np.asarray(perm)
+    plans = []
+    for j in range(len(perm) // b):
+        rows = perm[j * b:(j + 1) * b]
+        if (rows == np.arange(j * b, (j + 1) * b)).all():
+            plans.append(None)
+            continue
+        src = rows // b
+        local = np.where(src == j, rows - j * b, np.arange(b))
+        moves = [(int(k), np.nonzero(src == k)[0], rows[src == k] - k * b)
+                 for k in np.unique(src[src != j])]
+        plans.append((local, moves))
+    return plans
+
+
+def give_chains(shard, idx):
+    """The chains ``idx`` (an index array) of a shard, on its device."""
+    return shard.select(torch.as_tensor(idx, device=shard.clusters.device))
+
+
+def place_chains(shard, local, moved: list):
+    """``shard`` after a swap (``permute_plan``): its chains ``local``, then
+    each moved block ``(at, chains)`` (a ChainState of ``len(at)`` chains on
+    any device) written at the rows ``at``."""
+    dev = shard.clusters.device
+    new = shard.select(torch.as_tensor(local, device=dev))
+    for at, block in moved:
+        at = torch.as_tensor(at, device=dev)
+        for dst, val in zip(new, block):
+            if dst is not None:
+                dst[at] = val.to(dev)
+    return new
+
+
+def permute_chains(shards: list, perm, give=give_chains, take=place_chains) -> list:
     """An MC3 swap across the shards of a ChainState: rung r takes the state
     of chain ``perm[r]`` of the whole batch. A shard whose rungs all keep
     their chains is returned as it is; in the others, the chains from the
     shard itself are gathered in place and only the chains from other
-    shards are moved there (``.to``). Equal, bit for bit, to
+    shards are moved there. Equal, bit for bit, to
     ``ChainState.concat(shards).select(perm)`` split again. Temperatures
-    and operator statistics stay with the rung: pass the states only."""
-    perm = np.asarray(perm)
-    b = shards[0].n_chains
-    out = []
-    for j, shard in enumerate(shards):
-        rows = perm[j * b:(j + 1) * b]
-        if (rows == np.arange(j * b, (j + 1) * b)).all():
-            out.append(shard)
-            continue
-        dev = shard.clusters.device
-        src = rows // b
-        local = np.where(src == j, rows - j * b, np.arange(b))
-        new = shard.select(torch.as_tensor(local, device=dev))
-        for k in np.unique(src[src != j]):
-            at = np.nonzero(src == k)[0]
-            idx = torch.as_tensor(rows[at] - k * b, device=shards[k].clusters.device)
-            moved = _block(shards[k], idx, dev)
-            at = torch.as_tensor(at, device=dev)
-            for dst, val in zip(new, moved):
-                if dst is not None:
-                    dst[at] = val
-        out.append(new)
-    return out
+    and operator statistics stay with the rung: pass the states only.
+    ``give(shard, idx)`` reads the moved chains of a shard and ``take(shard,
+    local, moved)`` writes them (``place_chains``); every read comes before
+    the first write. The process split (``parallel/processes.py``) passes
+    its own, which move the chains through host memory."""
+    plans = permute_plan(perm, shards[0].n_chains)
+    moved = [None if plan is None else [(at, give(shards[k], idx)) for k, at, idx in plan[1]]
+             for plan in plans]
+    return [shard if plan is None else take(shard, plan[0], blocks)
+            for shard, plan, blocks in zip(shards, plans, moved)]
 
 
 class ShardGenerators:
@@ -198,19 +229,27 @@ class ShardGenerators:
     def for_mesh(self, mesh) -> list:
         if len(mesh) == 1:
             return [self.gen]
-        out = []
-        for j, dev in enumerate(mesh):
-            dev = canonical(dev)
-            if j == 0 and canonical(self.gen.device) == dev:
-                out.append(self.gen)
-                continue
-            g = self._made.get(j)
-            if g is None or canonical(g.device) != dev:
-                g = torch.Generator(device=dev)
-                g.manual_seed((self.gen.initial_seed() + j * SHARD_SEED_STRIDE) % (1 << 63))
-                self._made[j] = g
-            out.append(g)
-        return out
+        return [self.shard(j, dev) for j, dev in enumerate(mesh)]
+
+    def shard(self, j: int, device) -> torch.Generator:
+        """The generator of shard ``j`` of a mesh of more than one device,
+        on ``device``."""
+        dev = canonical(device)
+        if j == 0 and canonical(self.gen.device) == dev:
+            return self.gen
+        g = self._made.get(j)
+        if g is None or canonical(g.device) != dev:
+            g = shard_generator(self.gen.initial_seed(), j, dev)
+            self._made[j] = g
+        return g
+
+
+def shard_generator(seed: int, j: int, device) -> torch.Generator:
+    """Shard ``j``'s generator on ``device`` of a batch whose generator has
+    the seed ``seed``: seeded with ``seed + j * SHARD_SEED_STRIDE``."""
+    g = torch.Generator(device=device)
+    g.manual_seed((seed + j * SHARD_SEED_STRIDE) % (1 << 63))
+    return g
 
 
 # ---------------------------------------------------------------------------

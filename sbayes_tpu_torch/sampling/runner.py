@@ -17,12 +17,14 @@ else the clusters and stats files with a source imputed by one Gibbs pass.
 (the input of ``results/ess.py``), and ``cluster_contribution`` scores each
 cluster in isolation for the ``log_contribution_per_cluster`` columns.
 
-The counterpart of the JAX package's ``shard_ensemble`` is ``ShardedRuntime``:
-wherever the JAX runner splits the chain axis over devices (the warm-up
-races, the ensemble, the MC3 ladder, the timing probe, the refresh), the
-port splits the batch over the mesh of ``parallel/mesh.py::auto_chain_mesh``
-and steps each shard from a host thread of its own; with one shard the same
-code runs inline, unsplit.
+The counterpart of the JAX package's ``shard_ensemble`` is
+``ProcessShardedRuntime``: wherever the JAX runner splits the chain axis over
+devices (the warm-up races, the ensemble, the MC3 ladder, the timing probe,
+the refresh), the port splits the batch over the mesh of
+``parallel/mesh.py::auto_chain_mesh`` and steps each shard in a process of
+its own (``parallel/processes.py``), shard 0 in the calling process; the
+workers end with the run. ``ShardedRuntime`` has the same interface and
+bits with a host thread per shard; with one shard it runs inline, unsplit.
 
 ``grid_runtime`` runs a chain batch on a chains x objects grid
 (``parallel/mesh.py::data_mesh``): each chain shard is a ``ShardedRuntime``
@@ -36,9 +38,12 @@ and it runs ``run_chunk`` and ``refresh`` (no MC3 ladder, no logging).
 from __future__ import annotations
 
 import contextlib
+import functools
+import itertools
 import math
 import pickle
 import time
+import weakref
 from concurrent.futures import ThreadPoolExecutor, wait
 from datetime import timedelta
 from pathlib import Path
@@ -51,18 +56,25 @@ from sbayes_tpu_torch.data.loader import Data
 from sbayes_tpu_torch.model.math import normalize_weights, sample_categorical_onehot
 from sbayes_tpu_torch.model.model import Model
 from sbayes_tpu_torch.model.posterior import ObjectSplitPosterior, Posterior
+from sbayes_tpu_torch.ops import _cuda
+from sbayes_tpu_torch.ops.check import launch_counts, reset_launches
 from sbayes_tpu_torch.parallel.mesh import (
     ObjectSplit,
     ShardGenerators,
     auto_chain_mesh,
+    canonical,
+    chain_block,
     gather,
+    give_chains,
     permute_chains,
+    place_chains,
     replicate,
     shard_chain_batch,
     shard_objects,
     shard_state,
     unshard_state,
 )
+from sbayes_tpu_torch.parallel.processes import GenRef, Remote, ShardProcesses
 from sbayes_tpu_torch.results.loggers import (
     ClustersLogger,
     LikelihoodLogger,
@@ -174,6 +186,7 @@ class SamplerRuntime:
         self.op_weights = torch.tensor([o.weight for o in self._op_specs], dtype=torch.float64)
         self._apply = make_mh_apply_fn(self.cond, self._op_specs)
         self._sharded: dict = {}
+        self._processes: dict = {}
 
     def replica(self, consts) -> "SamplerRuntime":
         """The same sampler over ``consts`` (the model constants on another
@@ -187,22 +200,40 @@ class SamplerRuntime:
         return SamplerRuntime(self.model, self.mcmc_config, self.sample_from_prior,
                               split=split)
 
+    def split_mesh(self, n_chains: int):
+        """The mesh a batch of ``n_chains`` splits over (``auto_chain_mesh``),
+        or None. A model on a device with an index (``cuda:1``, a ``-t``
+        worker's card) never splits: only a bare ``cuda`` (or ``cpu``) model
+        takes the mesh."""
+        if self.device.index is not None:
+            return None
+        return auto_chain_mesh(n_chains, device_type=self.device.type)
+
     def shard(self, n_chains: int, logger=None) -> "ShardedRuntime":
-        """The runtime of a batch of ``n_chains`` split over
-        ``auto_chain_mesh`` (one shard where it gives no mesh). A model on
-        a device with an index (``cuda:1``, a ``-t`` worker's card) never
-        splits: only a bare ``cuda`` (or ``cpu``) model takes the mesh."""
-        mesh = (auto_chain_mesh(n_chains, device_type=self.device.type)
-                if self.device.index is None else None)
-        if mesh is not None and logger is not None:
+        """The runtime of a batch of ``n_chains`` split over ``split_mesh``:
+        one process per shard (``ProcessShardedRuntime``, kept until
+        ``close``), or one shard where it gives no mesh."""
+        mesh = self.split_mesh(n_chains)
+        if mesh is None:
+            return self.sharded()
+        if logger is not None:
             logger.info(f"Splitting {n_chains} chains over {len(mesh)} shards "
-                        f"({n_chains // len(mesh)} each) on {[str(d) for d in mesh]}.")
-        return self.sharded(mesh)
+                        f"({n_chains // len(mesh)} each, one process each) on "
+                        f"{[str(d) for d in mesh]}.")
+        if mesh not in self._processes:
+            self._processes[mesh] = ProcessShardedRuntime(self, mesh)
+        return self._processes[mesh]
+
+    def close(self):
+        """End the worker processes of every split ``shard`` made."""
+        for sh in self._processes.values():
+            sh.close()
+        self._processes.clear()
 
     def sharded(self, mesh=None) -> "ShardedRuntime":
         """The runtime of a batch split over ``mesh`` (None: one shard, the
-        batch unsplit); the model constants are copied to each device once
-        per mesh."""
+        batch unsplit), each shard stepped from a host thread of its own;
+        the model constants are copied to each device once per mesh."""
         if mesh not in self._sharded:
             self._sharded[mesh] = ShardedRuntime(self, mesh)
         return self._sharded[mesh]
@@ -286,6 +317,22 @@ class SamplerRuntime:
     def refresh(self, states: ChainState) -> ChainState:
         """Exact recompute of every carried invariant."""
         return self.post.fill_state(states)
+
+    def op_steps(self, gen, states: ChainState, temps=None, prior_temps=None, *, i_op: int,
+                 n_steps: int) -> ChainState:
+        """``n_steps`` MH steps of the operator ``i_op`` alone (the timing
+        probe, ``measure_op_step_times``)."""
+        apply = self.apply_fn(temps, prior_temps)
+        for _ in range(n_steps):
+            states = apply(i_op, gen, states)[0]
+        return states
+
+    def records(self, states: ChainState, stats: OperatorStats, requests: list) -> list:
+        """For each (chain k, ``make_record`` keywords) of ``requests``: (the
+        record of chain k of ``states``, its (accepts, rejects,
+        step_size_sum) of ``stats`` on the host)."""
+        return [(self.make_record(states.select(slice(k, k + 1)), **kw),
+                 tuple(_host(x[k]) for x in stats[:3])) for k, kw in requests]
 
     def measure_op_step_times(self, gen, states: ChainState, temps=None, prior_temps=None,
                               n_steps: int = 20) -> np.ndarray:
@@ -521,15 +568,26 @@ class ShardedRuntime:
 
     # -------------------- batched programs --------------------
 
+    def _each(self, method: str, common: dict = None, **per_shard) -> list:
+        """``rts[j].<method>(**common, **{name: a[j] for each per_shard
+        name a})`` for each shard j (``map``)."""
+        common = common or {}
+        kws = [{k: v[j] for k, v in per_shard.items()} for j in range(self.n_shards)]
+        return self.map(lambda j, kw: getattr(self.rts[j], method)(**kw, **common), kws)
+
+    def _gens(self, gens: ShardGenerators) -> list:
+        """Each shard's generator of the split batch's ``gens``."""
+        return gens.for_mesh(self.mesh)
+
     def new_stats(self, n_chains: int) -> list:
         return [rt.new_stats(n_chains // self.n_shards) for rt in self.rts]
 
     def init_chains(self, gens: ShardGenerators, n_chains: int) -> list:
-        b = n_chains // self.n_shards
-        return self.map(lambda j, g: self.rts[j].init_chains(g, b), gens.for_mesh(self.mesh))
+        return self._each("init_chains", {"n_chains": n_chains // self.n_shards},
+                          gen=self._gens(gens))
 
     def refresh(self, shards: list) -> list:
-        return self.map(lambda j, st: self.rts[j].refresh(st), shards)
+        return self._each("refresh", states=shards)
 
     def run_chunk(self, gens: ShardGenerators, op_gen, shards: list, stats: list, n_steps: int,
                   temps=None, prior_temps=None) -> tuple:
@@ -541,12 +599,14 @@ class ShardedRuntime:
     def run_ops(self, gens: ShardGenerators, ops: list, shards: list, stats: list, temps=None,
                 prior_temps=None) -> tuple:
         """``SamplerRuntime.run_ops`` of every shard on the operators ``ops``."""
-        g = gens.for_mesh(self.mesh)
         none = [None] * self.n_shards
-        temps, prior_temps = temps or none, prior_temps or none
-        out = self.map(lambda j, *a: self.rts[j].run_ops(a[0], ops, *a[1:]),
-                       g, shards, stats, temps, prior_temps)
+        out = self._each("run_ops", {"ops": ops}, gen=self._gens(gens), states=shards,
+                         stats=stats, temps=temps or none, prior_temps=prior_temps or none)
         return [o[0] for o in out], [o[1] for o in out]
+
+    def values(self, shards: list) -> np.ndarray:
+        """The per-shard (b,) tensors ``shards`` as one array on the host."""
+        return np.concatenate([_host(t) for t in shards])
 
     def log_lh_prior(self, shards: list) -> tuple:
         """(log_lh, log_prior) of the whole batch on the host: one read per shard."""
@@ -554,19 +614,36 @@ class ShardedRuntime:
                               axis=1)
         return both[0], both[1]
 
+    def permute(self, shards: list, perm) -> list:
+        """The states after an MC3 swap: rung r takes chain ``perm[r]``
+        (``parallel.mesh.permute_chains``)."""
+        return permute_chains(shards, perm)
+
+    def records(self, shards: list, stats: list, requests: list) -> list:
+        """``SamplerRuntime.records`` of the chains ``requests`` asks for (chain
+        of the whole batch, ``make_record`` keywords), each made by its
+        shard's runtime, in the order asked."""
+        by_shard = [[] for _ in range(self.n_shards)]
+        where = []
+        for chain, kw in requests:
+            j, k = self.locate(shards, chain)
+            where.append((j, len(by_shard[j])))
+            by_shard[j].append((k, kw))
+        made = self._each("records", states=shards, stats=stats, requests=by_shard)
+        return [made[j][i] for j, i in where]
+
     def run_mc3_chunk(self, gens: ShardGenerators, op_gen, shards: list, stats: list, temps,
                       prior_temps, swap_matrix: np.ndarray, step0: int, n_steps: int,
                       swap_interval: int, attempts: int, only_adjacent: bool):
         """``SamplerRuntime.run_mc3_chunk`` of a ladder whose rungs are split
         over the shards (``temps`` / ``prior_temps``: per-shard (b,) tensors):
         one operator draw a segment for every shard, then at each swap phase
-        one read per shard, ``swap_phase`` on the host and
-        ``permute_chains``."""
+        one read per shard, ``swap_phase`` on the host and ``permute``."""
         n = sum(s.n_chains for s in shards)
         pairs = swap_pairs(n, only_adjacent)
         attempts = min(attempts, len(pairs))
-        t_host = np.concatenate([_host(t) for t in temps]).astype(np.float64)
-        tp_host = np.concatenate([_host(t) for t in prior_temps]).astype(np.float64)
+        t_host = self.values(temps).astype(np.float64)
+        tp_host = self.values(prior_temps).astype(np.float64)
         n_acc = n_att = done = 0
         while done < n_steps:
             seg = min(swap_interval - (step0 + done) % swap_interval, n_steps - done)
@@ -579,7 +656,7 @@ class ShardedRuntime:
             perm, _, _, acc = swap_phase(ll, lp, t_host, tp_host, pairs, order, log_u,
                                          swap_matrix)
             if acc:
-                shards = permute_chains(shards, perm)
+                shards = self.permute(shards, perm)
             n_acc += acc
             n_att += attempts
         return shards, stats, n_acc, n_att
@@ -589,20 +666,14 @@ class ShardedRuntime:
         """``SamplerRuntime.measure_op_step_times`` of the shards: each
         operator alone on every shard at once, one warm-up step, then
         ``n_steps`` timed steps (all devices synchronised)."""
-        g = gens.for_mesh(self.mesh)
         none = [None] * self.n_shards
-        temps, prior_temps = temps or none, prior_temps or none
-        applies = [rt.apply_fn(t, tp) for rt, t, tp in zip(self.rts, temps, prior_temps)]
+        each = dict(gen=self._gens(gens), temps=temps or none, prior_temps=prior_temps or none)
         times = np.zeros(self.rt.n_ops)
         for i_op in range(self.rt.n_ops):
-            def steps(j, gen, st, k):
-                for _ in range(k):
-                    st = applies[j](i_op, gen, st)[0]
-                return st
-            warm = self.map(lambda j, gen, st: steps(j, gen, st, 1), g, shards)
+            warm = self._each("op_steps", {"i_op": i_op, "n_steps": 1}, states=shards, **each)
             self.synchronize()
             t0 = time.perf_counter()
-            self.map(lambda j, gen, st: steps(j, gen, st, n_steps), g, warm)
+            self._each("op_steps", {"i_op": i_op, "n_steps": n_steps}, states=warm, **each)
             self.synchronize()
             times[i_op] = (time.perf_counter() - t0) / n_steps
         return times
@@ -610,6 +681,165 @@ class ShardedRuntime:
     @staticmethod
     def non_finite(stats: list) -> int:
         return sum(int(s.non_finite.sum()) for s in stats)
+
+
+class ProcessShardedRuntime(ShardedRuntime):
+    """A chain batch split over ``mesh`` with one process per shard
+    (``parallel/processes.py``), so that no two shards share an interpreter
+    lock: the calling process holds and steps shard 0 on ``mesh[0]``, a
+    worker process each other shard j on ``mesh[j]``. ``ShardedRuntime``'s
+    interface and bits: the workers build their runtimes from the model
+    constants, sent once through host memory; worker j keeps shard j's
+    generator (``ShardGenerators``' seed for shard j) across calls, so the
+    warm-up race and the sampling loop of one run go on drawing from one
+    stream; the operator sequence is drawn here and sent as integers.
+    Every call sends each worker its command, steps shard 0 here, then
+    waits for every worker. A shard held by a worker is a
+    ``processes.Remote`` in the lists of shards, with its log-likelihoods
+    and log-priors read with it: an MC3 swap phase needs no other read,
+    and moves only the chains whose rung changed (``permute``). A worker's
+    records of its chains reach the loggers as records. The workers start
+    at the first call (``start``) and end with ``close``
+    (``SamplerRuntime.close`` at the end of a run), at an error in any
+    shard (raised here with the worker's traceback, once every process has
+    stopped), when this object is collected, and at exit."""
+
+    def __init__(self, rt: SamplerRuntime, mesh):
+        self.rt = rt
+        self.mesh = tuple(canonical(d) for d in mesh)
+        self.n_shards = len(self.mesh)
+        consts = replicate(rt.consts, self.mesh[:1])[0]
+        self.rts = [rt if consts is rt.consts else rt.replica(consts)]
+        self.splits = None
+        self.streams = [None] * self.n_shards
+        self.processes: Optional[ShardProcesses] = None
+        self._gen_keys = weakref.WeakKeyDictionary()
+        self._next_gen_key = itertools.count()
+
+    def start(self) -> ShardProcesses:
+        """The workers, spawned at the first call: the kernel library is
+        built here first, so that the workers only load it."""
+        if self.processes is None:
+            if any(d.type == "cuda" for d in self.mesh):
+                _cuda.build()
+            self.processes = ShardProcesses(self.mesh, (self.rt.consts, self.rt.mcmc_config,
+                                                        self.rt.sample_from_prior))
+        if self.processes.closed:
+            raise RuntimeError("the worker processes of this split have ended")
+        return self.processes
+
+    def close(self):
+        if self.processes is not None:
+            self.processes.close()
+
+    def _local(self, fn):
+        """``fn()`` here while the workers run; if it raises, the workers are
+        stopped first."""
+        try:
+            return fn()
+        except BaseException:
+            self.close()
+            raise
+
+    def _each(self, method: str, common: dict = None, **per_shard) -> list:
+        procs = self.start()
+        common = common or {}
+        procs.send("call", [(method, {**common, **{k: v[j] for k, v in per_shard.items()}})
+                            for j in range(1, self.n_shards)])
+        local = self._local(lambda: getattr(self.rts[0], method)(
+            **common, **{k: v[0] for k, v in per_shard.items()}))
+        return [local] + procs.replies()
+
+    def _gens(self, gens: ShardGenerators) -> list:
+        if gens not in self._gen_keys:
+            self._gen_keys[gens] = next(self._next_gen_key)
+        key = self._gen_keys[gens]
+        seed = gens.gen.initial_seed()
+        return [gens.shard(0, self.mesh[0])] + [GenRef(key, seed)] * (self.n_shards - 1)
+
+    def on_shard(self, j: int, fn, **kw):
+        """``fn(runtime of shard j, **kw)`` in shard ``j``'s process, ``fn`` a
+        function of the package (a worker imports nothing else); a chain
+        batch it returns stays there."""
+        if j == 0:
+            return fn(self.rts[0], **kw)
+        return self.start().one(j, "call", fn, kw)
+
+    def _get(self, remote: Remote, idx=None):
+        """The chains ``idx`` (all: None) of a worker's batch, on the CPU."""
+        return self.start().one(remote.worker.j, "get", remote, idx)
+
+    # -------------------- layout --------------------
+
+    def split(self, x) -> list:
+        if x is None:
+            return [None] * self.n_shards
+        procs = self.start()
+        procs.send("put", [(chain_block(x, j, self.n_shards),)
+                           for j in range(1, self.n_shards)])
+        local = self._local(lambda: chain_block(x, 0, self.n_shards).to(self.mesh[0]))
+        return [local] + procs.replies()
+
+    def gather(self, shards: list):
+        if shards[0] is None:
+            return None
+        procs = self.start()
+        return gather([shards[0]] + procs.each("get", [(r, None) for r in shards[1:]]),
+                      self.rt.device)
+
+    def chain(self, shards: list, chain: int) -> tuple:
+        j, k = self.locate(shards, chain)
+        if j == 0:
+            return self.rts[0], shards[0].select(slice(k, k + 1))
+        return self.rt, self._get(shards[j], slice(k, k + 1)).to(self.rt.device)
+
+    # -------------------- reads and moves --------------------
+
+    def new_stats(self, n_chains: int) -> list:
+        b = n_chains // self.n_shards
+        return self._each("new_stats", {"n_chains": b})
+
+    def values(self, shards: list) -> np.ndarray:
+        return np.concatenate([_host(shards[0])] + [self._get(r).numpy() for r in shards[1:]])
+
+    def log_lh_prior(self, shards: list) -> tuple:
+        first = _host(torch.stack([shards[0].log_lh, shards[0].log_prior]))
+        both = np.concatenate([first] + [np.stack([r.log_lh, r.log_prior]) for r in shards[1:]],
+                              axis=1)
+        return both[0], both[1]
+
+    def _give(self, shard, idx):
+        return self._get(shard, idx) if isinstance(shard, Remote) else give_chains(shard, idx)
+
+    def _take(self, shard, local, moved):
+        if isinstance(shard, Remote):
+            return self.start().one(shard.worker.j, "take", shard, local, moved)
+        return place_chains(shard, local, moved)
+
+    def permute(self, shards: list, perm) -> list:
+        """``permute_chains`` across the processes: a moved chain goes
+        through host memory, read from its shard and written into the
+        shard of its new rung."""
+        return permute_chains(shards, perm, give=self._give, take=self._take)
+
+    def non_finite(self, stats: list) -> int:
+        return int(stats[0].non_finite.sum()) + sum(r.non_finite for r in stats[1:])
+
+    def synchronize(self):
+        _sync(self.mesh[0])
+
+    def launch_counts(self) -> list:
+        """Each shard's process's kernel launches (``ops.check.launch_counts``)."""
+        return [launch_counts()] + self.start().each("launches", [()] * (self.n_shards - 1))
+
+    def reset_launches(self):
+        reset_launches()
+        self.start().each("reset_launches", [()] * (self.n_shards - 1))
+
+    @property
+    def startup_s(self) -> float:
+        """Seconds from the first spawn to every worker ready."""
+        return self.start().startup_s
 
 
 def grid_runtime(rt: SamplerRuntime, grid) -> ShardedRuntime:
@@ -621,6 +851,19 @@ def grid_runtime(rt: SamplerRuntime, grid) -> ShardedRuntime:
     splits = shard_objects(rt.consts, grid)
     return ShardedRuntime(rt, mesh=tuple(sp.head_device for sp in splits),
                           rts=[rt.split_objects(sp) for sp in splits])
+
+
+def _ends_workers(method):
+    """An ``MCMCSetup`` method that samples, then ends the worker processes of
+    the runtime's splits (``SamplerRuntime.close``), also on an exception:
+    the workers live as long as the run."""
+    @functools.wraps(method)
+    def run(self, *args, **kw):
+        try:
+            return method(self, *args, **kw)
+        finally:
+            self.runtime.close()
+    return run
 
 
 class MCMCSetup:
@@ -750,6 +993,7 @@ class MCMCSetup:
 
     # -------------------- single-run sampling --------------------
 
+    @_ends_workers
     def sample(self, initial_sample: Optional[ChainState] = None, resume: bool = False,
                run: int = 1, seed: int = 0):
         cfg = self.config.mcmc
@@ -771,6 +1015,7 @@ class MCMCSetup:
 
     # -------------------- ensemble sampling (several runs at once) --------------------
 
+    @_ends_workers
     def sample_ensemble(self, run_ids, resume: bool = False, seed: int = 0):
         """All ``run_ids`` as ONE chain batch: one warm-up race of W chains
         per run, then one chain per run; each run keeps its own results
@@ -835,13 +1080,11 @@ class MCMCSetup:
                 self._maybe_measure_op_times(sh, states, force=True)
             if sh.non_finite(stats) > 0:
                 raise ValueError("Non-finite log-posterior was accepted during MCMC.")
-            for i_r, run_loggers in enumerate(loggers_by_run):
-                rt_r, state_r = sh.chain(states, i_r)
-                j, k = sh.locate(states, i_r)
-                record = rt_r.make_record(state_r, i_step=i_step, with_likelihood=with_lh,
-                                          with_cluster_contribution=with_contrib)
-                self._push_operator_stats(run_loggers, stats[j], k,
-                                          elapsed=time.time() - self.t_start,
+            kw = dict(i_step=i_step, with_likelihood=with_lh,
+                      with_cluster_contribution=with_contrib)
+            made = sh.records(states, stats, [(i_r, kw) for i_r in range(len(run_ids))])
+            for (record, op_row), run_loggers in zip(made, loggers_by_run):
+                self._push_operator_stats(run_loggers, op_row, elapsed=time.time() - self.t_start,
                                           steps_done=i_step - i_step_start)
                 for logger in run_loggers:
                     logger.write_sample(record)
@@ -874,11 +1117,11 @@ class MCMCSetup:
                         for n, t in zip(self.runtime.op_names, self._op_step_times))
             + f" (probe took {time.time() - t0:.1f}s)")
 
-    def _push_operator_stats(self, sample_loggers, stats, chain_idx: int, elapsed: float,
+    def _push_operator_stats(self, sample_loggers, op_row: tuple, elapsed: float,
                              steps_done: int):
-        accepts = _host(stats.accepts[chain_idx])
-        rejects = _host(stats.rejects[chain_idx])
-        sss = _host(stats.step_size_sum[chain_idx])
+        """``op_row``: one chain's (accepts, rejects, step_size_sum) by
+        operator (``SamplerRuntime.records``)."""
+        accepts, rejects, sss = op_row
         op_times = self._op_step_times
         mean_step_time = elapsed / max(steps_done, 1)
         views = [
@@ -903,6 +1146,7 @@ class MCMCSetup:
 
     # -------------------- MC3 --------------------
 
+    @_ends_workers
     def sample_mc3(self, resume: bool = False, run: int = 1, seed: int = 0):
         """Metropolis-coupled MCMC: a ladder of ``mc3.chains`` rungs at the
         temperatures of ``temperature_ladder`` as one chain batch, with a
@@ -974,13 +1218,12 @@ class MCMCSetup:
                 np.savetxt(path, self.swap_matrix, fmt="%i")
                 self.last_swap_matrix_save = self.swap_attempts
 
-            for c in range(n_chains):
-                rt_c, state_c = sh.chain(states, c)
-                j, k = sh.locate(states, c)
-                record = rt_c.make_record(
-                    state_c, i_step=i_step, chain=c, with_likelihood=with_lh and c == 0,
-                    with_cluster_contribution=self.config.results.log_contribution_per_cluster)
-                self._push_operator_stats(loggers_by_chain[c], stats[j], k,
+            with_contrib = self.config.results.log_contribution_per_cluster
+            made = sh.records(states, stats, [
+                (c, dict(i_step=i_step, chain=c, with_likelihood=with_lh and c == 0,
+                         with_cluster_contribution=with_contrib)) for c in range(n_chains)])
+            for c, (record, op_row) in enumerate(made):
+                self._push_operator_stats(loggers_by_chain[c], op_row,
                                           elapsed=time.time() - self.t_start,
                                           steps_done=i_step - i_step_start)
                 for logger in loggers_by_chain[c]:

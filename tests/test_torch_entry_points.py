@@ -78,11 +78,14 @@ def test_the_workflow_modules_are_scanned():
 
 
 def test_the_parallel_layer_is_scanned():
-    """The chain split over devices (``parallel/``) and the CLI's run pool
-    are among the files both scans read."""
+    """The chain split over devices (``parallel/``: the mesh and the worker
+    processes of the process split, which import whatever a worker runs),
+    the kernels' checks a worker runs (``ops/check.py``) and the CLI's run
+    pool are among the files both scans read."""
     parallel = sorted((ROOT / "sbayes_tpu_torch" / "parallel").glob("*.py"))
-    assert [p.name for p in parallel] == ["__init__.py", "mesh.py"]
-    for p in parallel + [ROOT / "sbayes_tpu_torch" / "cli.py"]:
+    assert [p.name for p in parallel] == ["__init__.py", "mesh.py", "processes.py"]
+    for p in parallel + [ROOT / "sbayes_tpu_torch" / "ops" / "check.py",
+                         ROOT / "sbayes_tpu_torch" / "cli.py"]:
         assert p in PORT_FILES, p
 
 

@@ -101,6 +101,7 @@ def test_packed_loglh_and_object_tiled_marginal_on_the_card(n_chains):
     import chip_smoke
     from sbayes_tpu_torch.model.model import Model
     from sbayes_tpu_torch.ops import loglh, marginal
+    from sbayes_tpu_torch.ops.check import compare_with_plain
     from sbayes_tpu_torch.testing import synthetic_config, synthetic_data
 
     c = Model(synthetic_data(n_features=400), synthetic_config(n_clusters=2).model,
@@ -110,7 +111,7 @@ def test_packed_loglh_and_object_tiled_marginal_on_the_card(n_chains):
     assert (tile < c.N) == (n_chains < n_sm)
     assert loglh.feature_tile(c, packed=True) < c.F and loglh.feature_tile(c) < c.F
     chip_smoke.reset_counters()
-    errs = chip_smoke.compare_with_plain(c, chip_smoke.random_kernel_inputs(c, n_chains, 21))
+    errs = compare_with_plain(c, chip_smoke.random_kernel_inputs(c, n_chains, 21))
     assert errs["loglh_packed_equals_bool"]
     assert loglh.launches.variants["packed"] == 5 and loglh.launches.variants["bool"] == 1
     assert all(errs[marginal.variant_name(*v)] >= 0 for v in marginal.VARIANTS)
@@ -172,6 +173,7 @@ def test_kernels_on_a_second_card_from_the_first():
     import chip_smoke
     from sbayes_tpu_torch.model.model import Model
     from sbayes_tpu_torch.ops import loglh
+    from sbayes_tpu_torch.ops.check import compare_with_plain
     from sbayes_tpu_torch.testing import synthetic_config, synthetic_data
 
     for data in (synthetic_data(), synthetic_data(n_objects=1200, n_features=3, n_states=6,
@@ -182,7 +184,7 @@ def test_kernels_on_a_second_card_from_the_first():
         inputs1 = {k: v.to("cuda:1") for k, v in inputs.items()}
         chip_smoke.reset_counters()
         with torch.cuda.device(0):
-            errs = chip_smoke.compare_with_plain(c1, inputs1)
+            errs = compare_with_plain(c1, inputs1)
         assert errs["loglh_packed_equals_bool"]
         assert {place[0] for place in loglh.launches.by_place} == {1}
 
@@ -222,6 +224,51 @@ def test_two_shards_on_one_card_equal_their_runs_alone():
 
 
 @pytest.mark.gpu
+def test_two_processes_on_one_card_equal_the_thread_split():
+    """256 chains of the K = 3, cost-based model as an MC3 ladder split into
+    two shards on cuda:0, once in two processes (``rt.shard``) and once in
+    two threads, from generators of one seed: 20 steps, then one swap
+    phase over every adjacent pair. States, statistics and swap counts are
+    bit-equal; the marginal kernel launched in worker 1; no worker is left."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import multiprocessing
+
+    import numpy as np
+
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from sbayes_tpu_torch.parallel.mesh import ShardGenerators
+    from sbayes_tpu_torch.sampling.runner import ProcessShardedRuntime, make_generators
+
+    n = 256
+    rt = chip_smoke.full_width_runtime(3, "cost_based")
+    gen, _ = make_generators(5, "cuda")
+    states = rt.init_chains(gen, n)
+    temps = chip_smoke.ladder_temperatures(n)
+    out = []
+    try:
+        for processes in (True, False):
+            sh = chip_smoke.split_runtime(rt, n, ("cuda:0", "cuda:0"), processes=processes)
+            assert isinstance(sh, ProcessShardedRuntime) == processes
+            gen, op_gen = make_generators(6, "cuda")
+            m = np.zeros((2, n, n), np.int64)
+            shards, stats, n_acc, _ = sh.run_mc3_chunk(
+                ShardGenerators(gen), op_gen, sh.split(states), sh.new_stats(n), sh.split(temps),
+                sh.split(temps), m, 0, 20, 20, n - 1, True)
+            if processes:
+                assert chip_smoke.worker_launches(sh.launch_counts()[1])["marginal"] > 0
+            out.append((sh.gather(shards), sh.gather(stats), m, n_acc))
+    finally:
+        rt.close()
+    assert multiprocessing.active_children() == []
+    assert chip_smoke.unequal_fields(out[0][0], out[1][0]) == []
+    assert chip_smoke.unequal_fields(out[0][1], out[1][1]) == []
+    assert np.array_equal(out[0][2], out[1][2]) and out[0][3] == out[1][3]
+    assert out[0][2][1].sum() == n - 1
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("packed", [False, True], ids=["bool", "packed"])
 def test_loglh_split_entries_on_the_card(packed):
     """The likelihood kernel's two entries of the object split on random
@@ -237,6 +284,7 @@ def test_loglh_split_entries_on_the_card(packed):
     from sbayes_tpu_torch.model.math import pack_source
     from sbayes_tpu_torch.model.model import Model
     from sbayes_tpu_torch.ops import loglh
+    from sbayes_tpu_torch.ops.check import LOGLH_TOL_REL
     from sbayes_tpu_torch.parallel.mesh import ObjectSplit
     from sbayes_tpu_torch.testing import synthetic_config, synthetic_data
 
@@ -259,7 +307,7 @@ def test_loglh_split_entries_on_the_card(packed):
             assert torch.equal(got, fused), (n_features, n_blocks)
             plain = loglh.loglh_from_counts_plain(c, *total)
             rel = float((got - plain).abs().max() / plain.abs().max())
-            assert rel <= chip_smoke.LOGLH_TOL_REL
+            assert rel <= LOGLH_TOL_REL
 
 
 @pytest.mark.gpu

@@ -9,7 +9,12 @@ its own generator and the shared operator draws); a one-shard mesh equal to
 the unsplit code; the carried invariants of every shard; the MC3 swap
 across shards; the best-of-W ladder warm-up; and two statistical tests of
 the split CLI against the JAX sampler on the fixture (p > 0.005, the limit
-of ``tests/test_torch_mc3.py`` and ``tests/test_torch_slice.py``)."""
+of ``tests/test_torch_mc3.py`` and ``tests/test_torch_slice.py``), each
+with the shards in threads (``ShardedRuntime``) and in processes
+(``ProcessShardedRuntime``, the split ``SamplerRuntime.shard`` gives). The
+tests of one split's internals build the thread split
+(``rt.sharded(rt.split_mesh(n))``); ``tests/test_torch_processes.py``
+holds the process split to it bit for bit."""
 import shutil
 import warnings
 from pathlib import Path
@@ -39,6 +44,11 @@ def one_torch_thread():
 def cpu_devices(monkeypatch, n: int):
     """Make ``auto_chain_mesh`` see ``n`` CPU devices."""
     monkeypatch.setattr(mesh, "visible_devices", lambda device_type="cuda": ["cpu"] * n)
+
+
+def thread_split(rt, n_chains: int):
+    """The thread split of ``n_chains`` over the mesh ``rt.shard`` takes."""
+    return rt.sharded(rt.split_mesh(n_chains))
 
 
 @pytest.fixture(scope="module")
@@ -130,7 +140,7 @@ def test_each_shard_equals_its_run_alone(monkeypatch, small_rt, n_shards):
 
     rt = small_rt
     cpu_devices(monkeypatch, n_shards)
-    sh = rt.shard(8)
+    sh = thread_split(rt, 8)
     assert sh.n_shards == n_shards and len({id(r) for r in sh.rts}) == 1
     gen, op_gen = make_generators(5, "cpu")
     gens = mesh.ShardGenerators(gen)
@@ -188,7 +198,8 @@ def test_model_on_an_indexed_device_never_splits(monkeypatch, small_rt):
     rt = small_rt
     cpu_devices(monkeypatch, 2)
     monkeypatch.delenv("SBAYES_TPU_SHARDING", raising=False)
-    assert rt.shard(8).n_shards == 2
+    assert rt.shard(8).n_shards == 2           # not started: no process was spawned
+    rt.close()
     pinned = rt.replica(rt.consts.to("cpu:0"))
     assert pinned.device.index == 0 and pinned.shard(8).n_shards == 1
 
@@ -290,7 +301,7 @@ def test_every_shard_carries_its_invariants(monkeypatch, small_rt):
 
     rt = small_rt
     cpu_devices(monkeypatch, 2)
-    sh = rt.shard(8)
+    sh = thread_split(rt, 8)
     gen, op_gen = make_generators(3, "cpu")
     gens = mesh.ShardGenerators(gen)
     shards, stats = sh.run_chunk(gens, op_gen, sh.init_chains(gens, 8), sh.new_stats(8), 40)
@@ -388,7 +399,7 @@ def test_split_mc3_chunk_swaps_as_the_unsplit_swap_phase(monkeypatch, small_rt):
     rt = small_rt
     cpu_devices(monkeypatch, 2)
     n, steps, interval = 4, 60, 10
-    sh = rt.shard(n)
+    sh = thread_split(rt, n)
     temps = 1.0 + 0.5 * torch.arange(n, dtype=torch.float32)
     gen, op_gen = make_generators(12, "cpu")
     gens = mesh.ShardGenerators(gen)
@@ -431,29 +442,34 @@ def test_split_mc3_chunk_swaps_as_the_unsplit_swap_phase(monkeypatch, small_rt):
 
 def test_warmup_ladder_over_shards_selects_best_per_rung(monkeypatch, small_rt):
     """The analogue of ``tests/test_parallel.py:152`` on a split warm-up:
-    3 rungs x 4 warm-ups over two CPU shards, no steps: per rung the argmax
-    by log-likelihood of its 4 initial states (the split init grid from the
-    same generator); the rungs keep distinct states; with steps, one finite
-    state per rung."""
-    from sbayes_tpu_torch.sampling.runner import make_generators
+    3 rungs x 4 warm-ups over two CPU shards (processes, as ``rt.shard``
+    splits), no steps: per rung the argmax by log-likelihood of its 4
+    initial states (the split init grid from the same generator, in
+    threads); the rungs keep distinct states; with steps, one finite state
+    per rung."""
+    from sbayes_tpu_torch.sampling.runner import ProcessShardedRuntime, make_generators
 
     rt = small_rt
     cpu_devices(monkeypatch, 2)
     n, W = 3, 4
     temps = 1.0 + 0.2 * torch.arange(n, dtype=torch.float32)
-    gen, op_gen = make_generators(21, "cpu")
-    picked = rt.warmup_ladder(gen, op_gen, n, W, temps, temps, n_steps=0)
-    sh = rt.shard(n * W)
-    assert sh.n_shards == 2
-    gen, _ = make_generators(21, "cpu")
-    grid = sh.gather(sh.init_chains(mesh.ShardGenerators(gen), n * W))
-    ll = grid.log_lh.numpy().reshape(n, W)
-    sel = torch.as_tensor(ll.argmax(axis=1) + np.arange(n) * W)
-    _assert_same(picked, grid.select(sel))
-    assert len({r.tobytes() for r in picked.clusters.numpy()}) > 1
-    gen, op_gen = make_generators(22, "cpu")
-    picked2 = rt.warmup_ladder(gen, op_gen, n, 2, temps, temps, n_steps=10)
-    assert picked2.n_chains == n and bool(torch.isfinite(picked2.log_lh).all())
+    try:
+        gen, op_gen = make_generators(21, "cpu")
+        picked = rt.warmup_ladder(gen, op_gen, n, W, temps, temps, n_steps=0)
+        assert isinstance(rt.shard(n * W), ProcessShardedRuntime)
+        sh = thread_split(rt, n * W)
+        assert sh.n_shards == 2
+        gen, _ = make_generators(21, "cpu")
+        grid = sh.gather(sh.init_chains(mesh.ShardGenerators(gen), n * W))
+        ll = grid.log_lh.numpy().reshape(n, W)
+        sel = torch.as_tensor(ll.argmax(axis=1) + np.arange(n) * W)
+        _assert_same(picked, grid.select(sel))
+        assert len({r.tobytes() for r in picked.clusters.numpy()}) > 1
+        gen, op_gen = make_generators(22, "cpu")
+        picked2 = rt.warmup_ladder(gen, op_gen, n, 2, temps, temps, n_steps=10)
+        assert picked2.n_chains == n and bool(torch.isfinite(picked2.log_lh).all())
+    finally:
+        rt.close()
 
 
 # -------------------- the split samplers against the JAX sampler --------------------
@@ -537,20 +553,26 @@ def fixture_dir(tmp_path):
     return tmp_path
 
 
-def test_split_cli_ensemble_matches_jax(monkeypatch, fixture_dir, jax_apply):
+@pytest.mark.parametrize("split", ["threads", "processes"])
+def test_split_cli_ensemble_matches_jax(monkeypatch, fixture_dir, jax_apply, split):
     """``cli.main`` on the fixture config with ``runs: 32`` split over two
-    CPU shards (the warm-up race 2 x 32 chains, the ensemble 2 x 16), 200
-    steps, 10 samples: each object's membership frequency per run (32
-    independent values) against the per-chain frequencies of 256 JAX chains
-    stepped through the same operator draws and read at the same steps
-    (Welch's t-test per object). Four runs' samples alone are too few and
-    too correlated for a test."""
+    CPU shards (the warm-up race 2 x 32 chains, the ensemble 2 x 16), in
+    threads or in processes, 200 steps, 10 samples: each object's
+    membership frequency per run (32 independent values) against the
+    per-chain frequencies of 256 JAX chains stepped through the same
+    operator draws and read at the same steps (Welch's t-test per object).
+    Four runs' samples alone are too few and too correlated for a test."""
+    import multiprocessing
+
     from scipy.stats import ttest_ind
 
     from sbayes_tpu_torch import cli
     from sbayes_tpu_torch.sampling.runner import SamplerRuntime, make_generators
 
     cpu_devices(monkeypatch, 2)
+    if split == "threads":
+        monkeypatch.setattr(SamplerRuntime, "shard",
+                            lambda self, n_chains, logger=None: thread_split(self, n_chains))
     seen = []
     monkeypatch.setattr(SamplerRuntime, "shard", _recording(SamplerRuntime.shard, seen))
     R = 32
@@ -562,6 +584,7 @@ def test_split_cli_ensemble_matches_jax(monkeypatch, fixture_dir, jax_apply):
         cli.main(fixture_dir / "config.yaml", experiment_name="split", custom_settings=settings,
                  device="cpu")
     assert seen[:2] == [(2 * R, 2), (R, 2)], seen
+    assert multiprocessing.active_children() == []
     out = fixture_dir / "results" / "split" / "K1"
     port = np.stack([_clusters_file(out / f"clusters_K1_{r}.txt") for r in range(R)])
     assert port.shape == (R, 10, 5)
@@ -579,10 +602,11 @@ def test_split_cli_ensemble_matches_jax(monkeypatch, fixture_dir, jax_apply):
     assert not failures, "split ensemble vs JAX:\n" + "\n".join(failures)
 
 
-def test_split_mc3_ladder_cold_rungs_match_jax(monkeypatch, jax_apply):
-    """An MC3 ladder of 192 rungs split over two CPU shards of 96 (T = 1 for
-    rungs 0-127, 1.5 for 128-159, 2.5 for 160-191), 250 steps of
-    ``ShardedRuntime.run_mc3_chunk`` with a swap phase every 10 steps (all
+@pytest.mark.parametrize("split", ["threads", "processes"])
+def test_split_mc3_ladder_cold_rungs_match_jax(monkeypatch, jax_apply, split):
+    """An MC3 ladder of 192 rungs split over two CPU shards of 96 (threads or
+    processes; T = 1 for rungs 0-127, 1.5 for 128-159, 2.5 for 160-191), 250
+    steps of ``run_mc3_chunk`` with a swap phase every 10 steps (all
     191 adjacent pairs): at stationarity the rungs are independent draws of
     their tempered targets, so the 128 cold rungs at the last step are
     independent posterior draws. Each object's membership among them
@@ -603,20 +627,23 @@ def test_split_mc3_ladder_cold_rungs_match_jax(monkeypatch, jax_apply):
     _same_schedule(rt, jax_apply)
     cpu_devices(monkeypatch, 2)
     n, n_cold, steps, interval = 192, 128, 250, 10
-    sh = rt.shard(n)
+    sh = rt.shard(n) if split == "processes" else thread_split(rt, n)
     assert sh.n_shards == 2
     temps = torch.cat([torch.ones(n_cold), torch.full((32,), 1.5), torch.full((32,), 2.5)])
     gen, op_gen = make_generators(17, "cpu")
     gens = mesh.ShardGenerators(gen)
-    shards = sh.init_chains(gens, n)
-    m = np.zeros((2, n, n), np.int64)
-    shards, stats, n_acc, n_att = sh.run_mc3_chunk(
-        gens, op_gen, shards, sh.new_stats(n), sh.split(temps), sh.split(temps), m, 0, steps,
-        interval, n - 1, True)
-    assert sh.non_finite(stats) == 0 and n_att == (n - 1) * steps // interval
+    try:
+        shards = sh.init_chains(gens, n)
+        m = np.zeros((2, n, n), np.int64)
+        shards, stats, n_acc, n_att = sh.run_mc3_chunk(
+            gens, op_gen, shards, sh.new_stats(n), sh.split(temps), sh.split(temps), m, 0,
+            steps, interval, n - 1, True)
+        assert sh.non_finite(stats) == 0 and n_att == (n - 1) * steps // interval
+        port = sh.gather(shards).clusters[:n_cold].any(1).numpy()
+    finally:
+        rt.close()
     assert 0 < m[0, n_cold - 1, n_cold] < m[1, n_cold - 1, n_cold]     # cold <-> hot
     assert m[0, 95, 96] > 0                                            # the shard boundary
-    port = sh.gather(shards).clusters[:n_cold].any(1).numpy()
 
     _, op_gen = make_generators(17, "cpu")
     ops = _port_ops(rt.op_weights, op_gen, [interval] * (steps // interval + 1),
