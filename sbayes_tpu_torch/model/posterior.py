@@ -51,6 +51,7 @@ from sbayes_tpu_torch.model.math import (
 )
 from sbayes_tpu_torch.ops import loglh
 from sbayes_tpu_torch.ops.mst import cluster_mst_stats
+from sbayes_tpu_torch.tracing import span
 
 
 class PosteriorParts(NamedTuple):
@@ -165,7 +166,8 @@ class Posterior:
         if c.size_prior_type == "uniform_area":
             return torch.zeros(sizes.shape[0], device=sizes.device)
         if c.size_prior_type == "uniform_size":
-            n = torch.tensor(float(c.N), device=sizes.device)
+            with span("sbt.sync/size_prior.n"):
+                n = torch.tensor(float(c.N), device=sizes.device)
             rest = n - sizes.sum(-1)
             log_multinom = (torch.lgamma(n + 1.0) - torch.lgamma(sizes + 1.0).sum(-1)
                             - torch.lgamma(rest + 1.0))
@@ -208,11 +210,16 @@ class Posterior:
             max_e = torch.where(mask, col_max, float("-inf")).amax(-1)
             return torch.stack([total, n_edges, torch.clamp(max_e, min=0.0)], dim=-1)
         if skeleton == "delaunay":
-            locations = c.locations.cpu().numpy()
-            cost_np = c.cost_matrix.cpu().numpy()
-            rows = [_delaunay_host(m, locations, cost_np) for m in mask.cpu().numpy()]
-            return torch.as_tensor(np.stack(rows).reshape(-1, 3), dtype=cost.dtype,
-                                   device=cost.device)
+            with span("sbt.sync/geo.delaunay"):
+                locations = c.locations.cpu().numpy()
+            with span("sbt.sync/geo.delaunay"):
+                cost_np = c.cost_matrix.cpu().numpy()
+            with span("sbt.sync/geo.delaunay"):
+                masks = mask.cpu().numpy()
+            rows = [_delaunay_host(m, locations, cost_np) for m in masks]
+            with span("sbt.sync/geo.delaunay"):
+                return torch.as_tensor(np.stack(rows).reshape(-1, 3), dtype=cost.dtype,
+                                       device=cost.device)
         if skeleton == "diameter":
             raise NotImplementedError("skeleton=diameter is not implemented")
         raise ValueError(f"Unknown skeleton {skeleton}")
@@ -242,8 +249,10 @@ class Posterior:
         if g.probability_function == "sigmoid":
             x0, s = g.inflection_point, g.scale
             log_expit = torch.nn.functional.logsigmoid
-            return log_expit(-(agg_cost - x0) / s) - log_expit(
-                torch.tensor(x0 / s, dtype=agg_cost.dtype, device=agg_cost.device))
+            log_p = log_expit(-(agg_cost - x0) / s)
+            with span("sbt.sync/geo.sigmoid"):
+                offset = torch.tensor(x0 / s, dtype=agg_cost.dtype, device=agg_cost.device)
+            return log_p - log_expit(offset)
         raise ValueError(f"Unknown probability_function {g.probability_function}")
 
     def geo_prior_from_agg(self, clusters, geo_agg):

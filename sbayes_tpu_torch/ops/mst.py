@@ -9,7 +9,8 @@ row gather ``cost[j]`` and three (M, N) elementwise ops (five launches).
 
 The loop runs to the largest cluster of the batch; smaller clusters are
 finished earlier and add nothing more (their candidate set is empty).
-Reading that size is the one host-device sync of a call. Every
+Reading that size is the one host-device sync of a call (the span
+``sbt.sync/mst.size``, inside the call's ``sbt.prim``). Every
 per-iteration tensor is (M, N); the edges are kept as (M, n_iter).
 
 The row gather is the form the JAX package switches to above 2,048 objects
@@ -21,6 +22,8 @@ from __future__ import annotations
 
 import torch
 
+from sbayes_tpu_torch.tracing import span
+
 
 def cluster_mst_stats(cost: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """(M, 3) [total, n_edges, max_edge] of the MST over each masked subgraph.
@@ -28,9 +31,18 @@ def cluster_mst_stats(cost: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     cost: (N, N) symmetric cost matrix; mask: (M, N) bool memberships.
     A cluster of size <= 1 gives (0, 0, 0). Members that no finite edge
     reaches (an infinite cut) stop the tree: no further edge is added."""
+    with span("sbt.prim"):
+        return _prim(cost, mask)
+
+
+def _prim(cost: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     M, N = mask.shape
     dev = mask.device
-    n_iter = int(mask.sum(-1).max()) - 1 if M > 0 else 0
+    n_iter = 0
+    if M > 0:
+        largest = mask.sum(-1).max()
+        with span("sbt.sync/mst.size"):
+            n_iter = int(largest) - 1
     if n_iter <= 0:
         return torch.zeros((M, 3), dtype=cost.dtype, device=dev)
 

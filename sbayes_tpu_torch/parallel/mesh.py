@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from sbayes_tpu_torch.model.math import batch_take, pack_source, scatter_rows, source_onehot
+from sbayes_tpu_torch.tracing import span
 
 CHAIN_AXIS = "chains"
 DATA_AXIS = "objects"
@@ -173,7 +174,9 @@ def permute_plan(perm, b: int) -> list:
 
 def give_chains(shard, idx):
     """The chains ``idx`` (an index array) of a shard, on its device."""
-    return shard.select(torch.as_tensor(idx, device=shard.clusters.device))
+    with span("sbt.sync/mc3.permute"):
+        idx = torch.as_tensor(idx, device=shard.clusters.device)
+    return shard.select(idx)
 
 
 def place_chains(shard, local, moved: list):
@@ -181,9 +184,12 @@ def place_chains(shard, local, moved: list):
     each moved block ``(at, chains)`` (a ChainState of ``len(at)`` chains on
     any device) written at the rows ``at``."""
     dev = shard.clusters.device
-    new = shard.select(torch.as_tensor(local, device=dev))
+    with span("sbt.sync/mc3.permute"):
+        local = torch.as_tensor(local, device=dev)
+    new = shard.select(local)
     for at, block in moved:
-        at = torch.as_tensor(at, device=dev)
+        with span("sbt.sync/mc3.permute"):
+            at = torch.as_tensor(at, device=dev)
         for dst, val in zip(new, block):
             if dst is not None:
                 dst[at] = val.to(dev)

@@ -17,6 +17,7 @@ from sbayes_tpu_torch.model.math import scatter_rows
 from sbayes_tpu_torch.sampling.conditionals import Conditionals
 from sbayes_tpu_torch.sampling.operators import OperatorSpec
 from sbayes_tpu_torch.sampling.state import PRIOR_GEO, PRIOR_SIZE, PRIOR_SOURCE, PRIOR_WEIGHTS
+from sbayes_tpu_torch.tracing import span
 
 
 class OperatorStats(NamedTuple):
@@ -65,8 +66,10 @@ def mh_log_ratio(d_ll, d_prior, log_q, log_q_back, T, Tp):
 
 def make_mh_apply_fn(cond: Conditionals, op_specs: Sequence[OperatorSpec]) -> Callable:
     """``apply(op_idx, gen, state) -> (new_state, accept, step_size, nf)``:
-    operator ``op_idx`` (one draw for the whole batch) and the MH step."""
+    operator ``op_idx`` (one draw for the whole batch) and the MH step, in
+    the span ``sbt.op/<operator name>``."""
     post = cond.post
+    span_names = [f"sbt.op/{spec.name}" for spec in op_specs]
     T, Tp = cond.T, cond.Tp
     sfp = cond.sample_from_prior
 
@@ -113,6 +116,10 @@ def make_mh_apply_fn(cond: Conditionals, op_specs: Sequence[OperatorSpec]) -> Ca
         return cand, d_ll, d_parts.sum(-1)
 
     def apply(op_idx: int, gen, state):
+        with span(span_names[op_idx]):
+            return _apply(op_idx, gen, state)
+
+    def _apply(op_idx: int, gen, state):
         spec = op_specs[op_idx]
         res = spec.fn(gen, state)
         if res.source_rows is not None and res.source_prior_delta is None:

@@ -46,6 +46,7 @@ from sbayes_tpu_torch.model.math import (
 from sbayes_tpu_torch.ops.marginal import marginal
 from sbayes_tpu_torch.sampling.conditionals import EPS32, Conditionals, _pick_cluster
 from sbayes_tpu_torch.sampling.state import ChainState
+from sbayes_tpu_torch.tracing import span
 
 TINY = 1e-35
 NEG_INF = float("-inf")
@@ -559,8 +560,10 @@ class OperatorFactory:
             draw = (torch.rand(p.shape, generator=gen, device=dev) < p) & avail
             same = (draw == current).all(-1)
             for _ in range(99):
-                if not bool(same.any()):
-                    break
+                any_same = same.any()
+                with span("sbt.sync/wide.redraw"):
+                    if not bool(any_same):
+                        break
                 redraw = (torch.rand(p.shape, generator=gen, device=dev) < p) & avail
                 draw = torch.where(same[:, None], redraw, draw)
                 same = same & (draw == current).all(-1)
@@ -727,8 +730,10 @@ class OperatorFactory:
 
             obj = _masked_categorical(gen, pj_vec, source_cluster)
             clusters_new = state.clusters.clone()
-            clusters_new[ar, i_src, obj] = False
-            clusters_new[ar, i_tgt, obj] = True
+            with span("sbt.sync/jump.move_out"):
+                clusters_new[ar, i_src, obj] = False
+            with span("sbt.sync/jump.move_in"):
+                clusters_new[ar, i_tgt, obj] = True
             obj_idx = obj[:, None]
             valid = torch.ones((B, 1), dtype=torch.bool, device=dev)
             rs = cond.gibbs_resample_source_jump_rows(
@@ -793,9 +798,12 @@ class OperatorFactory:
                 perm = torch.argsort(torch.rand((B, N), generator=gen, device=dev), dim=-1)
                 return perm[:, :k_cap], torch.ones((B, k_cap), dtype=torch.bool, device=dev)
             comp = torch.randint(0, 1 + n_conf, (B,), generator=gen, device=dev)
-            n_groups = torch.tensor([K] + [int(n) for n in consts.n_groups], device=dev)
+            with span("sbt.sync/source_groups.sizes"):
+                n_groups = torch.tensor([K] + [int(n) for n in consts.n_groups], device=dev)
             g_idx = torch.randint(0, 10 ** 9, (B,), generator=gen, device=dev) % n_groups[comp]
-            offsets = torch.tensor([0] + [K + i * consts.Gmax for i in range(n_conf)], device=dev)
+            with span("sbt.sync/source_groups.offsets"):
+                offsets = torch.tensor([0] + [K + i * consts.Gmax for i in range(n_conf)],
+                                       device=dev)
             stacked = torch.cat([state.clusters, (consts.groups > 0).reshape(1, -1, N)
                                  .expand(B, -1, -1)], dim=1)                   # (B, K + n_conf*G, N)
             member = stacked[torch.arange(B, device=dev), offsets[comp] + g_idx]

@@ -90,6 +90,7 @@ from sbayes_tpu_torch.sampling.initializer import Initializer
 from sbayes_tpu_torch.sampling.kernel import OperatorStats, make_mh_apply_fn
 from sbayes_tpu_torch.sampling.operators import get_operator_schedule
 from sbayes_tpu_torch.sampling.state import ChainState
+from sbayes_tpu_torch.tracing import span
 
 # Chunk cadence of the exact carried-invariant refresh in the sampling loops.
 REFRESH_EVERY_CHUNKS = 64
@@ -274,8 +275,9 @@ class SamplerRuntime:
         Returns (states, stats), and with ``trace`` also the (n_steps, B)
         log-posterior ``log_lh + log_prior`` after each step as a numpy array:
         one launch per step into a tensor on the device, one read per chunk."""
-        return self.run_ops(gen, self.draw_ops(op_gen, n_steps), states, stats, temps,
-                            prior_temps, trace)
+        with span("sbt.chunk"):
+            return self.run_ops(gen, self.draw_ops(op_gen, n_steps), states, stats, temps,
+                                prior_temps, trace)
 
     def draw_ops(self, op_gen, n_steps: int) -> list:
         """The operator of each of ``n_steps`` steps, one draw for the batch."""
@@ -285,17 +287,19 @@ class SamplerRuntime:
     def run_ops(self, gen, ops: list, states: ChainState, stats: OperatorStats, temps=None,
                 prior_temps=None, trace: bool = False):
         """``run_chunk`` on the drawn operators ``ops``, one a step."""
-        apply = self.apply_fn(temps, prior_temps)
-        log_post = (torch.empty((len(ops), states.n_chains), device=self.device) if trace
-                    else None)
-        for i, op_idx in enumerate(ops):
-            states, accept, step_size, nf = apply(op_idx, gen, states)
-            stats = stats.record(op_idx, accept, step_size, nf)
+        with span("sbt.chunk"):
+            apply = self.apply_fn(temps, prior_temps)
+            log_post = (torch.empty((len(ops), states.n_chains), device=self.device) if trace
+                        else None)
+            for i, op_idx in enumerate(ops):
+                states, accept, step_size, nf = apply(op_idx, gen, states)
+                stats = stats.record(op_idx, accept, step_size, nf)
+                if trace:
+                    torch.add(states.log_lh, states.log_prior, out=log_post[i])
             if trace:
-                torch.add(states.log_lh, states.log_prior, out=log_post[i])
-        if trace:
-            return states, stats, _host(log_post)
-        return states, stats
+                with span("sbt.sync/run_ops.trace"):
+                    return states, stats, _host(log_post)
+            return states, stats
 
     def run_mc3_chunk(self, gen, op_gen, states: ChainState, stats: OperatorStats, temps,
                       prior_temps, swap_matrix: np.ndarray, step0: int, n_steps: int,
@@ -309,9 +313,10 @@ class SamplerRuntime:
         rung. ``swap_matrix`` (2, n, n) counts in place. Returns (states,
         stats, n_accepted, n_attempted). The ladder unsplit: one shard of
         ``ShardedRuntime.run_mc3_chunk``."""
-        shards, stats, n_acc, n_att = self.sharded().run_mc3_chunk(
-            ShardGenerators.of(gen), op_gen, [states], [stats], [temps], [prior_temps],
-            swap_matrix, step0, n_steps, swap_interval, attempts, only_adjacent)
+        with span("sbt.chunk"):
+            shards, stats, n_acc, n_att = self.sharded().run_mc3_chunk(
+                ShardGenerators.of(gen), op_gen, [states], [stats], [temps], [prior_temps],
+                swap_matrix, step0, n_steps, swap_interval, attempts, only_adjacent)
         return shards[0], stats[0], n_acc, n_att
 
     def refresh(self, states: ChainState) -> ChainState:
@@ -638,12 +643,15 @@ class ShardedRuntime:
         """``SamplerRuntime.run_mc3_chunk`` of a ladder whose rungs are split
         over the shards (``temps`` / ``prior_temps``: per-shard (b,) tensors):
         one operator draw a segment for every shard, then at each swap phase
-        one read per shard, ``swap_phase`` on the host and ``permute``."""
+        (the span ``sbt.swap_phase``) one read per shard, ``swap_phase`` on
+        the host and ``permute``."""
         n = sum(s.n_chains for s in shards)
         pairs = swap_pairs(n, only_adjacent)
         attempts = min(attempts, len(pairs))
-        t_host = self.values(temps).astype(np.float64)
-        tp_host = self.values(prior_temps).astype(np.float64)
+        with span("sbt.sync/mc3.temps"):
+            t_host = self.values(temps).astype(np.float64)
+        with span("sbt.sync/mc3.prior_temps"):
+            tp_host = self.values(prior_temps).astype(np.float64)
         n_acc = n_att = done = 0
         while done < n_steps:
             seg = min(swap_interval - (step0 + done) % swap_interval, n_steps - done)
@@ -651,12 +659,14 @@ class ShardedRuntime:
             done += seg
             if (step0 + done) % swap_interval:
                 continue
-            order, log_u = draw_swap_proposals(op_gen, len(pairs), attempts)
-            ll, lp = self.log_lh_prior(shards)
-            perm, _, _, acc = swap_phase(ll, lp, t_host, tp_host, pairs, order, log_u,
-                                         swap_matrix)
-            if acc:
-                shards = self.permute(shards, perm)
+            with span("sbt.swap_phase"):
+                order, log_u = draw_swap_proposals(op_gen, len(pairs), attempts)
+                with span("sbt.sync/mc3.log_lh_prior"):
+                    ll, lp = self.log_lh_prior(shards)
+                perm, _, _, acc = swap_phase(ll, lp, t_host, tp_host, pairs, order, log_u,
+                                             swap_matrix)
+                if acc:
+                    shards = self.permute(shards, perm)
             n_acc += acc
             n_att += attempts
         return shards, stats, n_acc, n_att

@@ -1,0 +1,68 @@
+"""Named spans of the sampling loop, on the profiler's clock.
+
+``span(name)`` opens ``torch.profiler.record_function(name)`` while a
+``torch.profiler`` records, so that its events land in the profiler's
+trace beside the kernels, on one clock; otherwise it returns one shared
+no-op context. The check costs about 0.2 us and a ``record_function``
+about 12 us on a CPU core, so a span never opens without a profiler.
+Nothing else turns the spans on: run any entry point inside a
+``torch.profiler.profile`` to see them.
+
+The spans, and what reads them (``perfbench/metrics/<name>.py``):
+
+- ``sbt.chunk``: each public chunk entry of ``SamplerRuntime``
+  (``run_chunk``, ``run_ops``, ``run_mc3_chunk``; they nest, readers take
+  the union): ``dispatch_ms_per_step``, ``idle_outside_program_share``.
+- ``sbt.op/<operator name>``: one MH step of an operator
+  (``sampling/kernel.py``), in ``run_ops``, ``op_steps`` and the warm-ups.
+  They name the idle gaps of the benchmark's breakdown.
+- ``sbt.prim``: the batched Prim (``ops/mst.py::cluster_mst_stats``), its
+  size read included: ``prim_ms_per_step``.
+- ``sbt.swap_phase``: one MC3 swap phase in ``ShardedRuntime.run_mc3_chunk``
+  (the proposals, the read of the ladder's log-posterior parts, the phase,
+  the permutation): ``swap_phase_ms``.
+- ``sbt.sync/<place>``: one host-device synchronisation on the sampling path,
+  where the host waits for the card: ``host_syncs_per_step``,
+  ``sync_wait_ms_per_step``; ``dispatch_ms_per_step`` leaves them out.
+
+The places of ``sbt.sync/``, each around one read of the device:
+
+- ``mst.size``: the batch's largest cluster, the Prim's loop length.
+- ``wide.redraw``: whether a chain of the wide operator still redraws.
+- ``run_ops.trace``: the chunk's log-posterior trace to the host.
+- ``mc3.temps``, ``mc3.prior_temps``: the ladder's temperatures to the host,
+  once a ``run_mc3_chunk``.
+- ``mc3.log_lh_prior``: the ladder's log-likelihoods and log-priors, once a
+  swap phase.
+- ``mc3.permute``: the rungs' new order to the device, once a swap phase
+  that accepted a swap (``parallel/mesh.py::place_chains``; more where a
+  split ladder moves chains between shards).
+- ``source_groups.sizes``, ``source_groups.offsets``: two small tables to
+  the device in each step of the source operator over a group's members.
+- ``jump.move_out``, ``jump.move_in``: the jump's two membership writes,
+  whose Python scalar goes to the device first.
+- ``size_prior.n``, ``geo.sigmoid``, ``geo.delaunay`` (``model/posterior.py``):
+  a scalar to the device under the ``uniform_size`` size prior and the
+  ``sigmoid`` geo probability; the masks to the host and the triples back
+  under the ``delaunay`` skeleton.
+
+A copy from host memory to the card that is not pinned waits for the
+card like a read does (PyTorch synchronises the stream after it), so
+those copies are syncs too.
+
+The program's count of kernel launches is ``ops/_cuda.py::LaunchCounter``.
+"""
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+_OFF = contextlib.nullcontext()
+_recording = torch._C._autograd._profiler_enabled
+
+
+def span(name: str):
+    """A context that records ``name`` as a span while a profiler records,
+    else the shared no-op context."""
+    return torch.profiler.record_function(name) if _recording() else _OFF

@@ -452,21 +452,6 @@ def scale_counts(counts: NDArray, scale_to: float, prior_inflation: float = 1.0)
     return counts * scale_factor
 
 
-def timeit(fn):
-    """Decorator printing the runtime of a function call (debug helper)."""
-    import functools
-    import time
-
-    @functools.wraps(fn)
-    def wrapped(*args, **kwargs):
-        t0 = time.time()
-        out = fn(*args, **kwargs)
-        print(f"{fn.__name__} took {time.time() - t0:.3f}s")
-        return out
-
-    return wrapped
-
-
 def process_memory(pid: int | None = None, unit: str = "MB") -> int:
     """RSS memory of a process (psutil)."""
     import psutil
