@@ -49,7 +49,9 @@ turns in one call (a, b, b, a).
    carried skeleton aggregates must equal their recompute, no object may be
    in two clusters, every size must lie within its bounds and the jump must
    be accepted sometimes and not always; its time breakdown also holds one
-   ``_update_geo`` (the batched Prim): launches and wall time. Then
+   ``_update_geo`` (the Prim kernel, ``csrc/mst.cu``) and the kernel's
+   triples, each beside the plain loop it replaced: launches, wall and
+   device time, the kernel against the loop, the bound. Then
    ``full_width_mc3``: the K = 3 phase again with the 8 temperatures of
    ``MC3_LADDER``, each on an eighth of the chains (no swaps): per-chain
    temperatures, the wide operator through the heat variant, with
@@ -91,7 +93,8 @@ turns in one call (a, b, b, a).
    finite, non-zero geo-prior part of every chain's log-prior, sizes within
    bounds, both kernels against their plain versions; peak memory, steps
    per second, ms per step of each operator, one ``_update_geo`` at the
-   batch's sizes (launches, wall ms, Prim iterations), one tiled against
+   batch's sizes as in ``where_time_goes_k3`` (kernel and plain loop:
+   launches, wall and device ms, Prim iterations), one tiled against
    one untiled ``geo_prior_costs_per_object`` (bit-equal, the tiled peak
    under 1 GB). Then ``scale_mc3``: ``benchmarks/mc3_scale.py``'s ladder
    (SCALE_MC3: 4 rungs, T = 1 + 0.02 i, a swap phase every 10 steps) from
@@ -445,9 +448,11 @@ def reset_counters():
 
 
 def counters() -> dict:
-    from sbayes_tpu_torch.ops import loglh, marginal
+    from sbayes_tpu_torch.ops import loglh, marginal, mst
 
     out = {"loglh": loglh.launches.count}
+    if mst.launches.count:
+        out["mst"] = mst.launches.count
     if loglh.launches.variants.get("packed"):
         out["loglh_packed"] = loglh.launches.variants["packed"]
     # the object split's two entries of the likelihood kernel (data_mesh)
@@ -507,7 +512,8 @@ def phase_main_path(tmp: Path, n_clusters: int = 1, geo: dict = None) -> dict:
             cols = row.split("\t")
             if len(cols) != n_clusters or any(set(c) - {"0", "1"} for c in cols):
                 raise AssertionError(f"run {r}: clusters row with {len(cols)} columns")
-    need = ["loglh", "marginal"] + (["marginal_abs"] if n_clusters > 1 else [])
+    need = (["loglh", "marginal"] + (["marginal_abs"] if n_clusters > 1 else [])
+            + (["mst"] if geo is not None else []))
     if any(launches.get(k, 0) == 0 for k in need):
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
     return {"runs": len(runs), "K": n_clusters, "geo": geo or {"type": "uniform"},
@@ -1124,7 +1130,8 @@ def phase_full_width(n_chains: int, n_steps: int, n_clusters: int = 1,
     jump_idx = rt.op_names.index("cluster_jump_gibbsish") if n_clusters > 1 else None
     errs = check_carried_state(c, states, ref, stats, jump_idx)
     need = (["loglh", "marginal"] + (["marginal_abs"] if n_clusters > 1 else [])
-            + (["marginal_heat"] if temps is not None else []))
+            + (["marginal_heat"] if temps is not None else [])
+            + (["mst"] if geo_prior != "uniform" else []))
     if any(launches.get(k, 0) == 0 for k in need):
         raise AssertionError(f"a kernel was not launched at full width: {launches}")
     accepts, total = stats.accepts.sum(0).float(), (stats.accepts + stats.rejects).sum(0).float()
@@ -1184,21 +1191,47 @@ def phase_where_time_goes(rt, states, reps: int = 10, temps=None) -> dict:
 
 
 def update_geo_cost(rt, states, reps: int = 10) -> dict:
-    """Launches and wall time of one ``_update_geo`` of one cluster per chain
-    (the batched Prim of ``ops/mst.py`` on the chains' own clusters), with
-    the whole update beside the Prim alone."""
-    from sbayes_tpu_torch.ops.mst import cluster_mst_stats
+    """One ``_update_geo`` of one cluster per chain on the chains' own
+    clusters (``update_geo``: the Prim kernel's update form) and the
+    kernel's triples of those clusters (``prim``), each beside the plain
+    loop ``_prim`` that the kernel replaced (``update_geo_plain``,
+    ``prim_plain``: a size read and five launches an iteration): launches
+    and device ms of one call (the kernel forms: its launch count and one
+    call replayed from a CUDA graph, ``device_time_ms``, which also shows
+    that the call captures; the plain forms: torch.profiler), wall ms per
+    eager call; the kernel against ``_prim`` on every cluster of the batch
+    (``ops.check.mst_vs_plain``); and the least time the card could take
+    for the update (``bound_ms``: every input byte read once, or its
+    compare-and-min operations), beside the L2 bytes of its cost-row reads
+    and its longest chain of dependent steps, which set its time."""
+    import functools
+
+    from sbayes_tpu_torch.ops import mst
+    from sbayes_tpu_torch.ops.check import mst_vs_plain
     from sbayes_tpu_torch.sampling.operators import OperatorFactory
 
     c = rt.consts
+    B, K, N = states.clusters.shape
     factory = OperatorFactory(rt.cond)
-    i_cluster = torch.zeros(states.n_chains, dtype=torch.long, device=states.clusters.device)
-    masks = states.clusters[:, 0]
+    i_cluster = torch.zeros(B, dtype=torch.long, device=states.clusters.device)
+    masks = states.clusters[:, 0].contiguous()
     forms = {"update_geo": lambda: factory._update_geo(states.geo_agg, states.clusters,
                                                        i_cluster),
-             "prim": lambda: cluster_mst_stats(c.cost_matrix, masks)}
-    out = {"batch_max_size": int(masks.sum(-1).max()),
-           "prim_iterations": max(int(masks.sum(-1).max()) - 1, 0)}
+             "prim": lambda: mst.cluster_mst_stats(c.cost_matrix, masks),
+             "update_geo_plain": lambda: mst.update_rows(
+                 states.geo_agg, states.clusters, (i_cluster,),
+                 functools.partial(mst._prim, c.cost_matrix)),
+             "prim_plain": lambda: mst._prim(c.cost_matrix, masks)}
+    sizes = masks.sum(-1)
+    steps = (sizes - 1).clamp(min=0)
+    in_bytes = 4 * N * N + B * N + 2 * 4 * B * K * 3 + 8 * B
+    ops = 2 * N * int(steps.sum())
+    least_ms, bound_by = bound_ms(in_bytes, ops)
+    out = {"batch_max_size": int(sizes.max()), "prim_iterations": int(steps.max()),
+           "vs_plain": mst_vs_plain(c.cost_matrix, states.clusters),
+           "bound": {"bytes": in_bytes, "operations": ops, "bound_ms": least_ms,
+                     "bound_by": bound_by, "l2_row_bytes": 4 * N * int(steps.sum()),
+                     "dependent_steps": int(steps.max())}}
     for name, fn in forms.items():
         fn()
         torch.cuda.synchronize()
@@ -1206,13 +1239,20 @@ def update_geo_cost(rt, states, reps: int = 10) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) / reps * 1e3
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out[name] = {"wall_ms": (time.perf_counter() - t0) / reps * 1e3}
+        if name.endswith("_plain"):
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+            out[name].update(launches=sum(e.count for e in events),
+                             device_ms=sum(e.self_device_time_total for e in events) / 1e3)
+        else:
+            before = mst.launches.count
             fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-        out[name] = {"wall_ms": wall_ms, "launches": sum(e.count for e in events),
-                     "device_ms": sum(e.self_device_time_total for e in events) / 1e3}
+            out[name].update(launches=mst.launches.count - before,
+                             device_ms=device_time_ms(fn, launches=reps, reps=2))
     return out
 
 

@@ -50,8 +50,14 @@ from sbayes_tpu_torch.model.math import (
     source_pick,
 )
 from sbayes_tpu_torch.ops import loglh
-from sbayes_tpu_torch.ops.mst import cluster_mst_stats
+from sbayes_tpu_torch.ops.mst import cluster_mst_stats, update_mst_stats, update_rows
 from sbayes_tpu_torch.tracing import span
+
+
+def skeleton_of(geo) -> str:
+    """The skeleton whose aggregates a geo prior takes (the simulated type
+    always takes the MST)."""
+    return "mst" if geo.prior_type == "simulated" else geo.skeleton
 
 
 class PosteriorParts(NamedTuple):
@@ -189,14 +195,23 @@ class Posterior:
             return c.cost_matrix * (0.020838 / c.geo.mean_edge_length)
         return c.cost_matrix
 
+    def updated_geo_agg(self, geo_agg, clusters, changed):
+        """A copy of the carried (B, K, 3) skeleton aggregates ``geo_agg`` of
+        ``clusters`` with row ``[b, i[b]]`` of each (B,) index ``i`` in
+        ``changed`` re-derived from ``clusters``: for the MST one
+        ``update_mst_stats`` (one launch on the card), else one
+        ``skeleton_triple`` call for all of them."""
+        if skeleton_of(self.consts.geo) == "mst":
+            return update_mst_stats(self._geo_cost_matrix(), geo_agg, clusters, changed)
+        return update_rows(geo_agg, clusters, changed, self.skeleton_triple)
+
     def skeleton_triple(self, mask, row_tile=None):
         """(M, 3) [total, n_edges, max_edge] of the skeleton of each cluster
         in ``mask`` (M, N) bool. ``row_tile``: the complete graph's longest
         edge in tiles of that many cost rows (None: ``auto_cost_row_tile``)."""
         c = self.consts
-        g = c.geo
         cost = self._geo_cost_matrix()
-        skeleton = "mst" if g.prior_type == "simulated" else g.skeleton
+        skeleton = skeleton_of(c.geo)
         if skeleton == "mst":
             return cluster_mst_stats(cost, mask)
         if skeleton == "complete_graph":

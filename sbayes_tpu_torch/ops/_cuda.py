@@ -35,6 +35,7 @@ SIGNATURES = {
     "sbt_loglh_from_counts": [_P] * 5 + [_I] * 6 + [_P],
     "sbt_marginal": [_P] * 10 + [_I] * 10 + [_P],
     "sbt_marginal_feature_tile": [_I] * 5,
+    "sbt_mst": [_P] * 6 + [_I] * 3 + [_P],
     "sbt_empty": [_P],
 }
 _BUILD_LOCK = threading.Lock()

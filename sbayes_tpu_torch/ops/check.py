@@ -1,4 +1,4 @@
-"""Both kernels against their plain versions on a chain batch's own inputs,
+"""The kernels against their plain versions on a chain batch's own inputs,
 and the launch counts of this process.
 
 ``chip_smoke.py`` holds every kernel against its plain version with these
@@ -10,11 +10,12 @@ from __future__ import annotations
 
 import torch
 
-from sbayes_tpu_torch.ops import loglh, marginal
+from sbayes_tpu_torch.ops import loglh, marginal, mst
 
 LOGLH_TOL_REL = 1e-5             # lgammaf vs torch.lgamma, summation order (of the total)
 MARGINAL_TOL_ABS = 1e-4          # 36 logs summed in another order (per object)
 MARGINAL_TOL_FEATURES = 36       # wider data: the tolerance grows with the logs summed
+MST_TOL_REL = 1e-5               # the total: float32 edges added in another order
 
 
 def launch_counts() -> dict:
@@ -23,12 +24,12 @@ def launch_counts() -> dict:
     return {c.name: {"count": c.count, "variants": dict(c.variants),
                      "by_place": {p: dict(v) for p, v in c.by_place.items()}}
             for c in (loglh.launches, loglh.counts_launches, loglh.from_counts_launches,
-                      marginal.launches)}
+                      marginal.launches, mst.launches)}
 
 
 def reset_launches():
     for c in (loglh.launches, loglh.counts_launches, loglh.from_counts_launches,
-              marginal.launches):
+              marginal.launches, mst.launches):
         c.reset()
 
 
@@ -116,9 +117,11 @@ def _synchronize(device):
 def compare_with_plain(c, inputs: dict) -> dict:
     """Both kernels and every marginal variant against their plain versions
     on ``inputs``; the likelihood on both source forms (the packed kernel
-    bit-equal to the bool one: the same terms in fixed point); raises beyond
-    a tolerance, returns the largest errors."""
+    bit-equal to the bool one: the same terms in fixed point); under an MST
+    geo prior the Prim kernel on the clusters (``mst_vs_plain``); raises
+    beyond a tolerance, returns the largest errors."""
     from sbayes_tpu_torch.model.math import pack_source, source_is_packed, source_onehot
+    from sbayes_tpu_torch.model.posterior import skeleton_of
 
     src = inputs["source"]
     forms = {"packed": src if source_is_packed(src) else pack_source(src),
@@ -148,6 +151,37 @@ def compare_with_plain(c, inputs: dict) -> dict:
         if not errs[name] <= tol:
             raise AssertionError(f"{name} kernel vs plain (N, F, S = {c.N, c.F, c.S}): "
                                  f"{errs[name]} > {tol}")
+    if c.geo.prior_type != "uniform" and skeleton_of(c.geo) == "mst":
+        errs.update(mst_vs_plain(c.cost_matrix, inputs["clusters"]))
+    return errs
+
+
+def mst_vs_plain(cost, clusters) -> dict:
+    """The Prim kernel's two entries against ``_prim`` on the (B, K, N)
+    ``clusters``: every cluster's triple, and the update of rows 0 and 1 of
+    each chain (the jump's form) in a copy of those triples. Edge counts and
+    longest edges exactly, totals within ``MST_TOL_REL``; the rows the update
+    does not touch bit-equal to its input. Raises, else returns the largest
+    relative error of a total."""
+    B, K, N = clusters.shape
+    want = mst._prim(cost, clusters.reshape(B * K, N)).view(B, K, 3)
+    got = mst.cluster_mst_stats(cost, clusters.reshape(B * K, N)).view(B, K, 3)
+    rows = tuple(torch.full((B,), k, dtype=torch.long, device=clusters.device)
+                 for k in range(min(K, 2)))
+    updated = mst.update_mst_stats(cost, want, clusters, rows)
+    _synchronize(clusters.device)
+    if not torch.equal(updated[:, len(rows):], want[:, len(rows):]):
+        raise AssertionError("mst update: a row it does not recompute changed")
+    errs = {}
+    for name, out in (("stats", got), ("update", updated)):
+        if not (torch.equal(out[..., 1], want[..., 1]) and torch.equal(out[..., 2], want[..., 2])):
+            raise AssertionError(f"mst kernel ({name}) vs _prim (N = {N}): edge counts or "
+                                 f"longest edges differ")
+        rel = ((out[..., 0] - want[..., 0]).abs() / want[..., 0].abs().clamp(min=1e-30)).max()
+        errs[f"mst_{name}_rel"] = float(rel)
+        if not errs[f"mst_{name}_rel"] <= MST_TOL_REL:
+            raise AssertionError(f"mst kernel ({name}) vs _prim (N = {N}): relative error "
+                                 f"of a total {errs[f'mst_{name}_rel']} > {MST_TOL_REL}")
     return errs
 
 

@@ -304,17 +304,11 @@ class OperatorFactory:
 
     def _update_geo(self, geo_agg, clusters_new, *changed_clusters):
         """The carried (B, K, 3) skeleton aggregates with the rows of the
-        changed clusters (each a (B,) index) re-derived from ``clusters_new``:
-        one skeleton call for all of them. None when geo is not carried."""
+        changed clusters (each a (B,) index) re-derived from ``clusters_new``
+        (``Posterior.updated_geo_agg``). None when geo is not carried."""
         if geo_agg is None:
             return None
-        ar = torch.arange(clusters_new.shape[0], device=clusters_new.device)
-        masks = torch.cat([clusters_new[ar, i] for i in changed_clusters])
-        triples = self.cond.post.skeleton_triple(masks).view(len(changed_clusters), -1, 3)
-        geo_agg = geo_agg.clone()
-        for i, triple in zip(changed_clusters, triples):
-            geo_agg[ar, i] = triple
-        return geo_agg
+        return self.cond.post.updated_geo_agg(geo_agg, clusters_new, changed_clusters)
 
     def _grow_candidates(self, clusters, i_cluster, neighbourhood: str):
         """(B, N) growth candidates of cluster ``i_cluster``."""

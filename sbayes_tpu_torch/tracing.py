@@ -16,8 +16,9 @@ The spans, and what reads them (``perfbench/metrics/<name>.py``):
 - ``sbt.op/<operator name>``: one MH step of an operator
   (``sampling/kernel.py``), in ``run_ops``, ``op_steps`` and the warm-ups.
   They name the idle gaps of the benchmark's breakdown.
-- ``sbt.prim``: the batched Prim (``ops/mst.py::cluster_mst_stats``), its
-  size read included: ``prim_ms_per_step``.
+- ``sbt.prim``: the batched Prim (``ops/mst.py``: ``cluster_mst_stats``,
+  ``update_mst_stats``): on the card the kernel's launch, on the CPU the
+  plain loop with its size read: ``prim_ms_per_step``.
 - ``sbt.swap_phase``: one MC3 swap phase in ``ShardedRuntime.run_mc3_chunk``
   (the proposals, the read of the ladder's log-posterior parts, the phase,
   the permutation): ``swap_phase_ms``.
@@ -27,7 +28,8 @@ The spans, and what reads them (``perfbench/metrics/<name>.py``):
 
 The places of ``sbt.sync/``, each around one read of the device:
 
-- ``mst.size``: the batch's largest cluster, the Prim's loop length.
+- ``mst.size``: the batch's largest cluster, the loop length of the plain
+  Prim (``ops/mst.py::_prim``, CPU tensors; the kernel reads nothing back).
 - ``wide.redraw``: whether a chain of the wide operator still redraws.
 - ``run_ops.trace``: the chunk's log-posterior trace to the host.
 - ``mc3.temps``, ``mc3.prior_temps``: the ladder's temperatures to the host,
