@@ -10,18 +10,31 @@ cluster) or ``random_growth`` (each cluster grown from a random free seed by
 free neighbour stops growing, as in the JAX package). Then a prior source
 draw followed by a full Gibbs source step, two rounds of ML cluster steps
 with a weights re-estimate between them, and the best of ``attempts`` by
-likelihood (the likelihood kernel on CUDA). The EM likelihoods and the prior
-source draw run over the model's feature tiles, and the source is stored in
-the model's form (packed int8 at scale), as in the JAX package.
+likelihood (the likelihood kernel on CUDA). The prior source draw runs over
+the model's feature tiles, and the source is stored in the model's form
+(packed int8 at scale), as in the JAX package.
+
+The EM's group log-likelihoods are one contraction over (feature, state) of
+the log effect table with the one-hot features, (n, G, N) in memory, and its
+geo term multiplies the cost matrix by the K cluster rows only. The JAX
+package computes the same numbers from a gathered (n, G, N, F) table, 272 GB
+for 640 attempt-chains at Grambank's 2,467 objects x 195 features in 215
+families, and from a geo product over all G = 221 rows, 44 times the K rows'.
+
+Spans ``sbt.init/em`` (the EM and its discretization) and ``sbt.init/refine``
+(the source passes, the ML cluster steps and the best of attempts); the
+module's ``record`` keeps what the last ``generate_sample`` measured.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
+import time
+from typing import Optional
 
 import torch
 
 from sbayes_tpu_torch.model.math import (
-    add_tiles,
     cat_tiles,
     feature_tiles,
     normalize,
@@ -33,6 +46,22 @@ from sbayes_tpu_torch.model.math import (
 from sbayes_tpu_torch.sampling.conditionals import Conditionals
 from sbayes_tpu_torch.sampling.operators import OperatorFactory, _gumbel
 from sbayes_tpu_torch.sampling.state import ChainState
+from sbayes_tpu_torch.tracing import span
+
+
+@dataclasses.dataclass
+class InitRecord:
+    """What the last ``Initializer.generate_sample`` measured. ``em_s``: host
+    seconds of the EM and its discretization, synchronised at its end on CUDA
+    (None under the other methods). ``peak_bytes``:
+    ``torch.cuda.max_memory_allocated()`` at the end of the init, read without
+    a reset, so the peak since the caller's last reset (None on the CPU)."""
+
+    em_s: Optional[float] = None
+    peak_bytes: Optional[int] = None
+
+
+record = InitRecord()
 
 
 def _truncnorm_sample(gen, n, mid, lower, upper, scale, device):
@@ -65,49 +94,54 @@ class Initializer:
         self.groups_available = torch.cat(rows, dim=0)               # (G_all, N)
 
     def generate_clusters_em(self, gen, n: int):
-        """(n, K, N) initial clusters from annealed EM."""
+        """(n, K, N) initial clusters from annealed EM; sets ``record.em_s``."""
+        t0 = time.perf_counter()
         c = self.consts
         dev = c.device
         N, K = c.N, c.K
-        avail = self.groups_available
-        G = avail.shape[0]
-        total_size = _truncnorm_sample(
-            gen, n, mid=float(K * self.initial_size), lower=float(K * c.min_size),
-            upper=float(min(N, K * c.max_size)),
-            scale=float(max(20.0, K * self.initial_size - K * c.min_size)), device=dev)
-        total_size = torch.clamp(torch.round(total_size).long(), K * c.min_size, N)
+        with span("sbt.init/em"):
+            avail = self.groups_available
+            total_size = _truncnorm_sample(
+                gen, n, mid=float(K * self.initial_size), lower=float(K * c.min_size),
+                upper=float(min(N, K * c.max_size)),
+                scale=float(max(20.0, K * self.initial_size - K * c.min_size)), device=dev)
+            total_size = torch.clamp(torch.round(total_size).long(), K * c.min_size, N)
 
-        prior_counts = 0.5 * c.applicable.float()
-        z = torch.rand((n, G, N), generator=gen, device=dev) * avail
-        z = z / torch.clamp(z.sum(1, keepdim=True), min=1e-35)
-        f_ar = torch.arange(c.F, device=dev)[None]
-        feat_idx = c.feat_idx.long()                                    # (N, F), S = NA
-        geo_on = c.geo.prior_type == "cost_based"
-        tiles = feature_tiles(c.F, c.feature_chunk)
+            z = torch.rand((n, avail.shape[0], N), generator=gen, device=dev) * avail
+            z = z / torch.clamp(z.sum(1, keepdim=True), min=1e-35)
+            for i_step in range(self.n_em_steps):
+                z = self.em_step(z, i_step)
+            clusters = self._discretize_fuzzy_clusters(z, total_size)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        record.em_s = time.perf_counter() - t0
+        return clusters
 
-        for i_step in range(self.n_em_steps):
-            state_counts = torch.einsum("bgn,nfs->bgfs", z, c.features)
-            p = normalize(state_counts + prior_counts)
-            # NA observations count as "any state": their term is sum_s p.
-            p_any = torch.cat([p, p.sum(-1, keepdim=True)], dim=-1)
-            group_lls = add_tiles([                                      # (n, G, N)
-                torch.log(torch.clamp(p_any[:, :, f_ar[:, sl], feat_idx[:, sl]],
-                                      min=1e-35)).sum(-1)
-                for sl in tiles])
-            temperature = (self.n_em_steps / (1.0 + i_step)) ** 3
-            lh = group_lls / temperature
-            if geo_on:
-                # Geo term: the mean cost from each object to a group's
-                # (sharpened) members; confounder groups get the clusters' mean.
-                avg_dist = torch.softmax(N * z, dim=2) @ c.cost_matrix
-                log_geo = -avg_dist / c.geo.scale / 2.0
-                mean_cluster_geo = (torch.logsumexp(log_geo[:, :K].reshape(n, -1), dim=-1)
-                                    - math.log(K * N))
-                log_geo[:, K:] = mean_cluster_geo[:, None, None]
-                lh = lh + log_geo
-            lh = torch.where(avail, lh, torch.full((), float("-inf"), device=dev))
-            z = torch.softmax(lh, dim=1)
-        return self._discretize_fuzzy_clusters(z, total_size)
+    def em_step(self, z, i_step: int):
+        """One annealed EM step of the (n, G, N) responsibilities ``z`` over
+        the K clusters and the G - K valid confounder groups."""
+        c = self.consts
+        N, K = c.N, c.K
+        n, G = z.shape[:2]
+        state_counts = torch.einsum("bgn,nfs->bgfs", z, c.features)
+        log_p = torch.log(torch.clamp(normalize(state_counts + 0.5 * c.applicable.float()),
+                                      min=1e-35))
+        # sum_f log p[f, x_nf] as a product with the one-hot rows; an NA row
+        # is all zeros and adds log sum_s p = log 1 = 0.
+        group_lls = (log_p.reshape(n * G, -1) @ c.features.reshape(N, -1).T).view(n, G, N)
+        lh = group_lls / (self.n_em_steps / (1.0 + i_step)) ** 3
+        if c.geo.prior_type == "cost_based":
+            # Geo term: the mean cost from each object to a cluster's
+            # (sharpened) members; confounder groups get the clusters' mean.
+            avg_dist = torch.softmax(N * z[:, :K], dim=2) @ c.cost_matrix
+            log_geo = -avg_dist / c.geo.scale / 2.0
+            mean_cluster_geo = (torch.logsumexp(log_geo.reshape(n, -1), dim=-1)
+                                - math.log(K * N))
+            lh[:, :K] += log_geo
+            lh[:, K:] += mean_cluster_geo[:, None, None]
+        lh = torch.where(self.groups_available, lh, torch.full((), float("-inf"),
+                                                               device=z.device))
+        return torch.softmax(lh, dim=1)
 
     def generate_clusters_seed_points(self, gen, n: int):
         """(n, K, N) clusters of one random object each, distinct per chain;
@@ -189,10 +223,18 @@ class Initializer:
 
     def generate_sample_attempt(self, gen, n: int) -> ChainState:
         """(n,) independent initial states."""
+        clusters = self.generate_initial_clusters(gen, n)
+        with span("sbt.init/refine"):
+            return self.refine(gen, clusters)
+
+    def refine(self, gen, clusters) -> ChainState:
+        """States from initial ``clusters``: a prior source draw, a full Gibbs
+        source pass, and with ``initial_cluster_steps`` the ML cluster steps
+        around a weights re-estimate and a second source pass."""
         c = self.consts
         cond = self.cond
         dev = c.device
-        clusters = self.generate_initial_clusters(gen, n)
+        n = clusters.shape[0]
         weights = torch.full((n, c.F, c.C), 1.0 / c.C, device=dev)
         source = self.prior_source(gen, clusters, weights)
         minus_inf = torch.full((n,), float("-inf"), device=dev)
@@ -215,9 +257,16 @@ class Initializer:
         return state
 
     def generate_sample(self, gen, n_chains: int) -> ChainState:
-        """Best of ``attempts`` initial samples per chain, by likelihood."""
+        """Best of ``attempts`` initial samples per chain, by likelihood; fills
+        ``record``."""
+        record.em_s = record.peak_bytes = None
         A = self.attempts
-        states = self.generate_sample_attempt(gen, n_chains * A)
-        lh = self.cond.post.log_likelihood(states).view(n_chains, A)
-        best = lh.argmax(dim=1) + torch.arange(n_chains, device=lh.device) * A
-        return states.select(best)
+        clusters = self.generate_initial_clusters(gen, n_chains * A)
+        with span("sbt.init/refine"):
+            states = self.refine(gen, clusters)
+            lh = self.cond.post.log_likelihood(states).view(n_chains, A)
+            best = lh.argmax(dim=1) + torch.arange(n_chains, device=lh.device) * A
+            states = states.select(best)
+        if states.clusters.device.type == "cuda":
+            record.peak_bytes = int(torch.cuda.max_memory_allocated(states.clusters.device))
+        return states

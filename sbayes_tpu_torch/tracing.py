@@ -22,6 +22,10 @@ The spans, and what reads them (``perfbench/metrics/<name>.py``):
 - ``sbt.swap_phase``: one MC3 swap phase in ``ShardedRuntime.run_mc3_chunk``
   (the proposals, the read of the ladder's log-posterior parts, the phase,
   the permutation): ``swap_phase_ms``.
+- ``sbt.init/em``, ``sbt.init/refine``: the initializer's EM with its
+  discretization, and its source passes, ML cluster steps and best of
+  attempts (``sampling/initializer.py``, which keeps the EM's seconds and
+  the init's peak memory in ``record``: ``init_em_s``, ``init_peak_gb``).
 - ``sbt.sync/<place>``: one host-device synchronisation on the sampling path,
   where the host waits for the card: ``host_syncs_per_step``,
   ``sync_wait_ms_per_step``; ``dispatch_ms_per_step`` leaves them out.
