@@ -180,7 +180,11 @@ turns in one call (a, b, b, a).
    "residual"``, launches: that path's); the likelihood kernel's two
    entries of the object split, ``loglh_counts`` and ``loglh_from_counts``,
    at the scale shape (``data_mesh``'s launches), each against its plain
-   version.
+   version; the source draws' inverse CDF (``draw``, ``csrc/draw.cu``)
+   bit-equal to its plain version at DRAW_SHAPES, the wide draws of
+   ``sa100_k3.ens1024`` and ``grambank_k5.ens64``, each with its device
+   time, byte bound and the plain version's time (``"shapes"``; launches:
+   every path's source draws).
    ``ms``, ``plain_ms`` and ``launch_floor_ms`` time eager calls with
    CUDA events; ``device_ms`` and ``device_floor_ms`` time the same launches
    replayed from a CUDA graph, where the host dispatches nothing;
@@ -226,6 +230,10 @@ SCALE_CHAINS, SCALE_CHUNK, SCALE_CHUNKS = 16, 20, 3
 # at 1.4-2 steps/s), each operator timed over 2 steps (cut from 3)
 SCALE_GEO_CHUNKS, SCALE_GEO_OP_REPS = 1, 2
 SCALE_KERNEL_CHAINS = 2          # the plain marginal's (B, N, F, S) temporaries stay 2 GB
+# The source draws' wide shapes, (chains, objects, features, components):
+# sa100_k3.ens1024's wide operator (3.69M rows), grambank_k5.ens64's (6.39M rows,
+# the rows cap of 512 objects)
+DRAW_SHAPES = {"ens1024_wide": (1024, 100, 36, 3), "grambank_wide": (64, 512, 195, 3)}
 # benchmarks/mc3_scale.py's ladder at the scale shape: 4 rungs, T = 1 + 0.02 i,
 # prior temperatures 1, a swap phase every 10 steps of 1 attempt between
 # adjacent rungs; 3 chunks of 40 steps, then the plain ensemble the same
@@ -448,11 +456,13 @@ def reset_counters():
 
 
 def counters() -> dict:
-    from sbayes_tpu_torch.ops import loglh, marginal, mst
+    from sbayes_tpu_torch.ops import draw, loglh, marginal, mst
 
     out = {"loglh": loglh.launches.count}
     if mst.launches.count:
         out["mst"] = mst.launches.count
+    if draw.launches.count:
+        out["draw"] = draw.launches.count
     if loglh.launches.variants.get("packed"):
         out["loglh_packed"] = loglh.launches.variants["packed"]
     # the object split's two entries of the likelihood kernel (data_mesh)
@@ -512,7 +522,7 @@ def phase_main_path(tmp: Path, n_clusters: int = 1, geo: dict = None) -> dict:
             cols = row.split("\t")
             if len(cols) != n_clusters or any(set(c) - {"0", "1"} for c in cols):
                 raise AssertionError(f"run {r}: clusters row with {len(cols)} columns")
-    need = (["loglh", "marginal"] + (["marginal_abs"] if n_clusters > 1 else [])
+    need = (["loglh", "marginal", "draw"] + (["marginal_abs"] if n_clusters > 1 else [])
             + (["mst"] if geo is not None else []))
     if any(launches.get(k, 0) == 0 for k in need):
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
@@ -2313,6 +2323,43 @@ def phase_kernels(rt, states, rt_k3, states_k3, rt_mc3, states_mc3, temps_mc3,
     return out
 
 
+def draw_row(launches_by_path: dict) -> dict:
+    """The source draws' kernel against its plain version at each of
+    DRAW_SHAPES, on uniform probabilities with every 97th row all zero and
+    every 89th holding a NaN: the one-hot rows bit-equal, the kernel's
+    device time (CUDA graph replays) and eager time beside the plain
+    version's, the bytes (4C + 4 read, C written a row) and their bound."""
+    from sbayes_tpu_torch.ops import draw
+
+    shapes = {}
+    for name, shape in DRAW_SHAPES.items():
+        gen = torch.Generator(device=DEVICE).manual_seed(len(shapes) + 3)
+        p = torch.rand(shape, generator=gen, device=DEVICE)
+        rows = p.view(-1, shape[-1])
+        rows[::97] = 0.0
+        rows[::89, 1] = float("nan")
+        u = torch.rand(shape[:-1], generator=gen, device=DEVICE)
+        got, want = draw.onehot(p, u), draw.onehot_plain(p, u)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"draw kernel vs plain at {shape}: "
+                                 f"{int((got != want).any(-1).sum())} rows differ")
+        n_rows = rows.shape[0]
+        n_bytes = n_rows * (5 * shape[-1] + 4)
+        shapes[name] = {"shape": list(shape), "rows": n_rows, "bytes": n_bytes,
+                        "bound_ms": bound_ms(n_bytes, 0)[0],
+                        "device_ms": device_time_ms(lambda: draw.onehot(p, u), launches=10,
+                                                    reps=10),
+                        "ms": cuda_time_ms(lambda: draw.onehot(p, u), reps=20),
+                        "plain_ms": cuda_time_ms(lambda: draw.onehot_plain(p, u), reps=5),
+                        "bit_equal": True}
+        del p, u, rows, got, want
+    paths = {path: n.get("draw", 0) for path, n in launches_by_path.items()}
+    return {"name": "draw", "route": "cuda", "source": "sbayes_tpu_torch/csrc/draw.cu",
+            "replaces": None, "launches": sum(paths.values()), "launches_by_path": paths,
+            "shapes": shapes, **launch_floor()}
+
+
 def mesh_devices() -> tuple:
     """The devices of the mesh phase: every visible card where the machine
     has more than one, else two shards on cuda:0."""
@@ -3290,7 +3337,8 @@ def main() -> int:
     residual_launches = add_launches(*(alt[k]["launches"] for k in (
         "wide_residual", "wide_residual_counts", "wide_residual_counts_mc3")))
     kernels = phase_kernels(rt, states, rt_k3, states_k3, rt_mc3, states_mc3, temps, by_path,
-                            jump_512["two_eff"], residual_launches) + scale_rows + data_mesh_rows
+                            jump_512["two_eff"], residual_launches) + [draw_row(by_path)]
+    kernels += scale_rows + data_mesh_rows
     left = child_processes()
     if left:
         raise RuntimeError(f"processes started by the script still run: {left}")

@@ -30,6 +30,8 @@ import operator
 
 import torch
 
+from sbayes_tpu_torch.ops import draw
+
 TINY = 1e-35
 
 
@@ -201,12 +203,11 @@ def conditional_effect_mean(prior_counts, feature_counts, unif_counts=None,
 def sample_categorical_onehot(gen, p):
     """One-hot draws (bool, same shape) from unnormalized categorical
     probabilities ``p`` by inverse CDF, one uniform per cell. All-zero rows
-    yield the last category (every caller masks them)."""
-    c = p.shape[-1]
-    cdf = torch.cumsum(p, dim=-1)
-    u = torch.rand(p.shape[:-1], generator=gen, device=p.device, dtype=p.dtype) * cdf[..., -1]
-    idx = torch.clamp((u[..., None] >= cdf).sum(-1), max=c - 1)
-    return idx[..., None] == torch.arange(c, device=p.device)
+    yield the last category (every caller masks them). The inverse CDF is
+    ``ops/draw.py``'s: the kernel on CUDA tensors, its plain version on CPU
+    ones."""
+    u = torch.rand(p.shape[:-1], generator=gen, device=p.device, dtype=p.dtype)
+    return draw.onehot(p, u)
 
 
 def compact_indices(mask, size: int, fill: int):

@@ -27,6 +27,7 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_int64
 # C entry points: name -> argument types (pointers, ints, then the stream)
 SIGNATURES = {
     "sbt_loglh": [_P] * 7 + [_I] * 8 + [_P],
@@ -36,6 +37,7 @@ SIGNATURES = {
     "sbt_marginal": [_P] * 10 + [_I] * 10 + [_P],
     "sbt_marginal_feature_tile": [_I] * 5,
     "sbt_mst": [_P] * 6 + [_I] * 3 + [_P],
+    "sbt_draw": [_P] * 3 + [_L] + [_I] * 2 + [_P],
     "sbt_empty": [_P],
 }
 _BUILD_LOCK = threading.Lock()

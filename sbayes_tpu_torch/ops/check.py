@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from sbayes_tpu_torch.ops import loglh, marginal, mst
+from sbayes_tpu_torch.ops import draw, loglh, marginal, mst
 
 LOGLH_TOL_REL = 1e-5             # lgammaf vs torch.lgamma, summation order (of the total)
 MARGINAL_TOL_ABS = 1e-4          # 36 logs summed in another order (per object)
@@ -24,12 +24,12 @@ def launch_counts() -> dict:
     return {c.name: {"count": c.count, "variants": dict(c.variants),
                      "by_place": {p: dict(v) for p, v in c.by_place.items()}}
             for c in (loglh.launches, loglh.counts_launches, loglh.from_counts_launches,
-                      marginal.launches, mst.launches)}
+                      marginal.launches, mst.launches, draw.launches)}
 
 
 def reset_launches():
     for c in (loglh.launches, loglh.counts_launches, loglh.from_counts_launches,
-              marginal.launches, mst.launches):
+              marginal.launches, mst.launches, draw.launches):
         c.reset()
 
 

@@ -19,6 +19,9 @@ The spans, and what reads them (``perfbench/metrics/<name>.py``):
 - ``sbt.prim``: the batched Prim (``ops/mst.py``: ``cluster_mst_stats``,
   ``update_mst_stats``): on the card the kernel's launch, on the CPU the
   plain loop with its size read: ``prim_ms_per_step``.
+- ``sbt.draw``: one source draw's inverse CDF (``ops/draw.py::onehot``): on
+  the card the kernel's launch, on the CPU the plain version. No metric
+  reads it yet.
 - ``sbt.swap_phase``: one MC3 swap phase in ``ShardedRuntime.run_mc3_chunk``
   (the proposals, the read of the ladder's log-posterior parts, the phase,
   the permutation): ``swap_phase_ms``.
