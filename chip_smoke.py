@@ -131,15 +131,17 @@ turns in one call (a, b, b, a).
    rows, each ELPD, wall times and the launches of all three runs. Then
    ``mesh``, the parallel layer, over every visible card or, on a one-card
    machine, two shards on cuda:0 (``mesh_devices``; ``split_over`` makes
-   ``auto_chain_mesh`` see them): (a) the K = 3 ensemble of CHAINS chains
-   (``full_width_k3``'s states) split, a split init, then alternating
-   windows split / unsplit and one window of both shards dispatched from
-   one thread; (b) ``full_width_mc3``'s chains as one MC3 ladder split
-   across the shards, swaps counted across the shard boundary; (c)
-   ``scale``'s in-bounds states split 2 x 8, on drawn steps and on a fixed
-   sequence of wide steps; each with every shard's
-   carried state against its recompute, the launches on shard 1's stream
-   and both kernels against their plain versions on shard 1's chains; (d)
+   ``auto_chain_mesh`` see them), split as ``SamplerRuntime.shard`` splits
+   (shard 0 in this process, each other shard in a worker process): (a)
+   the K = 3 ensemble of CHAINS chains (``full_width_k3``'s states) split,
+   the workers' spawn-to-ready time, a split init, then alternating
+   windows split / unsplit; (b) ``full_width_mc3``'s chains as one MC3
+   ladder split across the shards, swaps counted across the shard
+   boundary; (c) ``scale``'s in-bounds states split 2 x 8, on drawn steps
+   and on a fixed sequence of wide steps; each with every shard's carried
+   state against its recompute, the launches in worker 1 and both kernels
+   against their plain versions on shard 1's chains inside worker 1; the
+   workers ended and the resource tracker stopped after (c); (d)
    ``cli.main`` on the fixture config (as JSON) with 2 runs as one ensemble,
    as ``-t 2`` (spawned processes) and as ``-i 0; -i 1``: wall times, every
    run's files complete with finite likelihoods (MESH: the step counts).
@@ -251,8 +253,7 @@ WORKFLOW = {"sites": 100, "cluster_size": 10, "centres": [(2.0, 2.0), (8.0, 2.5)
 # The mesh phase: the chain split over every visible card (two shards on
 # cuda:0 where there is one card) and the CLI's run pool, within 60 s: (a)
 # three alternating pairs of 50-step windows of the split and the unsplit
-# K = 3 ensemble (cut from 100), then one window of both shards dispatched
-# from one thread; (b) the MC3 ladder of full_width_mc3's 1024 rungs, 105
+# K = 3 ensemble (cut from 100); (b) the MC3 ladder of full_width_mc3's 1024 rungs, 105
 # steps (cut from 300) with a swap phase every 5 steps (21 phases), split
 # and unsplit; (c) the scale states 2 x 8, 20 steps, then 3 steps of each
 # wide operator split and unsplit; (d) cli.main on the
@@ -2385,110 +2386,84 @@ def sync_all():
         torch.cuda.synchronize(i)
 
 
-def shard_launches(sh, j: int) -> dict:
-    """The launches counted on shard ``j``'s device and stream, by variant."""
-    from sbayes_tpu_torch.ops import loglh, marginal
-
-    place = (sh.mesh[j].index, sh.streams[j].cuda_stream)
-    out = {"loglh": sum(loglh.launches.by_place.get(place, {}).values())}
-    for key, n in marginal.launches.by_place.get(place, {}).items():
-        out[marginal.variant_name(*key)] = n
-    return out
-
-
-def split_runtime(rt, n_chains: int, devices, processes: bool = False):
-    """The split of ``n_chains`` over ``devices`` as ``auto_chain_mesh`` gives
-    it: the thread split (``rt.sharded``), or with ``processes`` the one
-    ``rt.shard`` gives (a process per shard)."""
+def split_runtime(rt, n_chains: int, devices):
+    """The split of ``n_chains`` over ``devices`` that ``rt.shard`` gives
+    where ``auto_chain_mesh`` sees them: shard 0 in this process, each
+    other shard in a worker process."""
     with split_over(devices):
-        sh = rt.shard(n_chains) if processes else rt.sharded(rt.split_mesh(n_chains))
-    if sh.n_shards != len(devices):
+        sh = rt.shard(n_chains)
+    if (sh.n_shards, sh.n_local) != (len(devices), 1):
         raise AssertionError(f"{n_chains} chains split into {sh.n_shards} shards, "
-                             f"not {len(devices)}")
+                             f"{sh.n_local} here, not {len(devices)} with one here")
     return sh
 
 
 def check_shards(sh, shards, stats, jump_idx=None) -> list:
-    """Every shard's carried state against its own exact recompute."""
+    """Every shard's carried state against its own exact recompute; the
+    shards of workers (and with them the whole batch) read here first."""
     refs = sh.refresh(shards)
+    if sh.n_local < sh.n_shards:
+        return [check_carried_state(sh.rt.consts, sh.gather(shards), sh.gather(refs),
+                                    sh.gather(stats), jump_idx)]
     return [check_carried_state(sh.rts[j].consts, shards[j], refs[j], stats[j], jump_idx)
             for j in range(sh.n_shards)]
 
 
 def mesh_ensemble(rt, states, devices) -> dict:
-    """(a) The K = 3 ensemble split over ``devices``: the split init of a
-    warm-up race, then MESH["pairs"] alternating pairs of
+    """(a) The K = 3 ensemble split over ``devices``: the spawn-to-ready time
+    of the workers, the split init of a warm-up race (its likelihoods: the
+    loglh kernel), then MESH["pairs"] alternating pairs of
     MESH["window"]-step windows from ``states``, split then unsplit
-    (``run_chunk`` of the whole batch), chain-steps/s of each, and one
-    window of the shards dispatched one after the other from the calling
-    thread (``split_one_thread``, not counted in the launches); every shard's
-    carried counts and ``geo_agg`` against the recompute; the launches on
-    shard 1's device and stream; both kernels against their plain versions
-    on shard 1's chains (from its device, whatever the current device)."""
-    from sbayes_tpu_torch.ops.check import (
-        compare_with_plain, jump_kernel_inputs, path_kernel_inputs)
+    (``run_chunk`` of the whole batch), chain-steps/s of each; every
+    shard's carried counts and ``geo_agg`` against the recompute; the
+    launches in this process (shard 0) and in worker 1; both kernels
+    against their plain versions on shard 1's chains, inside worker 1."""
+    from sbayes_tpu_torch.ops.check import shard_vs_plain
     from sbayes_tpu_torch.parallel.mesh import ShardGenerators
     from sbayes_tpu_torch.sampling.runner import make_generators
 
     n, w = states.n_chains, MESH["window"]
     sh = split_runtime(rt, n, devices)
+    _, t_spawn = timed(sh.start)
     gen, op_gen = make_generators(43, DEVICE)
     gens = ShardGenerators(gen)
-    # The split init of a warm-up race (its likelihoods: the loglh kernel);
-    # the windows then start from ``states``, equilibrated as the unsplit.
+    # The split init of a warm-up race; the windows then start from
+    # ``states``, equilibrated as the unsplit.
     reset_counters()
-    sync_all()
-    t0 = time.perf_counter()
-    init = sh.init_chains(gens, n)
-    sync_all()
-    t_init = time.perf_counter() - t0
-    launches, shard1 = counters(), shard_launches(sh, 1)
-    init_sizes = [int(s.clusters.sum(-1).max()) for s in init]
-    del init
+    sh.reset_launches()
+    init, t_init = timed(lambda: sh.init_chains(gens, n))
+    launches = counters()
+    sizes = sh.gather(init).clusters.sum(-1).view(sh.n_shards, -1)
+    init_sizes = [int(s.max()) for s in sizes]
+    del init, sizes
     split, split_stats = sh.split(states), sh.new_stats(n)
     plain_gen, plain_op_gen = make_generators(44, DEVICE)
     plain, plain_stats = states, rt.new_stats(n)
     rates = {"split": [], "unsplit": []}
     for _ in range(MESH["pairs"]):
         reset_counters()
-        sync_all()
-        t0 = time.perf_counter()
-        split, split_stats = sh.run_chunk(gens, op_gen, split, split_stats, w)
-        sync_all()
-        rates["split"].append(n * w / (time.perf_counter() - t0))
+        (split, split_stats), t = timed(lambda: sh.run_chunk(gens, op_gen, split, split_stats, w))
+        rates["split"].append(n * w / t)
         launches = add_launches(launches, counters())
-        shard1 = add_launches(shard1, shard_launches(sh, 1))
-        t0 = time.perf_counter()
-        plain, plain_stats = rt.run_chunk(plain_gen, plain_op_gen, plain, plain_stats, w)
-        sync_all()
-        rates["unsplit"].append(n * w / (time.perf_counter() - t0))
-    # The same shards dispatched one after the other from this thread: what
-    # the shards' threads win or lose against the GIL.
-    sync_all()
-    t0 = time.perf_counter()
-    ops = rt.draw_ops(op_gen, w)
-    g = gens.for_mesh(sh.mesh)
-    for j in range(sh.n_shards):
-        split[j], split_stats[j] = sh.rts[j].run_ops(g[j], ops, split[j], split_stats[j])
-    sync_all()
-    rates["split_one_thread"] = n * w / (time.perf_counter() - t0)
+        (plain, plain_stats), t = timed(lambda: rt.run_chunk(plain_gen, plain_op_gen, plain,
+                                                              plain_stats, w))
+        rates["unsplit"].append(n * w / t)
     reset_counters()
     errs = check_shards(sh, split, split_stats, rt.op_names.index("cluster_jump_gibbsish"))
     launches = add_launches(launches, counters())
-    shard1 = add_launches(shard1, shard_launches(sh, 1))
+    worker1 = worker_launches(sh.launch_counts()[1])
     for name in ("loglh", "marginal", "marginal_abs"):
-        if not shard1.get(name):
-            raise AssertionError(f"mesh: {name} never launched on shard 1: {shard1}")
-    rt1 = sh.rts[1]
-    kernels = {"path": compare_with_plain(rt1.consts, path_kernel_inputs(rt1, split[1])),
-               "jump": compare_with_plain(rt1.consts, jump_kernel_inputs(rt1.cond, split[1]))}
+        if not worker1.get(name):
+            raise AssertionError(f"mesh: {name} never launched in worker 1: {worker1}")
+    kernels = {inputs: sh.on_shard(1, shard_vs_plain, states=split[1], inputs=inputs)
+               for inputs in ("path", "jump")}
     ratio = [a / b for a, b in zip(rates["split"], rates["unsplit"])]
     return {"K": rt.consts.K, "geo": "cost_based", "chains": n, "shards": sh.n_shards,
-            "chains_per_shard": n // sh.n_shards, "split_init_s": t_init,
-            "split_init_max_size": init_sizes, "steps": w * MESH["pairs"],
-            "window_steps": w, "chain_steps_per_s": rates, "split_over_unsplit": ratio,
-            "launches": launches, "launches_shard1": shard1,
-            "carried_vs_recompute_max_abs": errs, "shard1_kernels_vs_plain": kernels}
+            "chains_per_shard": n // sh.n_shards, "spawn_to_ready_s": sh.start().startup_s,
+            "start_s": t_spawn, "split_init_s": t_init, "split_init_max_size": init_sizes,
+            "steps": w * MESH["pairs"], "window_steps": w, "chain_steps_per_s": rates,
+            "split_over_unsplit": ratio, "launches": launches, "launches_worker1": worker1,
+            "carried_vs_recompute_max_abs": errs, "worker1_kernels_vs_plain": kernels}
 
 
 def mesh_mc3(rt, states, temps, devices) -> dict:
@@ -2498,63 +2473,60 @@ def mesh_mc3(rt, states, temps, devices) -> dict:
     MESH["swap_interval"] steps (every adjacent pair proposed), then the
     unsplit ladder from the same start: chain-steps/s of both, swaps
     accepted overall and across the shard boundary, every shard's carried
-    state against the recompute, the heat variant launched on shard 1 and
-    held against its plain version on shard 1's rungs."""
-    from sbayes_tpu_torch.ops.check import compare_with_plain, mc3_kernel_inputs
+    state against the recompute, the heat variant launched in worker 1 and
+    held against its plain version on shard 1's rungs there."""
+    from sbayes_tpu_torch.ops.check import shard_vs_plain
     from sbayes_tpu_torch.parallel.mesh import ShardGenerators
     from sbayes_tpu_torch.sampling.runner import make_generators
 
     n, steps, interval = states.n_chains, MESH["mc3_steps"], MESH["swap_interval"]
     sh = split_runtime(rt, n, devices)
+    _, t_spawn = timed(sh.start)
     t_split = sh.split(temps)
     gen, op_gen = make_generators(47, DEVICE)
     swaps = np.zeros((2, n, n), dtype=np.int64)
     reset_counters()
-    sync_all()
-    t0 = time.perf_counter()
-    shards, stats, n_acc, n_att = sh.run_mc3_chunk(
-        ShardGenerators(gen), op_gen, sh.split(states), sh.new_stats(n), t_split, t_split, swaps,
-        0, steps, interval, n - 1, True)
-    sync_all()
-    t_mc3 = time.perf_counter() - t0
-    launches, shard1 = counters(), shard_launches(sh, 1)
-    if not shard1.get("marginal_heat"):
-        raise AssertionError(f"mesh MC3: the heat variant never launched on shard 1: {shard1}")
+    sh.reset_launches()
+    (shards, stats, n_acc, n_att), t_mc3 = timed(lambda: sh.run_mc3_chunk(
+        ShardGenerators(gen), op_gen, sh.split(states), sh.new_stats(n), t_split, t_split,
+        swaps, 0, steps, interval, n - 1, True))
+    launches = counters()
+    worker1 = worker_launches(sh.launch_counts()[1])
+    if not worker1.get("marginal_heat"):
+        raise AssertionError(f"mesh MC3: the heat variant never launched in worker 1: {worker1}")
     b = n // sh.n_shards
     errs = check_shards(sh, shards, stats, rt.op_names.index("cluster_jump_gibbsish"))
-    rt1 = sh.rts[1]
-    kernels = compare_with_plain(rt1.consts, mc3_kernel_inputs(rt1, shards[1], t_split[1]))
+    kernels = sh.on_shard(1, shard_vs_plain, states=shards[1], inputs="mc3", temps=t_split[1])
 
-    bits = (sh.gather(shards), sh.gather(stats), swaps.copy())
     gen, op_gen = make_generators(47, DEVICE)
     plain_swaps = np.zeros_like(swaps)
-    sync_all()
-    t0 = time.perf_counter()
-    rt.run_mc3_chunk(gen, op_gen, states, rt.new_stats(n), temps, temps, plain_swaps, 0,
-                     MESH["mc3_plain_steps"], interval, n - 1, True)
-    sync_all()
-    t_plain = time.perf_counter() - t0
+    _, t_plain = timed(lambda: rt.run_mc3_chunk(
+        gen, op_gen, states, rt.new_stats(n), temps, temps, plain_swaps, 0,
+        MESH["mc3_plain_steps"], interval, n - 1, True))
+    rate, plain_rate = n * steps / t_mc3, n * MESH["mc3_plain_steps"] / t_plain
     return {"rungs": n, "shards": sh.n_shards, "steps": steps, "swap_interval": interval,
             "swap_phases": steps // interval, "attempts_per_phase": n - 1,
+            "spawn_to_ready_s": sh.start().startup_s, "start_s": t_spawn,
             "swaps_accepted": n_acc, "swaps_attempted": n_att,
-            "boundary_pair": [b - 1, b],
+            "swap_acceptance": n_acc / n_att, "boundary_pair": [b - 1, b],
             "boundary_accepted": int(swaps[0, b - 1, b]),
             "boundary_attempted": int(swaps[1, b - 1, b]),
             "boundary_temperatures": [float(temps[b - 1]), float(temps[b])],
-            "chain_steps_per_s": n * steps / t_mc3,
-            "unsplit_steps": MESH["mc3_plain_steps"],
-            "unsplit_chain_steps_per_s": n * MESH["mc3_plain_steps"] / t_plain,
+            "chain_steps_per_s": rate, "unsplit_steps": MESH["mc3_plain_steps"],
+            "unsplit_chain_steps_per_s": plain_rate, "split_over_unsplit": rate / plain_rate,
             "unsplit_swaps_accepted": int(plain_swaps[0].sum()),
-            "launches": launches, "launches_shard1": shard1,
-            "carried_vs_recompute_max_abs": errs, "shard1_kernels_vs_plain": kernels}, bits
+            "launches": launches, "launches_worker1": worker1,
+            "carried_vs_recompute_max_abs": errs, "worker1_kernels_vs_plain": kernels}
 
 
 def mesh_scale(rt, states, devices) -> dict:
-    """(c) ``scale``'s 16 in-bounds states split 2 x 8 (no second init):
+    """(c) ``scale``'s 16 in-bounds states split 2 x 8 (no second init): the
+    split's time (the states to worker 1 through host memory), then
     MESH["scale_steps"] steps of the full schedule split, then unsplit from
-    the same start; steps/s of both, peak device memory of the split run,
-    every shard's carried state against the recompute. The draws of so few
-    steps may hold no wide step, and then time the host alone; so
+    the same start; steps/s of both, this process's peak device memory in
+    the split run (shard 0's), every shard's carried state against the
+    recompute, the marginal launched in worker 1. The draws of so few steps
+    may hold no wide step, and then time the host alone; so
     MESH["scale_wide_steps"] steps of each wide operator of the schedule
     (``run_ops`` on that fixed sequence, the step whose time is the
     device's) are timed split and unsplit from the same start too."""
@@ -2563,53 +2535,44 @@ def mesh_scale(rt, states, devices) -> dict:
 
     n, steps = states.n_chains, MESH["scale_steps"]
     sh = split_runtime(rt, n, devices)
+    _, t_spawn = timed(sh.start)
     gen, op_gen = make_generators(53, DEVICE)
     for dev in set(devices):
         torch.cuda.reset_peak_memory_stats(dev)
+    shards, t_put = timed(lambda: sh.split(states))
     reset_counters()
-    sync_all()
-    t0 = time.perf_counter()
-    shards, stats = sh.run_chunk(ShardGenerators(gen), op_gen, sh.split(states),
-                                 sh.new_stats(n), steps)
-    sync_all()
-    t_split = time.perf_counter() - t0
+    sh.reset_launches()
+    (shards, stats), t_split = timed(lambda: sh.run_chunk(ShardGenerators(gen), op_gen, shards,
+                                                           sh.new_stats(n), steps))
     peak = {dev: torch.cuda.max_memory_allocated(dev) / 1e9 for dev in sorted(set(devices))}
-    launches, shard1 = counters(), shard_launches(sh, 1)
-    if not shard1.get("marginal"):
-        raise AssertionError(f"mesh scale: the marginal never launched on shard 1: {shard1}")
+    launches = add_launches(counters(), worker_launches(sh.launch_counts()[1]))
+    if not launches.get("marginal"):
+        raise AssertionError(f"mesh scale: the marginal never launched: {launches}")
     errs = check_shards(sh, shards, stats)
-    del shards
+    del shards, stats
     gen, op_gen = make_generators(53, DEVICE)
-    sync_all()
-    t0 = time.perf_counter()
-    rt.run_chunk(gen, op_gen, states, rt.new_stats(n), steps)
-    sync_all()
-    t_plain = time.perf_counter() - t0
+    _, t_plain = timed(lambda: rt.run_chunk(gen, op_gen, states, rt.new_stats(n), steps))
     wide = [i for i, name in enumerate(rt.op_names) if "wide" in name]
     ops = [i for i in wide for _ in range(MESH["scale_wide_steps"])]
     gen, _ = make_generators(59, DEVICE)
+    split = sh.split(states)
     reset_counters()
-    sync_all()
-    t0 = time.perf_counter()
-    sh.run_ops(ShardGenerators(gen), ops, sh.split(states), sh.new_stats(n))
-    sync_all()
-    t_wide_split = time.perf_counter() - t0
-    launches = add_launches(launches, counters())
+    sh.reset_launches()
+    _, t_wide_split = timed(lambda: sh.run_ops(ShardGenerators(gen), ops, split,
+                                               sh.new_stats(n)))
+    launches = add_launches(launches, counters(), worker_launches(sh.launch_counts()[1]))
+    del split
     gen, _ = make_generators(59, DEVICE)
-    sync_all()
-    t0 = time.perf_counter()
-    rt.run_ops(gen, ops, states, rt.new_stats(n))
-    sync_all()
-    t_wide_plain = time.perf_counter() - t0
+    _, t_wide_plain = timed(lambda: rt.run_ops(gen, ops, states, rt.new_stats(n)))
     return {"chains": n, "shards": sh.n_shards, "steps": steps,
+            "spawn_to_ready_s": sh.start().startup_s, "start_s": t_spawn, "split_s": t_put,
             "steps_per_s": steps / t_split, "unsplit_steps_per_s": steps / t_plain,
-            "split_over_unsplit": t_plain / t_split, "peak_memory_gb": peak,
+            "split_over_unsplit": t_plain / t_split, "peak_memory_gb_this_process": peak,
             "wide": {"operators": [rt.op_names[i] for i in wide], "steps": len(ops),
                      "steps_per_s": len(ops) / t_wide_split,
                      "unsplit_steps_per_s": len(ops) / t_wide_plain,
                      "split_over_unsplit": t_wide_plain / t_wide_split},
-            "launches": launches, "launches_shard1": shard1,
-            "carried_vs_recompute_max_abs": errs}
+            "launches": launches, "carried_vs_recompute_max_abs": errs}
 
 
 def mesh_pool(tmp: Path) -> dict:
@@ -2681,200 +2644,31 @@ def timed(fn) -> tuple:
     return out, time.perf_counter() - t0
 
 
-def processes_ensemble(rt, states, devices) -> dict:
-    """(e)(a) The K = 3 ensemble split over ``devices`` with one process per
-    shard (``SamplerRuntime.shard``): the spawn-to-ready time, a split init
-    (the likelihood kernel), then MESH["pairs"] rounds of MESH["window"]-step
-    windows from ``states``, alternating the process split, the thread split
-    (both from generators of one seed) and the unsplit batch, chain-steps/s
-    of each; the process split's states and statistics bit-equal to the
-    thread split's, its carried state against the recompute, the launches
-    in this process (shard 0) and in worker 1 on the path, then both
-    kernels against their plain versions inside worker 1."""
-    from sbayes_tpu_torch.ops.check import shard_vs_plain
-    from sbayes_tpu_torch.parallel.mesh import ShardGenerators
-    from sbayes_tpu_torch.sampling.runner import ProcessShardedRuntime, make_generators
-
-    n, w = states.n_chains, MESH["window"]
-    sh = split_runtime(rt, n, devices, processes=True)
-    threads = split_runtime(rt, n, devices)
-    if not isinstance(sh, ProcessShardedRuntime):
-        raise AssertionError(f"rt.shard gave {type(sh).__name__}, not the process split")
-    _, t_spawn = timed(sh.start)
-    reset_counters()
-    sh.reset_launches()
-    gens = {k: ShardGenerators(make_generators(61, DEVICE)[0]) for k in ("processes", "threads")}
-    _, t_init = timed(lambda: sh.init_chains(ShardGenerators(make_generators(60, DEVICE)[0]), n))
-    launches = counters()
-    op_gens = {k: make_generators(61, DEVICE)[1] for k in ("processes", "threads", "unsplit")}
-    gen_unsplit = make_generators(62, DEVICE)[0]
-    runs = {"processes": [sh, sh.split(states), sh.new_stats(n)],
-            "threads": [threads, threads.split(states), threads.new_stats(n)],
-            "unsplit": [None, states, rt.new_stats(n)]}
-    rates = {k: [] for k in runs}
-    for _ in range(MESH["pairs"]):
-        for name, run in runs.items():
-            if name == "processes":
-                reset_counters()
-            if run[0] is None:
-                (run[1], run[2]), t = timed(lambda: rt.run_chunk(
-                    gen_unsplit, op_gens[name], run[1], run[2], w))
-            else:
-                (run[1], run[2]), t = timed(lambda: run[0].run_chunk(
-                    gens[name], op_gens[name], run[1], run[2], w))
-            rates[name].append(n * w / t)
-            if name == "processes":
-                launches = add_launches(launches, counters())
-    p_states, p_stats = runs["processes"][1:]
-    reset_counters()
-    refs = sh.refresh(p_states)
-    launches = add_launches(launches, counters())
-    worker1 = worker_launches(sh.launch_counts()[1])
-    for name in ("loglh", "marginal", "marginal_abs"):
-        if not worker1.get(name):
-            raise AssertionError(f"mesh processes: {name} never launched in worker 1: {worker1}")
-    gathered = (sh.gather(p_states), sh.gather(p_stats))
-    unequal = (unequal_fields(gathered[0], threads.gather(runs["threads"][1]))
-               + unequal_fields(gathered[1], threads.gather(runs["threads"][2])))
-    if unequal:
-        raise AssertionError(f"mesh processes: the process split differs from the thread "
-                             f"split in {unequal}")
-    errs = check_carried_state(rt.consts, gathered[0], sh.gather(refs), gathered[1],
-                               rt.op_names.index("cluster_jump_gibbsish"))
-    kernels = {inputs: sh.on_shard(1, shard_vs_plain, states=p_states[1], inputs=inputs)
-               for inputs in ("path", "jump")}
-    p, t, u = (np.array(rates[k]) for k in ("processes", "threads", "unsplit"))
-    return {"chains": n, "shards": sh.n_shards, "spawn_to_ready_s": sh.startup_s,
-            "start_s": t_spawn, "split_init_s": t_init, "window_steps": w,
-            "chain_steps_per_s": rates, "processes_over_unsplit": (p / u).tolist(),
-            "processes_over_threads": (p / t).tolist(), "equal_to_threads": True,
-            "launches": launches, "launches_worker1": worker1,
-            "carried_vs_recompute_max_abs": errs, "worker1_kernels_vs_plain": kernels}
-
-
-def processes_mc3(rt, states, temps, devices, thread_bits, threads_info: dict) -> dict:
-    """(e)(b) (b)'s ladder with one process per shard: the same generators,
-    MESH["mc3_steps"] steps, a swap phase every MESH["swap_interval"];
-    chain-steps/s beside (b)'s thread and unsplit rates, the swap
-    acceptance, the states, statistics and swap counts bit-equal to (b)'s
-    thread split, the heat variant launched in worker 1 and held against
-    its plain version there."""
-    from sbayes_tpu_torch.ops.check import shard_vs_plain
-    from sbayes_tpu_torch.parallel.mesh import ShardGenerators
-    from sbayes_tpu_torch.sampling.runner import make_generators
-
-    n, steps, interval = states.n_chains, MESH["mc3_steps"], MESH["swap_interval"]
-    sh = split_runtime(rt, n, devices, processes=True)
-    _, t_spawn = timed(sh.start)
-    t_split = sh.split(temps)
-    gen, op_gen = make_generators(47, DEVICE)
-    swaps = np.zeros((2, n, n), dtype=np.int64)
-    reset_counters()
-    sh.reset_launches()
-    (shards, stats, n_acc, n_att), t_mc3 = timed(lambda: sh.run_mc3_chunk(
-        ShardGenerators(gen), op_gen, sh.split(states), sh.new_stats(n), t_split, t_split,
-        swaps, 0, steps, interval, n - 1, True))
-    launches = counters()
-    worker1 = worker_launches(sh.launch_counts()[1])
-    if not worker1.get("marginal_heat"):
-        raise AssertionError(f"mesh processes MC3: no heat launch in worker 1: {worker1}")
-    unequal = (unequal_fields(sh.gather(shards), thread_bits[0])
-               + unequal_fields(sh.gather(stats), thread_bits[1]))
-    if unequal or not np.array_equal(swaps, thread_bits[2]):
-        raise AssertionError(f"mesh processes MC3: the process split differs from the thread "
-                             f"split in {unequal}, swaps equal {np.array_equal(swaps, thread_bits[2])}")
-    kernels = sh.on_shard(1, shard_vs_plain, states=shards[1], inputs="mc3", temps=t_split[1])
-    rate = n * steps / t_mc3
-    return {"rungs": n, "shards": sh.n_shards, "steps": steps, "spawn_to_ready_s": sh.startup_s,
-            "start_s": t_spawn, "chain_steps_per_s": rate,
-            "threads_chain_steps_per_s": threads_info["chain_steps_per_s"],
-            "unsplit_chain_steps_per_s": threads_info["unsplit_chain_steps_per_s"],
-            "processes_over_threads": rate / threads_info["chain_steps_per_s"],
-            "processes_over_unsplit": rate / threads_info["unsplit_chain_steps_per_s"],
-            "swaps_accepted": n_acc, "swaps_attempted": n_att,
-            "swap_acceptance": n_acc / n_att, "equal_to_threads": True,
-            "launches": launches, "launches_worker1": worker1,
-            "worker1_kernels_vs_plain": kernels}
-
-
-def processes_scale(rt, states, devices, threads_info: dict) -> dict:
-    """(e)(c) ``scale``'s 16 in-bounds states split 2 x 8 with one process per
-    shard: MESH["scale_steps"] drawn steps, steps/s beside (c)'s thread and
-    unsplit rates, finite log-likelihoods, no non-finite accept, the
-    marginal launched in worker 1."""
-    from sbayes_tpu_torch.parallel.mesh import ShardGenerators
-    from sbayes_tpu_torch.sampling.runner import make_generators
-
-    n, steps = states.n_chains, MESH["scale_steps"]
-    sh = split_runtime(rt, n, devices, processes=True)
-    _, t_spawn = timed(sh.start)
-    gen, op_gen = make_generators(53, DEVICE)
-    shards, t_split = timed(lambda: sh.split(states))
-    reset_counters()
-    sh.reset_launches()
-    (shards, stats), t_run = timed(lambda: sh.run_chunk(ShardGenerators(gen), op_gen, shards,
-                                                         sh.new_stats(n), steps))
-    launches = counters()
-    worker1 = worker_launches(sh.launch_counts()[1])
-    ll, _ = sh.log_lh_prior(shards)
-    if not worker1.get("marginal") or sh.non_finite(stats) or not np.isfinite(ll).all():
-        raise AssertionError(f"mesh processes scale: worker 1 launches {worker1}, non-finite "
-                             f"{sh.non_finite(stats)}, finite log_lh {np.isfinite(ll).all()}")
-    rate = steps / t_run
-    return {"chains": n, "shards": sh.n_shards, "steps": steps, "spawn_to_ready_s": sh.startup_s,
-            "start_s": t_spawn, "split_s": t_split, "steps_per_s": rate,
-            "threads_steps_per_s": threads_info["steps_per_s"],
-            "unsplit_steps_per_s": threads_info["unsplit_steps_per_s"],
-            "processes_over_threads": rate / threads_info["steps_per_s"],
-            "processes_over_unsplit": rate / threads_info["unsplit_steps_per_s"],
-            "launches": launches, "launches_worker1": worker1}
-
-
-def mesh_processes(rt_k3, states_k3, rt_mc3, states_mc3, temps, rt_scale, states_scale,
-                   devices, mc3_bits, info: dict) -> dict:
-    """(e) The process split, the one ``SamplerRuntime.shard`` gives: (a)-(c)
-    again with one process per shard, then every worker ended and
-    multiprocessing's resource tracker stopped (a spawn starts it)."""
-    t0 = time.perf_counter()
-    try:
-        out = {"ensemble": processes_ensemble(rt_k3, states_k3, devices),
-               "mc3": processes_mc3(rt_mc3, states_mc3, temps, devices, mc3_bits, info["mc3"]),
-               "scale": processes_scale(rt_scale, states_scale, devices, info["scale"])}
-    finally:
-        for rt in (rt_k3, rt_mc3, rt_scale):
-            rt.close()
-        stop_resource_tracker()
-    out["subphase_s"] = time.perf_counter() - t0
-    out["launches_scale"] = add_launches(out["scale"]["launches"],
-                                         out["scale"]["launches_worker1"])
-    out["launches"] = add_launches(*(out[k]["launches"] for k in ("ensemble", "mc3")),
-                                   *(out[k]["launches_worker1"] for k in ("ensemble", "mc3")),
-                                   out["launches_scale"])
-    return out
-
-
 def phase_mesh(rt_k3, states_k3, rt_mc3, states_mc3, temps, rt_scale, states_scale,
                tmp: Path) -> tuple:
-    """The chain split and the run pool, (a)-(d), then (e) the process split.
-    Returns (phase info, the launches of (a), (b) and (d) in this process,
-    the launches of (c), the launches of (e) in this process and worker 1,
-    those of (e)(c) alone)."""
+    """The chain split (a)-(c), its workers then ended and multiprocessing's
+    resource tracker stopped (a spawn starts it), and the run pool (d).
+    Returns (phase info, the launches of (a), (b) and (d): this process and
+    worker 1, the launches of (c): this process and worker 1)."""
     devices = mesh_devices()
     t0 = time.perf_counter()
     info = {"devices": list(devices),
             "split": ("every visible card" if torch.cuda.device_count() > 1
                       else "two shards on cuda:0 (one card)")}
-    info["ensemble"] = mesh_ensemble(rt_k3, states_k3, devices)
-    info["mc3"], mc3_bits = mesh_mc3(rt_mc3, states_mc3, temps, devices)
-    info["scale"] = mesh_scale(rt_scale, states_scale, devices)
+    try:
+        info["ensemble"] = mesh_ensemble(rt_k3, states_k3, devices)
+        info["mc3"] = mesh_mc3(rt_mc3, states_mc3, temps, devices)
+        info["scale"] = mesh_scale(rt_scale, states_scale, devices)
+    finally:
+        for rt in (rt_k3, rt_mc3, rt_scale):
+            rt.close()
+        stop_resource_tracker()
     info["pool"] = mesh_pool(tmp)
-    info["processes"] = mesh_processes(rt_k3, states_k3, rt_mc3, states_mc3, temps, rt_scale,
-                                       states_scale, devices, mc3_bits, info)
     info["phase_s"] = time.perf_counter() - t0
-    launches = add_launches(info["ensemble"]["launches"], info["mc3"]["launches"],
+    launches = add_launches(*(info[k][w] for k in ("ensemble", "mc3")
+                              for w in ("launches", "launches_worker1")),
                             info["pool"]["launches_in_process"])
-    return (info, launches, info["scale"]["launches"], info["processes"]["launches"],
-            info["processes"]["launches_scale"])
+    return info, launches, info["scale"]["launches"]
 
 
 def tensor_bytes(*tensors) -> int:
@@ -3306,8 +3100,7 @@ def main() -> int:
     del mc3_start
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        (mesh, mesh_launches, mesh_scale_launches, mesh_process_launches,
-         mesh_process_scale_launches) = phase_mesh(
+        mesh, mesh_launches, mesh_scale_launches = phase_mesh(
             rt_k3, states_k3, rt_mc3, states_mc3, temps, rt_scale, states_scale, Path(tmp))
     print(phase_line({"phase": "mesh", "card": card, **mesh}), flush=True)
     torch.cuda.empty_cache()
@@ -3319,7 +3112,6 @@ def main() -> int:
     # The scale rows' "mesh" path is the split at scale; the other rows have
     # it as "mesh_scale" beside their own "mesh".
     add_scale_paths(scale_rows, {**later_scale, "mesh": mesh_scale_launches,
-                                 "mesh_processes": mesh_process_scale_launches,
                                  "data_mesh": data_mesh_launches}, heat_mc3)
 
     by_path = {"main_path": main_path["launches"], "main_path_k3": main_path_k3["launches"],
@@ -3333,7 +3125,7 @@ def main() -> int:
                "prior_samples": prior["launches"], "scale": scale["launches"],
                "scale_in_bounds": scale["in_bounds"]["launches"], **later_scale,
                "mesh": mesh_launches, "mesh_scale": mesh_scale_launches,
-               "mesh_processes": mesh_process_launches, "data_mesh": data_mesh_launches}
+               "data_mesh": data_mesh_launches}
     residual_launches = add_launches(*(alt[k]["launches"] for k in (
         "wide_residual", "wide_residual_counts", "wide_residual_counts_mc3")))
     kernels = phase_kernels(rt, states, rt_k3, states_k3, rt_mc3, states_mc3, temps, by_path,

@@ -61,10 +61,10 @@ def build(verbose: bool = False) -> Path:
     """Compile every source (one nvcc each, all started together), link the
     objects into one library and return its path; ``verbose`` prints
     ptxas's register, shared-memory and spill report. One build runs at a
-    time in a process (the shards of a split batch make their first launch
-    from threads of their own), and each build writes its objects into a
-    directory of its own, so that builds in several processes never share
-    a file until the whole library replaces its path."""
+    time in a process (a lock, for callers in threads of their own), and
+    each build writes its objects into a directory of its own, so that
+    builds in several processes never share a file until the whole library
+    replaces its path."""
     with _BUILD_LOCK:
         return _build(verbose)
 
@@ -127,9 +127,9 @@ def check(rc: int, name: str):
 class LaunchCounter:
     """How often a wrapper launched its kernel (the plain version and
     refused launches do not count): in all, by variant, and by the place of
-    the launch, ``(device index, stream handle)``, so that the shards of a split
-    chain batch, each on a stream of its own, count apart. Shards launch
-    from threads of their own, so a lock guards the counts."""
+    the launch, ``(device index, stream handle)``, so that the object blocks
+    of a grid row, each on a stream of its own, count apart. A lock guards
+    the counts for callers in threads of their own."""
 
     def __init__(self, name: str):
         self.name = name

@@ -7,10 +7,9 @@ shards on one card, eight on the CPU). A chain-batched ``ChainState``,
 chains, block i on ``mesh[i]``; the model constants are copied once to each
 distinct device. Every chain is independent of the others between MC3 swap
 phases, so the only traffic between shards is ``permute_chains``: the
-chains whose rung a swap phase changed. The runner's
-``ProcessShardedRuntime`` (``sampling/runner.py``) steps each block in a
-process of its own (``processes.py``), ``ShardedRuntime`` from a host
-thread of its own.
+chains whose rung a swap phase changed. The runner's ``ShardedRuntime``
+(``sampling/runner.py``) steps block 0 in the calling process and each
+other block in a process of its own (``processes.py``).
 
 ``auto_chain_mesh`` is the JAX package's policy: every visible device, and
 only when the chains split evenly over more than one; the environment
@@ -118,14 +117,6 @@ def chain_block(x, i: int, n_blocks: int):
     b = n // n_blocks
     idx = slice(i * b, (i + 1) * b)
     return x[idx] if isinstance(x, torch.Tensor) else x.select(idx)
-
-
-def shard_chain_batch(x, mesh) -> list:
-    """Contiguous, equal chain blocks of ``x`` (a ChainState, an
-    OperatorStats, a (B, ...) tensor or None), block i on ``mesh[i]``."""
-    if x is None:
-        return [None] * len(mesh)
-    return [chain_block(x, i, len(mesh)).to(dev) for i, dev in enumerate(mesh)]
 
 
 def replicate(model_or_consts, mesh) -> tuple:

@@ -1,10 +1,9 @@
 """The worker processes of the process split of a chain batch.
 
-The chain split of ``sampling/runner.py::ProcessShardedRuntime`` keeps
-shard 0 in the calling process and gives every other shard a process of
-its own, so that each shard dispatches its steps under an interpreter lock
-of its own (the threads of ``ShardedRuntime`` share one). This module holds
-both sides: ``serve``, the entry function of a worker, and
+The chain split of ``sampling/runner.py::ShardedRuntime`` keeps shard 0
+in the calling process and gives every other shard a process of its own,
+so that each shard dispatches its steps under an interpreter lock of its
+own. This module holds both sides: ``serve``, the entry function of a worker, and
 ``ShardProcesses``, the workers seen from the calling process.
 
 A worker is started with the ``spawn`` context (the caller may hold a CUDA

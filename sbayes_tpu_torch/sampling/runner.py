@@ -18,33 +18,35 @@ else the clusters and stats files with a source imputed by one Gibbs pass.
 cluster in isolation for the ``log_contribution_per_cluster`` columns.
 
 The counterpart of the JAX package's ``shard_ensemble`` is
-``ProcessShardedRuntime``: wherever the JAX runner splits the chain axis over
+``ShardedRuntime``: wherever the JAX runner splits the chain axis over
 devices (the warm-up races, the ensemble, the MC3 ladder, the timing probe,
 the refresh), the port splits the batch over the mesh of
-``parallel/mesh.py::auto_chain_mesh`` and steps each shard in a process of
-its own (``parallel/processes.py``), shard 0 in the calling process; the
-workers end with the run. ``ShardedRuntime`` has the same interface and
-bits with a host thread per shard; with one shard it runs inline, unsplit.
+``parallel/mesh.py::auto_chain_mesh`` (``SamplerRuntime.shard``) and steps
+shard 0 in the calling process and each other shard in a process of its
+own (``parallel/processes.py``); the workers end with the run. Where there
+is no mesh the batch is one shard, stepped by its ``SamplerRuntime``. The
+MC3 chunk (``mc3_chunk``) and the timing probe (``time_op_steps``) are
+written once, for a ``SamplerRuntime`` on its batch and for a
+``ShardedRuntime`` on its shards.
 
 ``grid_runtime`` runs a chain batch on a chains x objects grid
-(``parallel/mesh.py::data_mesh``): each chain shard is a ``ShardedRuntime``
-shard whose ``SamplerRuntime`` splits its objects (``SamplerRuntime.
-split_objects``), driven from the shard's host thread, one CUDA stream per
-object block. As in the JAX package, where the runner never reaches
-``data_mesh``, neither the CLI nor ``auto_chain_mesh`` builds a grid; its
-states are initialised unsplit and then split (``ShardedRuntime.split``),
-and it runs ``run_chunk`` and ``refresh`` (no MC3 ladder, no logging).
+(``parallel/mesh.py::data_mesh``): each chain shard is a local shard whose
+``SamplerRuntime`` splits its objects (``SamplerRuntime.split_objects``);
+the rows are stepped in turn from the calling thread, each row's object
+blocks on CUDA streams of their own (``ObjectSplit.run``). As in the JAX
+package, where the runner never reaches ``data_mesh``, neither the CLI nor
+``auto_chain_mesh`` builds a grid; its states are initialised unsplit and
+then split (``ShardedRuntime.split``), and it runs ``run_chunk`` and
+``refresh`` (no MC3 ladder, no logging).
 """
 from __future__ import annotations
 
-import contextlib
 import functools
 import itertools
 import math
 import pickle
 import time
 import weakref
-from concurrent.futures import ThreadPoolExecutor, wait
 from datetime import timedelta
 from pathlib import Path
 from typing import Optional
@@ -69,7 +71,6 @@ from sbayes_tpu_torch.parallel.mesh import (
     permute_chains,
     place_chains,
     replicate,
-    shard_chain_batch,
     shard_objects,
     shard_state,
     unshard_state,
@@ -164,6 +165,64 @@ def draw_swap_proposals(op_gen, n_pairs: int, attempts: int) -> tuple:
     return order, log_u
 
 
+def mc3_chunk(rt, gen, op_gen, states, stats, temps, prior_temps, swap_matrix: np.ndarray,
+              step0: int, n_steps: int, swap_interval: int, attempts: int, only_adjacent: bool):
+    """``n_steps`` MH steps of an MC3 ladder (one chain per rung, per-chain
+    temperatures) with a swap phase after every step whose global index
+    ``step0 + i + 1`` is a multiple of ``swap_interval``, so that the
+    cadence holds across chunks: one operator draw a segment; at each phase
+    (``sbt.swap_phase``) one read of the log-likelihoods and log-priors,
+    ``min(attempts, n_pairs)`` sequential proposals (``swap_phase``) and one
+    permutation of the states; statistics and temperatures stay with the
+    rung. ``swap_matrix`` (2, n, n) counts in place. ``rt``: a
+    ``SamplerRuntime`` on its batch or a ``ShardedRuntime`` on its shards
+    (``draw_ops``, ``run_ops``, ``values``, ``log_lh_prior``, ``permute``).
+    Returns (states, stats, n_accepted, n_attempted)."""
+    with span("sbt.sync/mc3.temps"):
+        t_host = rt.values(temps).astype(np.float64)
+    with span("sbt.sync/mc3.prior_temps"):
+        tp_host = rt.values(prior_temps).astype(np.float64)
+    pairs = swap_pairs(len(t_host), only_adjacent)
+    attempts = min(attempts, len(pairs))
+    n_acc = n_att = done = 0
+    while done < n_steps:
+        seg = min(swap_interval - (step0 + done) % swap_interval, n_steps - done)
+        states, stats = rt.run_ops(gen, rt.draw_ops(op_gen, seg), states, stats, temps,
+                                   prior_temps)
+        done += seg
+        if (step0 + done) % swap_interval:
+            continue
+        with span("sbt.swap_phase"):
+            order, log_u = draw_swap_proposals(op_gen, len(pairs), attempts)
+            with span("sbt.sync/mc3.log_lh_prior"):
+                ll, lp = rt.log_lh_prior(states)
+            perm, _, _, acc = swap_phase(ll, lp, t_host, tp_host, pairs, order, log_u,
+                                         swap_matrix)
+            if acc:
+                states = rt.permute(states, perm)
+        n_acc += acc
+        n_att += attempts
+    return states, stats, n_acc, n_att
+
+
+def time_op_steps(rt, gen, states, temps=None, prior_temps=None,
+                  n_steps: int = 20) -> np.ndarray:
+    """Wall time [s] of one step of the whole batch for each operator: the
+    operator alone on ``states`` at its temperatures, one warm-up step, then
+    ``n_steps`` timed steps (synchronised). ``rt``: a ``SamplerRuntime`` on
+    its batch or a ``ShardedRuntime`` on its shards (every shard at once),
+    of which this takes ``n_ops``, ``op_steps`` and ``synchronize``."""
+    times = np.zeros(rt.n_ops)
+    for i_op in range(rt.n_ops):
+        warm = rt.op_steps(gen, states, temps, prior_temps, i_op=i_op, n_steps=1)
+        rt.synchronize()
+        t0 = time.perf_counter()
+        rt.op_steps(gen, warm, temps, prior_temps, i_op=i_op, n_steps=n_steps)
+        rt.synchronize()
+        times[i_op] = (time.perf_counter() - t0) / n_steps
+    return times
+
+
 class SamplerRuntime:
     """The batched sampling programs of one model."""
 
@@ -186,8 +245,7 @@ class SamplerRuntime:
         self.n_ops = len(self.op_names)
         self.op_weights = torch.tensor([o.weight for o in self._op_specs], dtype=torch.float64)
         self._apply = make_mh_apply_fn(self.cond, self._op_specs)
-        self._sharded: dict = {}
-        self._processes: dict = {}
+        self._shards: dict = {}
 
     def replica(self, consts) -> "SamplerRuntime":
         """The same sampler over ``consts`` (the model constants on another
@@ -211,33 +269,23 @@ class SamplerRuntime:
         return auto_chain_mesh(n_chains, device_type=self.device.type)
 
     def shard(self, n_chains: int, logger=None) -> "ShardedRuntime":
-        """The runtime of a batch of ``n_chains`` split over ``split_mesh``:
-        one process per shard (``ProcessShardedRuntime``, kept until
-        ``close``), or one shard where it gives no mesh."""
+        """The runtime of a batch of ``n_chains`` split over ``split_mesh``,
+        one worker process per shard but the first (kept until ``close``),
+        or of the batch as one shard where it gives no mesh."""
         mesh = self.split_mesh(n_chains)
-        if mesh is None:
-            return self.sharded()
-        if logger is not None:
+        if mesh is not None and logger is not None:
             logger.info(f"Splitting {n_chains} chains over {len(mesh)} shards "
                         f"({n_chains // len(mesh)} each, one process each) on "
                         f"{[str(d) for d in mesh]}.")
-        if mesh not in self._processes:
-            self._processes[mesh] = ProcessShardedRuntime(self, mesh)
-        return self._processes[mesh]
+        if mesh not in self._shards:
+            self._shards[mesh] = ShardedRuntime(self, mesh)
+        return self._shards[mesh]
 
     def close(self):
         """End the worker processes of every split ``shard`` made."""
-        for sh in self._processes.values():
+        for sh in self._shards.values():
             sh.close()
-        self._processes.clear()
-
-    def sharded(self, mesh=None) -> "ShardedRuntime":
-        """The runtime of a batch split over ``mesh`` (None: one shard, the
-        batch unsplit), each shard stepped from a host thread of its own;
-        the model constants are copied to each device once per mesh."""
-        if mesh not in self._sharded:
-            self._sharded[mesh] = ShardedRuntime(self, mesh)
-        return self._sharded[mesh]
+        self._shards.clear()
 
     # -------------------- batched programs --------------------
 
@@ -260,7 +308,7 @@ class SamplerRuntime:
         with every carried invariant filled."""
         if self.split is not None:
             raise NotImplementedError("states of a chains x objects grid are initialised "
-                                      "unsplit, then split (ShardedRuntime.split)")
+                                      "unsplit, then split (grid_runtime)")
         init_cfg = self.mcmc_config.initialization
         initializer = Initializer(
             self.cond, initial_size=init_cfg.objects_per_cluster, attempts=init_cfg.attempts,
@@ -304,20 +352,11 @@ class SamplerRuntime:
     def run_mc3_chunk(self, gen, op_gen, states: ChainState, stats: OperatorStats, temps,
                       prior_temps, swap_matrix: np.ndarray, step0: int, n_steps: int,
                       swap_interval: int, attempts: int, only_adjacent: bool):
-        """``n_steps`` MH steps of an MC3 ladder (one chain per rung, (B,)
-        temperatures) with a swap phase after every step whose global index
-        ``step0 + i + 1`` is a multiple of ``swap_interval``, so that the
-        cadence holds across chunks. Each phase makes ``min(attempts,
-        n_pairs)`` sequential proposals (``swap_phase``) and permutes the
-        states once; operator statistics and temperatures stay with the
-        rung. ``swap_matrix`` (2, n, n) counts in place. Returns (states,
-        stats, n_accepted, n_attempted). The ladder unsplit: one shard of
-        ``ShardedRuntime.run_mc3_chunk``."""
+        """``mc3_chunk`` of this batch, a ladder of one chain per rung at (B,)
+        temperatures: (states, stats, n_accepted, n_attempted)."""
         with span("sbt.chunk"):
-            shards, stats, n_acc, n_att = self.sharded().run_mc3_chunk(
-                ShardGenerators.of(gen), op_gen, [states], [stats], [temps], [prior_temps],
-                swap_matrix, step0, n_steps, swap_interval, attempts, only_adjacent)
-        return shards[0], stats[0], n_acc, n_att
+            return mc3_chunk(self, gen, op_gen, states, stats, temps, prior_temps, swap_matrix,
+                             step0, n_steps, swap_interval, attempts, only_adjacent)
 
     def refresh(self, states: ChainState) -> ChainState:
         """Exact recompute of every carried invariant."""
@@ -339,14 +378,24 @@ class SamplerRuntime:
         return [(self.make_record(states.select(slice(k, k + 1)), **kw),
                  tuple(_host(x[k]) for x in stats[:3])) for k, kw in requests]
 
-    def measure_op_step_times(self, gen, states: ChainState, temps=None, prior_temps=None,
-                              n_steps: int = 20) -> np.ndarray:
-        """Wall time [s] of one step of the whole batch for each operator:
-        the operator alone on a copy of ``states`` at its temperatures, one
-        warm-up step, then ``n_steps`` timed steps (synchronised). The batch
-        unsplit: one shard of ``ShardedRuntime.measure_op_step_times``."""
-        return self.sharded().measure_op_step_times(ShardGenerators.of(gen), [states], [temps],
-                                                    [prior_temps], n_steps)
+    measure_op_step_times = time_op_steps
+
+    def synchronize(self):
+        _sync(self.device)
+
+    def values(self, x) -> np.ndarray:
+        """The (B,) tensor ``x`` on the host."""
+        return _host(x)
+
+    def log_lh_prior(self, states: ChainState) -> tuple:
+        """(log_lh, log_prior) of the batch on the host: one read."""
+        both = _host(torch.stack([states.log_lh, states.log_prior]))
+        return both[0], both[1]
+
+    def permute(self, states: ChainState, perm) -> ChainState:
+        """The states after an MC3 swap: rung r takes chain ``perm[r]``
+        (``parallel.mesh.permute_chains`` of one shard)."""
+        return permute_chains([states], perm)[0]
 
     def sample_view(self, state: ChainState, with_likelihood: bool = True):
         """Posterior parts, counts and (optionally) the per-observation
@@ -466,269 +515,53 @@ class SamplerRuntime:
 
 
 class ShardedRuntime:
-    """A chain batch split over ``mesh`` (``parallel/mesh.py``), the
-    counterpart of the JAX package's ``shard_ensemble``. Each shard has a
-    ``SamplerRuntime`` over the model constants on its device (shards of one
-    device share one) and a per-chain generator of its own
-    (``ShardGenerators``); all shards share one operator sequence, drawn on
-    the host from the shared operator generator once a chunk, as the JAX
-    program draws one operator per step for the whole batch. Each shard's
-    steps are dispatched from a host thread of its own, on a CUDA stream of
-    its own; the calling thread joins them at the end of every chunk and at
-    every MC3 swap phase, where it reads each shard's log-likelihoods and
-    log-priors once, runs ``swap_phase`` on the host and moves the chains
-    whose rung changed (``permute_chains``). A shard's exception is raised
-    in the caller. Batches are lists of shards; with one shard (``mesh``
-    None) every call runs inline in the calling thread, on its stream: the
-    unsplit batch, whose bits are the ``SamplerRuntime``'s own. ``rts``
-    gives each shard's runtime (``grid_runtime``: runtimes that split their
-    objects); by default they are ``rt`` over the constants on each
-    device."""
+    """A chain batch in shards over ``mesh`` (``parallel/mesh.py``), the
+    counterpart of the JAX package's ``shard_ensemble``. A shard is local
+    (a ``SamplerRuntime`` of this process, ``rts``) or held by a worker
+    process (``parallel/processes.py``). The batch unsplit is one local
+    shard, ``rt``; the chain split of ``SamplerRuntime.shard`` holds shard
+    0 here on ``mesh[0]`` and shard j in a worker on ``mesh[j]``, so that no
+    two shards share an interpreter lock; a grid (``grid_runtime``) is
+    every row local. Every call sends each worker its command, steps the
+    local shards one after another here, then collects the replies. The
+    shards share one operator sequence, drawn here once a chunk, as the
+    JAX program draws one operator per step for the whole batch; each
+    draws from a per-chain generator of its own (``ShardGenerators``),
+    which a worker keeps across calls. A worker's shard is a
+    ``processes.Remote`` whose log-likelihoods and log-priors come with it,
+    so an MC3 swap phase reads nothing more, and moves only the chains
+    whose rung changed. The workers start at the first call (``start``)
+    and end with ``close`` (``SamplerRuntime.close`` at the end of a run),
+    at an error in any shard (raised here with the worker's traceback,
+    once every process has stopped), when this object is collected, and at
+    exit."""
 
     def __init__(self, rt: SamplerRuntime, mesh=None, rts=None):
-        mesh = tuple(mesh) if mesh and len(mesh) > 1 else None
         self.rt = rt
-        self.mesh = mesh or (rt.device if rts is None else rts[0].device,)
-        self.n_shards = len(self.mesh)
         if rts is None:
-            by_consts = {id(rt.consts): rt}
-            rts = []
-            for consts in (replicate(rt.consts, self.mesh) if mesh else (rt.consts,)):
-                if id(consts) not in by_consts:
-                    by_consts[id(consts)] = rt.replica(consts)
-                rts.append(by_consts[id(consts)])
+            self.mesh = tuple(canonical(d) for d in mesh) if mesh else (rt.device,)
+            consts = replicate(rt.consts, self.mesh[:1])[0]
+            rts = [rt if consts is rt.consts else rt.replica(consts)]
+        else:
+            self.mesh = tuple(canonical(r.device) for r in rts)
         self.rts = list(rts)
+        self.n_shards = len(self.mesh)
+        self.n_local = len(self.rts)
+        self.n_ops, self.draw_ops = rt.n_ops, rt.draw_ops
         # the object split of each shard (grid_runtime), else None
         self.splits = [r.split for r in self.rts] if self.rts[0].split is not None else None
-        self.streams = [torch.cuda.Stream(d) if mesh and d.type == "cuda" else None
-                        for d in self.mesh]
-        self._pool = (ThreadPoolExecutor(max_workers=self.n_shards,
-                                         thread_name_prefix="sbayes-shard") if mesh else None)
-
-    # -------------------- layout --------------------
-
-    def split(self, x) -> list:
-        """The shards of a chain batch (ChainState, OperatorStats, (B,) tensor
-        or None); on a grid a ChainState's source is split over each shard's
-        object blocks too (``shard_state``)."""
-        shards = [x] if self.n_shards == 1 else shard_chain_batch(x, self.mesh)
-        if self.splits and isinstance(x, ChainState):
-            shards = [shard_state(st, sp) for st, sp in zip(shards, self.splits)]
-        return shards
-
-    def gather(self, shards: list):
-        """The chains of every shard as one batch on the model's device (on a
-        grid, each source joined whole: for checks and checkpoints)."""
-        if self.splits and isinstance(shards[0], ChainState):
-            shards = [unshard_state(st, self.rt.device) for st in shards]
-        return shards[0] if self.n_shards == 1 else gather(shards, self.rt.device)
-
-    def locate(self, shards: list, chain: int) -> tuple:
-        """(shard, index in the shard) of chain ``chain`` of the batch."""
-        return divmod(chain, shards[0].n_chains)
-
-    def chain(self, shards: list, chain: int) -> tuple:
-        """(the runtime of its shard, the state as a batch of one) of chain
-        ``chain``: logging reads each chain from the shard that holds it."""
-        j, k = self.locate(shards, chain)
-        return self.rts[j], shards[j].select(slice(k, k + 1))
-
-    # -------------------- dispatch --------------------
-
-    def _on(self, j: int):
-        if self.streams[j] is None:
-            return contextlib.nullcontext()
-        stack = contextlib.ExitStack()
-        stack.enter_context(torch.cuda.device(self.mesh[j]))
-        stack.enter_context(torch.cuda.stream(self.streams[j]))
-        return stack
-
-    def map(self, fn, *per_shard) -> list:
-        """``[fn(j, *(a[j] for a in per_shard)) for each shard j]``: with more
-        than one shard each call runs in a thread of its own, on the
-        shard's stream, after the work the caller queued on the device's
-        current stream; the caller's streams then wait for every shard's.
-        The first shard's exception is raised here, after all have ended."""
-        if self.n_shards == 1:
-            return [fn(0, *(a[0] for a in per_shard))]
-        callers = [None if s is None else torch.cuda.current_stream(d)
-                   for s, d in zip(self.streams, self.mesh)]
-
-        def task(j):
-            with self._on(j):
-                if callers[j] is not None:
-                    self.streams[j].wait_stream(callers[j])
-                return fn(j, *(a[j] for a in per_shard))
-
-        futures = [self._pool.submit(task, j) for j in range(self.n_shards)]
-        wait(futures)
-        for caller, stream in zip(callers, self.streams):
-            if stream is not None:
-                caller.wait_stream(stream)
-        return [f.result() for f in futures]
-
-    def synchronize(self):
-        for dev in dict.fromkeys(self.mesh):
-            _sync(dev)
-
-    # -------------------- batched programs --------------------
-
-    def _each(self, method: str, common: dict = None, **per_shard) -> list:
-        """``rts[j].<method>(**common, **{name: a[j] for each per_shard
-        name a})`` for each shard j (``map``)."""
-        common = common or {}
-        kws = [{k: v[j] for k, v in per_shard.items()} for j in range(self.n_shards)]
-        return self.map(lambda j, kw: getattr(self.rts[j], method)(**kw, **common), kws)
-
-    def _gens(self, gens: ShardGenerators) -> list:
-        """Each shard's generator of the split batch's ``gens``."""
-        return gens.for_mesh(self.mesh)
-
-    def new_stats(self, n_chains: int) -> list:
-        return [rt.new_stats(n_chains // self.n_shards) for rt in self.rts]
-
-    def init_chains(self, gens: ShardGenerators, n_chains: int) -> list:
-        return self._each("init_chains", {"n_chains": n_chains // self.n_shards},
-                          gen=self._gens(gens))
-
-    def refresh(self, shards: list) -> list:
-        return self._each("refresh", states=shards)
-
-    def run_chunk(self, gens: ShardGenerators, op_gen, shards: list, stats: list, n_steps: int,
-                  temps=None, prior_temps=None) -> tuple:
-        """``SamplerRuntime.run_chunk`` of every shard on one operator
-        sequence; ``temps`` / ``prior_temps``: None or per-shard (b,) tensors."""
-        return self.run_ops(gens, self.rt.draw_ops(op_gen, n_steps), shards, stats, temps,
-                            prior_temps)
-
-    def run_ops(self, gens: ShardGenerators, ops: list, shards: list, stats: list, temps=None,
-                prior_temps=None) -> tuple:
-        """``SamplerRuntime.run_ops`` of every shard on the operators ``ops``."""
-        none = [None] * self.n_shards
-        out = self._each("run_ops", {"ops": ops}, gen=self._gens(gens), states=shards,
-                         stats=stats, temps=temps or none, prior_temps=prior_temps or none)
-        return [o[0] for o in out], [o[1] for o in out]
-
-    def values(self, shards: list) -> np.ndarray:
-        """The per-shard (b,) tensors ``shards`` as one array on the host."""
-        return np.concatenate([_host(t) for t in shards])
-
-    def log_lh_prior(self, shards: list) -> tuple:
-        """(log_lh, log_prior) of the whole batch on the host: one read per shard."""
-        both = np.concatenate([_host(torch.stack([s.log_lh, s.log_prior])) for s in shards],
-                              axis=1)
-        return both[0], both[1]
-
-    def permute(self, shards: list, perm) -> list:
-        """The states after an MC3 swap: rung r takes chain ``perm[r]``
-        (``parallel.mesh.permute_chains``)."""
-        return permute_chains(shards, perm)
-
-    def records(self, shards: list, stats: list, requests: list) -> list:
-        """``SamplerRuntime.records`` of the chains ``requests`` asks for (chain
-        of the whole batch, ``make_record`` keywords), each made by its
-        shard's runtime, in the order asked."""
-        by_shard = [[] for _ in range(self.n_shards)]
-        where = []
-        for chain, kw in requests:
-            j, k = self.locate(shards, chain)
-            where.append((j, len(by_shard[j])))
-            by_shard[j].append((k, kw))
-        made = self._each("records", states=shards, stats=stats, requests=by_shard)
-        return [made[j][i] for j, i in where]
-
-    def run_mc3_chunk(self, gens: ShardGenerators, op_gen, shards: list, stats: list, temps,
-                      prior_temps, swap_matrix: np.ndarray, step0: int, n_steps: int,
-                      swap_interval: int, attempts: int, only_adjacent: bool):
-        """``SamplerRuntime.run_mc3_chunk`` of a ladder whose rungs are split
-        over the shards (``temps`` / ``prior_temps``: per-shard (b,) tensors):
-        one operator draw a segment for every shard, then at each swap phase
-        (the span ``sbt.swap_phase``) one read per shard, ``swap_phase`` on
-        the host and ``permute``."""
-        n = sum(s.n_chains for s in shards)
-        pairs = swap_pairs(n, only_adjacent)
-        attempts = min(attempts, len(pairs))
-        with span("sbt.sync/mc3.temps"):
-            t_host = self.values(temps).astype(np.float64)
-        with span("sbt.sync/mc3.prior_temps"):
-            tp_host = self.values(prior_temps).astype(np.float64)
-        n_acc = n_att = done = 0
-        while done < n_steps:
-            seg = min(swap_interval - (step0 + done) % swap_interval, n_steps - done)
-            shards, stats = self.run_chunk(gens, op_gen, shards, stats, seg, temps, prior_temps)
-            done += seg
-            if (step0 + done) % swap_interval:
-                continue
-            with span("sbt.swap_phase"):
-                order, log_u = draw_swap_proposals(op_gen, len(pairs), attempts)
-                with span("sbt.sync/mc3.log_lh_prior"):
-                    ll, lp = self.log_lh_prior(shards)
-                perm, _, _, acc = swap_phase(ll, lp, t_host, tp_host, pairs, order, log_u,
-                                             swap_matrix)
-                if acc:
-                    shards = self.permute(shards, perm)
-            n_acc += acc
-            n_att += attempts
-        return shards, stats, n_acc, n_att
-
-    def measure_op_step_times(self, gens: ShardGenerators, shards: list, temps=None,
-                              prior_temps=None, n_steps: int = 20) -> np.ndarray:
-        """``SamplerRuntime.measure_op_step_times`` of the shards: each
-        operator alone on every shard at once, one warm-up step, then
-        ``n_steps`` timed steps (all devices synchronised)."""
-        none = [None] * self.n_shards
-        each = dict(gen=self._gens(gens), temps=temps or none, prior_temps=prior_temps or none)
-        times = np.zeros(self.rt.n_ops)
-        for i_op in range(self.rt.n_ops):
-            warm = self._each("op_steps", {"i_op": i_op, "n_steps": 1}, states=shards, **each)
-            self.synchronize()
-            t0 = time.perf_counter()
-            self._each("op_steps", {"i_op": i_op, "n_steps": n_steps}, states=warm, **each)
-            self.synchronize()
-            times[i_op] = (time.perf_counter() - t0) / n_steps
-        return times
-
-    @staticmethod
-    def non_finite(stats: list) -> int:
-        return sum(int(s.non_finite.sum()) for s in stats)
-
-
-class ProcessShardedRuntime(ShardedRuntime):
-    """A chain batch split over ``mesh`` with one process per shard
-    (``parallel/processes.py``), so that no two shards share an interpreter
-    lock: the calling process holds and steps shard 0 on ``mesh[0]``, a
-    worker process each other shard j on ``mesh[j]``. ``ShardedRuntime``'s
-    interface and bits: the workers build their runtimes from the model
-    constants, sent once through host memory; worker j keeps shard j's
-    generator (``ShardGenerators``' seed for shard j) across calls, so the
-    warm-up race and the sampling loop of one run go on drawing from one
-    stream; the operator sequence is drawn here and sent as integers.
-    Every call sends each worker its command, steps shard 0 here, then
-    waits for every worker. A shard held by a worker is a
-    ``processes.Remote`` in the lists of shards, with its log-likelihoods
-    and log-priors read with it: an MC3 swap phase needs no other read,
-    and moves only the chains whose rung changed (``permute``). A worker's
-    records of its chains reach the loggers as records. The workers start
-    at the first call (``start``) and end with ``close``
-    (``SamplerRuntime.close`` at the end of a run), at an error in any
-    shard (raised here with the worker's traceback, once every process has
-    stopped), when this object is collected, and at exit."""
-
-    def __init__(self, rt: SamplerRuntime, mesh):
-        self.rt = rt
-        self.mesh = tuple(canonical(d) for d in mesh)
-        self.n_shards = len(self.mesh)
-        consts = replicate(rt.consts, self.mesh[:1])[0]
-        self.rts = [rt if consts is rt.consts else rt.replica(consts)]
-        self.splits = None
-        self.streams = [None] * self.n_shards
         self.processes: Optional[ShardProcesses] = None
         self._gen_keys = weakref.WeakKeyDictionary()
         self._next_gen_key = itertools.count()
 
-    def start(self) -> ShardProcesses:
-        """The workers, spawned at the first call: the kernel library is
-        built here first, so that the workers only load it."""
+    # -------------------- dispatch --------------------
+
+    def start(self) -> Optional[ShardProcesses]:
+        """The workers (None where every shard is local), spawned at the first
+        call: the kernel library is built here first, so that the workers
+        only load it."""
+        if self.n_local == self.n_shards:
+            return None
         if self.processes is None:
             if any(d.type == "cuda" for d in self.mesh):
                 _cuda.build()
@@ -742,80 +575,145 @@ class ProcessShardedRuntime(ShardedRuntime):
         if self.processes is not None:
             self.processes.close()
 
-    def _local(self, fn):
-        """``fn()`` here while the workers run; if it raises, the workers are
-        stopped first."""
+    def _dispatch(self, cmd: str, per_worker: list, local) -> list:
+        """``cmd`` sent to the workers (worker i's arguments ``per_worker[i]``),
+        ``local()`` run here meanwhile (if it raises, the workers are stopped
+        first), then its results and the workers' replies in shard order."""
+        procs = self.start()
+        if procs is not None:
+            procs.send(cmd, per_worker)
         try:
-            return fn()
+            out = local()
         except BaseException:
             self.close()
             raise
+        return out + (procs.replies() if procs is not None else [])
 
     def _each(self, method: str, common: dict = None, **per_shard) -> list:
-        procs = self.start()
-        common = common or {}
-        procs.send("call", [(method, {**common, **{k: v[j] for k, v in per_shard.items()}})
-                            for j in range(1, self.n_shards)])
-        local = self._local(lambda: getattr(self.rts[0], method)(
-            **common, **{k: v[0] for k, v in per_shard.items()}))
-        return [local] + procs.replies()
+        """``<runtime of shard j>.<method>(**common, **{name: a[j] for each
+        per_shard name a})`` for every shard j."""
+        kws = [{**(common or {}), **{k: v[j] for k, v in per_shard.items()}}
+               for j in range(self.n_shards)]
+        return self._dispatch("call", [(method, kw) for kw in kws[self.n_local:]],
+                              lambda: [getattr(r, method)(**kw) for r, kw in zip(self.rts, kws)])
 
     def _gens(self, gens: ShardGenerators) -> list:
+        """Each shard's generator of the split batch's ``gens``: a worker's
+        is made there from the seed (``GenRef``) and kept."""
+        if self.n_shards == 1:
+            return [gens.gen]
+        local = [gens.shard(j, d) for j, d in enumerate(self.mesh[:self.n_local])]
         if gens not in self._gen_keys:
             self._gen_keys[gens] = next(self._next_gen_key)
-        key = self._gen_keys[gens]
-        seed = gens.gen.initial_seed()
-        return [gens.shard(0, self.mesh[0])] + [GenRef(key, seed)] * (self.n_shards - 1)
+        ref = GenRef(self._gen_keys[gens], gens.gen.initial_seed())
+        return local + [ref] * (self.n_shards - self.n_local)
 
     def on_shard(self, j: int, fn, **kw):
-        """``fn(runtime of shard j, **kw)`` in shard ``j``'s process, ``fn`` a
-        function of the package (a worker imports nothing else); a chain
+        """``fn(runtime of shard j, **kw)`` where shard ``j`` is stepped, ``fn``
+        a function of the package (a worker imports nothing else); a chain
         batch it returns stays there."""
-        if j == 0:
-            return fn(self.rts[0], **kw)
+        if j < self.n_local:
+            return fn(self.rts[j], **kw)
         return self.start().one(j, "call", fn, kw)
 
     def _get(self, remote: Remote, idx=None):
         """The chains ``idx`` (all: None) of a worker's batch, on the CPU."""
         return self.start().one(remote.worker.j, "get", remote, idx)
 
+    def synchronize(self):
+        """Wait for the local shards' devices (a worker's reply waits for its)."""
+        for dev in dict.fromkeys(self.mesh[:self.n_local]):
+            _sync(dev)
+
+    def launch_counts(self) -> list:
+        """The kernel launches (``ops.check.launch_counts``) of this process,
+        then of each worker: entry j is shard j's of a chain split."""
+        procs = self.start()
+        return [launch_counts()] + (procs.each("launches", [()] * len(procs.workers))
+                                    if procs is not None else [])
+
+    def reset_launches(self):
+        reset_launches()
+        procs = self.start()
+        if procs is not None:
+            procs.each("reset_launches", [()] * len(procs.workers))
+
     # -------------------- layout --------------------
 
     def split(self, x) -> list:
+        """The shards of a chain batch (ChainState, OperatorStats, (B, ...)
+        tensor or None): contiguous, equal chain blocks, block j on
+        ``mesh[j]``; on a grid a ChainState's source is split over each
+        row's object blocks too (``shard_state``)."""
         if x is None:
             return [None] * self.n_shards
-        procs = self.start()
-        procs.send("put", [(chain_block(x, j, self.n_shards),)
-                           for j in range(1, self.n_shards)])
-        local = self._local(lambda: chain_block(x, 0, self.n_shards).to(self.mesh[0]))
-        return [local] + procs.replies()
+        blocks = [chain_block(x, j, self.n_shards) for j in range(self.n_shards)]
+
+        def local():
+            shards = [b.to(d) for b, d in zip(blocks, self.mesh[:self.n_local])]
+            if self.splits and isinstance(x, ChainState):
+                shards = [shard_state(st, sp) for st, sp in zip(shards, self.splits)]
+            return shards
+
+        return self._dispatch("put", [(b,) for b in blocks[self.n_local:]], local)
 
     def gather(self, shards: list):
+        """The chains of every shard as one batch on the model's device (on a
+        grid, each source joined whole: for checks and checkpoints)."""
         if shards[0] is None:
             return None
-        procs = self.start()
-        return gather([shards[0]] + procs.each("get", [(r, None) for r in shards[1:]]),
-                      self.rt.device)
+        local = shards[:self.n_local]
+        if self.splits and isinstance(local[0], ChainState):
+            local = [unshard_state(st, self.rt.device) for st in local]
+        parts = self._dispatch("get", [(r, None) for r in shards[self.n_local:]], lambda: local)
+        return parts[0] if self.n_shards == 1 else gather(parts, self.rt.device)
 
-    def chain(self, shards: list, chain: int) -> tuple:
-        j, k = self.locate(shards, chain)
-        if j == 0:
-            return self.rts[0], shards[0].select(slice(k, k + 1))
-        return self.rt, self._get(shards[j], slice(k, k + 1)).to(self.rt.device)
-
-    # -------------------- reads and moves --------------------
+    # -------------------- batched programs --------------------
 
     def new_stats(self, n_chains: int) -> list:
-        b = n_chains // self.n_shards
-        return self._each("new_stats", {"n_chains": b})
+        return self._each("new_stats", {"n_chains": n_chains // self.n_shards})
+
+    def init_chains(self, gens: ShardGenerators, n_chains: int) -> list:
+        return self._each("init_chains", {"n_chains": n_chains // self.n_shards},
+                          gen=self._gens(gens))
+
+    def refresh(self, shards: list) -> list:
+        return self._each("refresh", states=shards)
+
+    def run_chunk(self, gens: ShardGenerators, op_gen, shards: list, stats: list, n_steps: int,
+                  temps=None, prior_temps=None) -> tuple:
+        """``SamplerRuntime.run_chunk`` of every shard on one operator
+        sequence; ``temps`` / ``prior_temps``: None or per-shard (b,) tensors."""
+        return self.run_ops(gens, self.draw_ops(op_gen, n_steps), shards, stats, temps,
+                            prior_temps)
+
+    def run_ops(self, gens: ShardGenerators, ops: list, shards: list, stats: list, temps=None,
+                prior_temps=None) -> tuple:
+        """``SamplerRuntime.run_ops`` of every shard on the operators ``ops``."""
+        none = [None] * self.n_shards
+        out = self._each("run_ops", {"ops": ops}, gen=self._gens(gens), states=shards,
+                         stats=stats, temps=temps or none, prior_temps=prior_temps or none)
+        return [o[0] for o in out], [o[1] for o in out]
+
+    def op_steps(self, gens: ShardGenerators, shards: list, temps=None, prior_temps=None, *,
+                 i_op: int, n_steps: int) -> list:
+        """``SamplerRuntime.op_steps`` of every shard."""
+        none = [None] * self.n_shards
+        return self._each("op_steps", {"i_op": i_op, "n_steps": n_steps}, gen=self._gens(gens),
+                          states=shards, temps=temps or none, prior_temps=prior_temps or none)
 
     def values(self, shards: list) -> np.ndarray:
-        return np.concatenate([_host(shards[0])] + [self._get(r).numpy() for r in shards[1:]])
+        """The per-shard (b,) tensors ``shards`` as one array on the host."""
+        return np.concatenate([_host(t) for t in shards[:self.n_local]]
+                              + [self._get(r).numpy() for r in shards[self.n_local:]])
 
     def log_lh_prior(self, shards: list) -> tuple:
-        first = _host(torch.stack([shards[0].log_lh, shards[0].log_prior]))
-        both = np.concatenate([first] + [np.stack([r.log_lh, r.log_prior]) for r in shards[1:]],
-                              axis=1)
+        """(log_lh, log_prior) of the whole batch on the host: one read per
+        local shard, a worker's read with its shard."""
+        both = np.concatenate([_host(torch.stack([s.log_lh, s.log_prior]))
+                               for s in shards[:self.n_local]]
+                              + [np.stack([r.log_lh, r.log_prior])
+                                 for r in shards[self.n_local:]], axis=1)
         return both[0], both[1]
 
     def _give(self, shard, idx):
@@ -827,40 +725,40 @@ class ProcessShardedRuntime(ShardedRuntime):
         return place_chains(shard, local, moved)
 
     def permute(self, shards: list, perm) -> list:
-        """``permute_chains`` across the processes: a moved chain goes
-        through host memory, read from its shard and written into the
-        shard of its new rung."""
+        """The states after an MC3 swap: rung r takes chain ``perm[r]``
+        (``parallel.mesh.permute_chains``); a chain that moves to or from a
+        worker goes through host memory."""
         return permute_chains(shards, perm, give=self._give, take=self._take)
 
+    def records(self, shards: list, stats: list, requests: list) -> list:
+        """``SamplerRuntime.records`` of the chains ``requests`` asks for (chain
+        of the whole batch, ``make_record`` keywords), each made where its
+        shard is stepped, in the order asked."""
+        by_shard = [[] for _ in range(self.n_shards)]
+        where = []
+        for chain, kw in requests:
+            j, k = divmod(chain, shards[0].n_chains)
+            where.append((j, len(by_shard[j])))
+            by_shard[j].append((k, kw))
+        made = self._each("records", states=shards, stats=stats, requests=by_shard)
+        return [made[j][i] for j, i in where]
+
+    # a ladder whose rungs are split over the shards (per-shard temperatures)
+    run_mc3_chunk = mc3_chunk
+    measure_op_step_times = time_op_steps
+
     def non_finite(self, stats: list) -> int:
-        return int(stats[0].non_finite.sum()) + sum(r.non_finite for r in stats[1:])
-
-    def synchronize(self):
-        _sync(self.mesh[0])
-
-    def launch_counts(self) -> list:
-        """Each shard's process's kernel launches (``ops.check.launch_counts``)."""
-        return [launch_counts()] + self.start().each("launches", [()] * (self.n_shards - 1))
-
-    def reset_launches(self):
-        reset_launches()
-        self.start().each("reset_launches", [()] * (self.n_shards - 1))
-
-    @property
-    def startup_s(self) -> float:
-        """Seconds from the first spawn to every worker ready."""
-        return self.start().startup_s
+        return (sum(int(s.non_finite.sum()) for s in stats[:self.n_local])
+                + sum(r.non_finite for r in stats[self.n_local:]))
 
 
 def grid_runtime(rt: SamplerRuntime, grid) -> ShardedRuntime:
     """The runtime of a chain batch on a chains x objects ``grid``
-    (``parallel.mesh.data_mesh``): row i is chain shard i, its objects split
-    over the row's devices (``SamplerRuntime.split_objects``). Chain shards
-    run in host threads of their own (one row: inline); the blocks of a row
-    are driven from its thread."""
-    splits = shard_objects(rt.consts, grid)
-    return ShardedRuntime(rt, mesh=tuple(sp.head_device for sp in splits),
-                          rts=[rt.split_objects(sp) for sp in splits])
+    (``parallel.mesh.data_mesh``): row i is chain shard i, a local shard
+    whose objects split over the row's devices (``SamplerRuntime.
+    split_objects``). The rows are stepped in turn from the calling thread,
+    the blocks of a row on their streams (``ObjectSplit.run``)."""
+    return ShardedRuntime(rt, rts=[rt.split_objects(sp) for sp in shard_objects(rt.consts, grid)])
 
 
 def _ends_workers(method):

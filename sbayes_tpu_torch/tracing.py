@@ -22,7 +22,7 @@ The spans, and what reads them (``perfbench/metrics/<name>.py``):
 - ``sbt.draw``: one source draw's inverse CDF (``ops/draw.py::onehot``): on
   the card the kernel's launch, on the CPU the plain version. No metric
   reads it yet.
-- ``sbt.swap_phase``: one MC3 swap phase in ``ShardedRuntime.run_mc3_chunk``
+- ``sbt.swap_phase``: one MC3 swap phase in ``sampling/runner.py::mc3_chunk``
   (the proposals, the read of the ladder's log-posterior parts, the phase,
   the permutation): ``swap_phase_ms``.
 - ``sbt.init/em``, ``sbt.init/refine``: the initializer's EM with its

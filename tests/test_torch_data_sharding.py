@@ -289,7 +289,8 @@ def test_run_chunk_on_a_2x4_grid_keeps_every_invariant():
     """``tests/test_data_sharding.py:95-178`` on the port: 25 steps of the
     production ``run_chunk`` on a 2 x 4 chains x objects grid at feature
     tiles of 16 (two chains, one per chain shard, each on 4 object blocks of
-    12 objects), from states initialised unsplit: finite, every step
+    12 objects; the rows stepped in turn from this thread, neither in a
+    worker), from states initialised unsplit: finite, every step
     counted, no non-finite posterior, and the carried counts, pattern
     counts, prior parts and log-likelihood of the gathered states equal to
     the unsplit recompute (counts exactly; the carried log-likelihood is a
@@ -312,7 +313,7 @@ def test_run_chunk_on_a_2x4_grid_keeps_every_invariant():
     gen, op_gen = make_generators(0, "cpu")
     states = rt.init_chains(gen, 2)
     sh = grid_runtime(rt, _cpu_grid(2, 4))
-    assert sh.n_shards == 2 and [sp.bounds for sp in sh.splits] == [
+    assert (sh.n_shards, sh.n_local) == (2, 2) and [sp.bounds for sp in sh.splits] == [
         ((0, 12), (12, 24), (24, 36), (36, 48))] * 2
     shards, stats = sh.run_chunk(ShardGenerators.of(gen), op_gen, sh.split(states),
                                  sh.new_stats(2), 25)
@@ -336,6 +337,45 @@ def test_run_chunk_on_a_2x4_grid_keeps_every_invariant():
         np.testing.assert_array_equal(final.cl_counts[b].numpy(), np.asarray(want.cl_counts))
         np.testing.assert_array_equal(final.pat_counts[b].numpy(), np.asarray(want.pat_counts))
         np.testing.assert_allclose(float(final.log_lh[b]), float(want.log_lh), rtol=1e-5)
+
+
+def test_grid_rows_equal_their_runs_alone(setup):
+    """A 2 x 2 grid (two chain shards of 4 chains, each on 2 object blocks),
+    20 steps of ``run_chunk``: each row, stepped in turn with the others,
+    equals, bit for bit, its chains run alone by its own runtime from that
+    row's generator on the same operator draws (every field of the gathered
+    state, every statistic)."""
+    from sbayes_tpu_torch.parallel.mesh import (
+        ShardGenerators,
+        chain_block,
+        shard_state,
+        unshard_state,
+    )
+    from sbayes_tpu_torch.sampling.runner import grid_runtime, make_generators
+
+    def copy(x):
+        return type(x)(*(None if t is None else t.clone() for t in x))
+
+    def same(a, b):
+        for name, x, y in zip(a._fields, a, b):
+            assert (x is None) == (y is None), name
+            assert x is None or (x.dtype == y.dtype and torch.equal(x, y)), name
+
+    rt, states, _ = setup
+    sh = grid_runtime(rt, _cpu_grid(2, 2))
+    gen, op_gen = make_generators(7, "cpu")
+    shards, stats = sh.run_chunk(ShardGenerators(gen), op_gen, sh.split(copy(states)),
+                                 sh.new_stats(8), 20)
+
+    gen, op_gen = make_generators(7, "cpu")
+    ops = rt.draw_ops(op_gen, 20)
+    alone = ShardGenerators(gen).for_mesh(sh.mesh)
+    for j, rt_j in enumerate(sh.rts):
+        start = shard_state(chain_block(copy(states), j, 2), sh.splits[j])
+        st, ss = rt_j.run_ops(alone[j], ops, start, rt_j.new_stats(4))
+        same(unshard_state(st, "cpu"), unshard_state(shards[j], "cpu"))
+        same(ss, stats[j])
+    assert not torch.equal(shards[0].clusters, shards[1].clusters)     # distinct streams
 
 
 def test_split_sampler_matches_the_unsplit_sampler(setup):

@@ -7,14 +7,13 @@ of ``tests/test_parallel.py``, whose unsplit reference is the whole batch:
 torch's random streams depend on the batch, so here it is each shard with
 its own generator and the shared operator draws); a one-shard mesh equal to
 the unsplit code; the carried invariants of every shard; the MC3 swap
-across shards; the best-of-W ladder warm-up; and two statistical tests of
-the split CLI against the JAX sampler on the fixture (p > 0.005, the limit
-of ``tests/test_torch_mc3.py`` and ``tests/test_torch_slice.py``), each
-with the shards in threads (``ShardedRuntime``) and in processes
-(``ProcessShardedRuntime``, the split ``SamplerRuntime.shard`` gives). The
-tests of one split's internals build the thread split
-(``rt.sharded(rt.split_mesh(n))``); ``tests/test_torch_processes.py``
-holds the process split to it bit for bit."""
+across shards against the unsplit swap loop; the best-of-W ladder warm-up;
+and two statistical tests of the CLI against the JAX sampler on the fixture
+(p > 0.005, the limit of ``tests/test_torch_mc3.py`` and
+``tests/test_torch_slice.py``), each unsplit and split. The split is the
+one ``SamplerRuntime.shard`` gives: shard 0 in this process, each other
+shard in a worker process; the tests of its internals take it from
+module-scoped pools (``pools``), each spawn costing about 3 s here."""
 import shutil
 import warnings
 from pathlib import Path
@@ -46,11 +45,6 @@ def cpu_devices(monkeypatch, n: int):
     monkeypatch.setattr(mesh, "visible_devices", lambda device_type="cuda": ["cpu"] * n)
 
 
-def thread_split(rt, n_chains: int):
-    """The thread split of ``n_chains`` over the mesh ``rt.shard`` takes."""
-    return rt.sharded(rt.split_mesh(n_chains))
-
-
 @pytest.fixture(scope="module")
 def small_rt():
     from sbayes_tpu_torch.model.model import Model
@@ -60,6 +54,26 @@ def small_rt():
     data = synthetic_data(n_objects=16, n_features=5, n_states=3, n_families=2, seed=3)
     cfg = synthetic_config(n_clusters=2, geo_prior="cost_based")
     return SamplerRuntime(Model(data, cfg.model, device="cpu"), cfg.mcmc)
+
+
+@pytest.fixture(scope="module")
+def pools(small_rt):
+    """The split of ``small_rt`` over 2 and over 4 CPU devices, as
+    ``SamplerRuntime.shard`` makes it, its workers spawned once for the
+    module."""
+    import multiprocessing
+
+    from sbayes_tpu_torch.sampling.runner import ShardedRuntime
+
+    made = {n: ShardedRuntime(small_rt, mesh.chain_mesh(devices=["cpu"] * n)) for n in (2, 4)}
+    yield made
+    for sh in made.values():
+        sh.close()
+    assert multiprocessing.active_children() == []
+
+
+def _blocks(x, n_blocks: int) -> list:
+    return [mesh.chain_block(x, j, n_blocks) for j in range(n_blocks)]
 
 
 def _copy(x):
@@ -96,11 +110,11 @@ def test_mesh_policy_matches_jax(monkeypatch):
 
 
 def test_launch_counter_keeps_every_count_across_threads():
-    """The shards count their launches from threads of their own: 16
-    threads (more than the cores) adding 2,000 launches each, with a short
-    switch interval, lose none, in all and by variant."""
+    """A launch counter keeps the counts of callers in threads of their own:
+    16 threads (more than the cores) adding 2,000 launches each, with a
+    short switch interval, lose none, in all and by variant."""
     import sys
-    from concurrent.futures import ThreadPoolExecutor
+    import threading
 
     from sbayes_tpu_torch.ops._cuda import LaunchCounter
 
@@ -108,11 +122,12 @@ def test_launch_counter_keeps_every_count_across_threads():
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
-        with ThreadPoolExecutor(max_workers=16) as pool:
-            futures = [pool.submit(lambda v=t % 2: [counter.add(v) for _ in range(2000)])
-                       for t in range(16)]
-            for f in futures:
-                f.result(timeout=60)
+        threads = [threading.Thread(target=lambda v=t % 2: [counter.add(v) for _ in range(2000)])
+                   for t in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
     finally:
         sys.setswitchinterval(interval)
     assert counter.count == 32000 and counter.variants == {0: 16000, 1: 16000}
@@ -131,22 +146,24 @@ def test_mesh_never_crosses_device_types(monkeypatch):
 
 
 @pytest.mark.parametrize("n_shards", [2, 4])
-def test_each_shard_equals_its_run_alone(monkeypatch, small_rt, n_shards):
-    """8 chains split over ``n_shards`` CPU devices, 25 steps: each shard
-    equals, bit for bit, an unsplit run of its chains with that shard's
-    generator and the same operator draws (clusters, source, weights,
-    log_lh, log_prior, every carried count, every statistic)."""
+def test_each_shard_equals_its_run_alone(monkeypatch, small_rt, pools, n_shards):
+    """8 chains split over ``n_shards`` CPU devices (shard 0 here, the others
+    in worker processes), 25 steps: each shard equals, bit for bit, an
+    unsplit run of its chains with that shard's generator and the same
+    operator draws (clusters, source, weights, log_lh, log_prior, every
+    carried count, every statistic)."""
     from sbayes_tpu_torch.sampling.runner import make_generators
 
     rt = small_rt
     cpu_devices(monkeypatch, n_shards)
-    sh = thread_split(rt, 8)
-    assert sh.n_shards == n_shards and len({id(r) for r in sh.rts}) == 1
+    sh = pools[n_shards]
+    assert sh.mesh == rt.split_mesh(8) and (sh.n_shards, sh.n_local) == (n_shards, 1)
     gen, op_gen = make_generators(5, "cpu")
     gens = mesh.ShardGenerators(gen)
     shards = sh.init_chains(gens, 8)
-    start = [_copy(s) for s in shards]
+    start = sh.gather(shards)
     out, stats = sh.run_chunk(gens, op_gen, shards, sh.new_stats(8), 25)
+    out, stats = _blocks(sh.gather(out), n_shards), _blocks(sh.gather(stats), n_shards)
 
     _, op_gen = make_generators(5, "cpu")
     ops = rt.draw_ops(op_gen, 25)
@@ -154,7 +171,7 @@ def test_each_shard_equals_its_run_alone(monkeypatch, small_rt, n_shards):
     b = 8 // n_shards
     for j in range(n_shards):
         st0 = rt.init_chains(alone[j], b)
-        _assert_same(st0, start[j])
+        _assert_same(st0, start.select(slice(j * b, (j + 1) * b)))
         st, ss = rt.run_ops(alone[j], ops, st0, rt.new_stats(b))
         _assert_same(st, out[j])
         _assert_same(ss, stats[j])
@@ -256,14 +273,14 @@ def test_unsplit_mc3_chunk_equals_the_plain_swap_loop(small_rt):
 
 
 def test_kernel_build_runs_once_from_two_threads(monkeypatch, tmp_path):
-    """The shards of a split batch make their first launch from threads of
-    their own: two threads calling ``_cuda.build()`` on an empty build
-    directory (``nvcc`` stubbed by a script that writes its output slowly)
-    run one build, one compile per source and one link, and both get the
-    one whole library; no build's scratch files are left beside it."""
+    """A build from threads of their own runs once: two threads calling
+    ``_cuda.build()`` on an empty build directory (``nvcc`` stubbed by a
+    script that writes its output slowly) run one build, one compile per
+    source and one link, and both get the one whole library; no build's
+    scratch files are left beside it."""
     import stat
     import sys
-    from concurrent.futures import ThreadPoolExecutor
+    import threading
 
     from sbayes_tpu_torch.ops import _cuda
 
@@ -281,8 +298,13 @@ def test_kernel_build_runs_once_from_two_threads(monkeypatch, tmp_path):
     stub.chmod(stub.stat().st_mode | stat.S_IEXEC)
     monkeypatch.setattr(_cuda, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(_cuda, "nvcc_path", lambda: str(stub))
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        libs = [f.result(timeout=60) for f in [pool.submit(_cuda.build) for _ in range(2)]]
+    libs = []
+    threads = [threading.Thread(target=lambda: libs.append(_cuda.build())) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert len(libs) == 2
     assert libs[0] == libs[1] and libs[0].read_text() == "partial whole"
     calls = log.read_text().splitlines()
     assert sum(" -c " in c for c in calls) == len(_cuda.sources()) >= 2
@@ -290,23 +312,22 @@ def test_kernel_build_runs_once_from_two_threads(monkeypatch, tmp_path):
     assert [p.name for p in libs[0].parent.iterdir()] == [libs[0].name]
 
 
-def test_every_shard_carries_its_invariants(monkeypatch, small_rt):
-    """After a split run the carried counts, skeleton aggregates and
-    log-posterior parts of every shard equal ``post.fill_state`` of its
-    clusters, source and weights (counts exactly); the split refresh is
-    every shard's refresh alone, bit for bit, and the refresh of the gathered
-    batch within f32 rounding, its counts exactly (the analogue of
-    ``tests/test_parallel.py:218``)."""
+def test_every_shard_carries_its_invariants(small_rt, pools):
+    """After a split run (shard 1 in a worker process) the carried counts,
+    skeleton aggregates and log-posterior parts of every shard equal
+    ``post.fill_state`` of its clusters, source and weights (counts
+    exactly); the split refresh is every shard's refresh alone, bit for
+    bit, and the refresh of the gathered batch within f32 rounding, its
+    counts exactly (the analogue of ``tests/test_parallel.py:218``)."""
     from sbayes_tpu_torch.sampling.runner import make_generators
 
     rt = small_rt
-    cpu_devices(monkeypatch, 2)
-    sh = thread_split(rt, 8)
+    sh = pools[2]
     gen, op_gen = make_generators(3, "cpu")
     gens = mesh.ShardGenerators(gen)
     shards, stats = sh.run_chunk(gens, op_gen, sh.init_chains(gens, 8), sh.new_stats(8), 40)
     assert sh.non_finite(stats) == 0
-    for s in shards:
+    for s in _blocks(sh.gather(shards), 2):
         ref = rt.post.fill_state(s)
         assert torch.equal(s.cl_counts, ref.cl_counts)
         assert torch.equal(s.conf_counts, ref.conf_counts)
@@ -318,7 +339,7 @@ def test_every_shard_carries_its_invariants(monkeypatch, small_rt):
     # refresh of the gathered batch the counts are exact and the f32 sums
     # may round in another order (torch's reductions depend on the batch).
     split = sh.refresh(shards)
-    for got, s in zip(split, shards):
+    for got, s in zip(_blocks(sh.gather(split), 2), _blocks(sh.gather(shards), 2)):
         _assert_same(got, rt.refresh(s))
     whole = rt.refresh(sh.gather(shards))
     for name, a, b in zip(whole._fields, sh.gather(split), whole):
@@ -328,9 +349,10 @@ def test_every_shard_carries_its_invariants(monkeypatch, small_rt):
             torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-5)
 
 
-def test_split_and_gather_round_trip(small_rt):
-    """``shard_chain_batch`` then ``gather`` gives back a ChainState, an
-    OperatorStats and a (B,) tensor bit for bit (None stays None); an
+def test_split_and_gather_round_trip(small_rt, pools):
+    """``chain_block`` then ``gather`` gives back a ChainState, an
+    OperatorStats and a (B,) tensor bit for bit; the split runtime's
+    ``split`` of None is None on every shard and its ``gather`` None; an
     uneven split raises; the constants are copied only to a new device."""
     from sbayes_tpu_torch.sampling.runner import make_generators
 
@@ -339,13 +361,13 @@ def test_split_and_gather_round_trip(small_rt):
     states, stats = rt.run_chunk(gen, op_gen, rt.init_chains(gen, 6), rt.new_stats(6), 5)
     temps = torch.linspace(1.0, 2.0, 6)
     for x in (states, stats):
-        parts = mesh.shard_chain_batch(x, ("cpu",) * 3)
+        parts = _blocks(x, 3)
         assert [p[0].shape[0] for p in parts] == [2, 2, 2]
         _assert_same(mesh.gather(parts, "cpu"), x)
-    assert torch.equal(mesh.gather(mesh.shard_chain_batch(temps, ("cpu",) * 2), "cpu"), temps)
-    assert mesh.shard_chain_batch(None, ("cpu",) * 2) == [None, None]
+    assert torch.equal(mesh.gather(_blocks(temps, 2), "cpu"), temps)
+    assert pools[2].split(None) == [None, None] and pools[2].gather([None, None]) is None
     with pytest.raises(ValueError, match="evenly"):
-        mesh.shard_chain_batch(states, ("cpu",) * 4)
+        mesh.chain_block(states, 0, 4)
     assert all(c is rt.consts for c in mesh.replicate(rt.model, ("cpu", "cpu")))
 
 
@@ -361,7 +383,7 @@ def test_permute_chains_equals_concat_select(small_rt, n_shards):
     rt = small_rt
     gen, _ = make_generators(4, "cpu")
     states = rt.init_chains(gen, 8)
-    shards = mesh.shard_chain_batch(states, ("cpu",) * n_shards)
+    shards = _blocks(states, n_shards)
     rng = np.random.default_rng(n_shards)
     b = 8 // n_shards
     for _ in range(5):
@@ -369,8 +391,7 @@ def test_permute_chains_equals_concat_select(small_rt, n_shards):
         if (perm // b == np.arange(8) // b).all():
             continue
         got = mesh.permute_chains(shards, perm)
-        want = mesh.shard_chain_batch(ChainState.concat(shards).select(torch.as_tensor(perm)),
-                                      ("cpu",) * n_shards)
+        want = _blocks(ChainState.concat(shards).select(torch.as_tensor(perm)), n_shards)
         for g, w in zip(got, want):
             _assert_same(g, w)
     perm = np.arange(8)
@@ -379,14 +400,14 @@ def test_permute_chains_equals_concat_select(small_rt, n_shards):
     assert all(g is s for g, s in zip(got[1:], shards[1:])) and got[0] is not shards[0]
 
 
-def test_split_mc3_chunk_swaps_as_the_unsplit_swap_phase(monkeypatch, small_rt):
-    """A 4-rung ladder split over two CPU shards, 60 steps with a swap
-    phase every 10 (all pairs, 6 attempts): the split chunk equals, bit for
-    bit, its reference built from unsplit parts on the same draws: each
-    shard's steps alone (``run_ops``), ``swap_phase`` on the concatenated
-    log-likelihoods and log-priors with the same proposals, and
-    ``ChainState.concat(...).select(perm)``. Some swaps are accepted, some
-    rejected, and some cross the shard boundary."""
+def test_split_mc3_chunk_swaps_as_the_unsplit_swap_phase(small_rt, pools):
+    """A 4-rung ladder split over two CPU shards (shard 1 in a worker
+    process), 60 steps with a swap phase every 10 (all pairs, 6 attempts):
+    the split chunk equals, bit for bit, its reference built from unsplit
+    parts on the same draws: each shard's steps alone (``run_ops``),
+    ``swap_phase`` on the concatenated log-likelihoods and log-priors with
+    the same proposals, and ``ChainState.concat(...).select(perm)``. Some
+    swaps are accepted, some rejected, and some cross the shard boundary."""
     from sbayes_tpu_torch.sampling.runner import (
         _host,
         draw_swap_proposals,
@@ -397,18 +418,18 @@ def test_split_mc3_chunk_swaps_as_the_unsplit_swap_phase(monkeypatch, small_rt):
     from sbayes_tpu_torch.sampling.state import ChainState
 
     rt = small_rt
-    cpu_devices(monkeypatch, 2)
     n, steps, interval = 4, 60, 10
-    sh = thread_split(rt, n)
+    sh = pools[2]
     temps = 1.0 + 0.5 * torch.arange(n, dtype=torch.float32)
     gen, op_gen = make_generators(12, "cpu")
     gens = mesh.ShardGenerators(gen)
     shards = sh.init_chains(gens, n)
-    start = [_copy(s) for s in shards]
+    start = _blocks(sh.gather(shards), 2)
     m = np.zeros((2, n, n), np.int64)
     out, stats, n_acc, n_att = sh.run_mc3_chunk(gens, op_gen, shards, sh.new_stats(n),
                                                 sh.split(temps), sh.split(temps), m, 0, steps,
                                                 interval, 6, False)
+    out, stats = _blocks(sh.gather(out), 2), _blocks(sh.gather(stats), 2)
 
     gens_ref = mesh.ShardGenerators(torch.Generator().manual_seed(12)).for_mesh(sh.mesh)
     for g in gens_ref:                                    # past the init draws
@@ -430,7 +451,7 @@ def test_split_mc3_chunk_swaps_as_the_unsplit_swap_phase(monkeypatch, small_rt):
                                      t_host, pairs, order, log_u, m_ref)
         crossed += int((perm[:2] >= 2).sum())
         acc_ref += acc
-        ref = mesh.shard_chain_batch(batch.select(torch.as_tensor(perm)), sh.mesh)
+        ref = _blocks(batch.select(torch.as_tensor(perm)), 2)
     np.testing.assert_array_equal(m, m_ref)
     assert (n_acc, n_att) == (acc_ref, 6 * steps // interval)
     assert 0 < n_acc < n_att and crossed > 0
@@ -442,12 +463,13 @@ def test_split_mc3_chunk_swaps_as_the_unsplit_swap_phase(monkeypatch, small_rt):
 
 def test_warmup_ladder_over_shards_selects_best_per_rung(monkeypatch, small_rt):
     """The analogue of ``tests/test_parallel.py:152`` on a split warm-up:
-    3 rungs x 4 warm-ups over two CPU shards (processes, as ``rt.shard``
-    splits), no steps: per rung the argmax by log-likelihood of its 4
-    initial states (the split init grid from the same generator, in
-    threads); the rungs keep distinct states; with steps, one finite state
-    per rung."""
-    from sbayes_tpu_torch.sampling.runner import ProcessShardedRuntime, make_generators
+    3 rungs x 4 warm-ups over two CPU shards (shard 1 in a worker process,
+    as ``rt.shard`` splits), no steps: per rung the argmax by
+    log-likelihood of its 4 initial states (each shard's init alone from
+    its generator of the same seed); the rungs keep distinct states; with
+    steps, one finite state per rung."""
+    from sbayes_tpu_torch.sampling.runner import make_generators
+    from sbayes_tpu_torch.sampling.state import ChainState
 
     rt = small_rt
     cpu_devices(monkeypatch, 2)
@@ -456,11 +478,11 @@ def test_warmup_ladder_over_shards_selects_best_per_rung(monkeypatch, small_rt):
     try:
         gen, op_gen = make_generators(21, "cpu")
         picked = rt.warmup_ladder(gen, op_gen, n, W, temps, temps, n_steps=0)
-        assert isinstance(rt.shard(n * W), ProcessShardedRuntime)
-        sh = thread_split(rt, n * W)
-        assert sh.n_shards == 2
+        sh = rt.shard(n * W)
+        assert (sh.n_shards, sh.n_local) == (2, 1) and sh.processes is not None
         gen, _ = make_generators(21, "cpu")
-        grid = sh.gather(sh.init_chains(mesh.ShardGenerators(gen), n * W))
+        alone = mesh.ShardGenerators(gen).for_mesh(sh.mesh)
+        grid = ChainState.concat([rt.init_chains(g, n * W // 2) for g in alone])
         ll = grid.log_lh.numpy().reshape(n, W)
         sel = torch.as_tensor(ll.argmax(axis=1) + np.arange(n) * W)
         _assert_same(picked, grid.select(sel))
@@ -553,11 +575,11 @@ def fixture_dir(tmp_path):
     return tmp_path
 
 
-@pytest.mark.parametrize("split", ["threads", "processes"])
+@pytest.mark.parametrize("split", ["unsplit", "processes"])
 def test_split_cli_ensemble_matches_jax(monkeypatch, fixture_dir, jax_apply, split):
-    """``cli.main`` on the fixture config with ``runs: 32`` split over two
-    CPU shards (the warm-up race 2 x 32 chains, the ensemble 2 x 16), in
-    threads or in processes, 200 steps, 10 samples: each object's
+    """``cli.main`` on the fixture config with ``runs: 32``, one CPU shard or
+    split over two (shard 1 in a worker process; the warm-up race 2 x 32
+    chains, the ensemble 2 x 16), 200 steps, 10 samples: each object's
     membership frequency per run (32 independent values) against the
     per-chain frequencies of 256 JAX chains stepped through the same
     operator draws and read at the same steps (Welch's t-test per object).
@@ -569,22 +591,21 @@ def test_split_cli_ensemble_matches_jax(monkeypatch, fixture_dir, jax_apply, spl
     from sbayes_tpu_torch import cli
     from sbayes_tpu_torch.sampling.runner import SamplerRuntime, make_generators
 
-    cpu_devices(monkeypatch, 2)
-    if split == "threads":
-        monkeypatch.setattr(SamplerRuntime, "shard",
-                            lambda self, n_chains, logger=None: thread_split(self, n_chains))
+    n_shards = 1 if split == "unsplit" else 2
+    cpu_devices(monkeypatch, n_shards)
     seen = []
     monkeypatch.setattr(SamplerRuntime, "shard", _recording(SamplerRuntime.shard, seen))
     R = 32
     settings = {"mcmc": {"runs": R, "steps": 200, "samples": 10},
                 "results": {"log_likelihood": False, "log_operator_step_times": False,
                             "path": str(fixture_dir / "results")}}
+    before = set(multiprocessing.active_children())        # the module's pools
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         cli.main(fixture_dir / "config.yaml", experiment_name="split", custom_settings=settings,
                  device="cpu")
-    assert seen[:2] == [(2 * R, 2), (R, 2)], seen
-    assert multiprocessing.active_children() == []
+    assert seen[:2] == [(2 * R, n_shards), (R, n_shards)], seen
+    assert [p for p in multiprocessing.active_children() if p not in before] == []
     out = fixture_dir / "results" / "split" / "K1"
     port = np.stack([_clusters_file(out / f"clusters_K1_{r}.txt") for r in range(R)])
     assert port.shape == (R, 10, 5)
@@ -602,17 +623,18 @@ def test_split_cli_ensemble_matches_jax(monkeypatch, fixture_dir, jax_apply, spl
     assert not failures, "split ensemble vs JAX:\n" + "\n".join(failures)
 
 
-@pytest.mark.parametrize("split", ["threads", "processes"])
+@pytest.mark.parametrize("split", ["unsplit", "processes"])
 def test_split_mc3_ladder_cold_rungs_match_jax(monkeypatch, jax_apply, split):
-    """An MC3 ladder of 192 rungs split over two CPU shards of 96 (threads or
-    processes; T = 1 for rungs 0-127, 1.5 for 128-159, 2.5 for 160-191), 250
-    steps of ``run_mc3_chunk`` with a swap phase every 10 steps (all
-    191 adjacent pairs): at stationarity the rungs are independent draws of
-    their tempered targets, so the 128 cold rungs at the last step are
-    independent posterior draws. Each object's membership among them
-    against 256 JAX chains on the same operator draws at that step
-    (chi-square test per object). Swaps between the cold and the hot rungs
-    are accepted and rejected, and swaps cross the shard boundary."""
+    """An MC3 ladder of 192 rungs, one CPU shard or split over two shards of
+    96 (shard 1 in a worker process; T = 1 for rungs 0-127, 1.5 for
+    128-159, 2.5 for 160-191), 250 steps of ``run_mc3_chunk`` with a swap
+    phase every 10 steps (all 191 adjacent pairs): at stationarity the
+    rungs are independent draws of their tempered targets, so the 128 cold
+    rungs at the last step are independent posterior draws. Each object's
+    membership among them against 256 JAX chains on the same operator draws
+    at that step (chi-square test per object). Swaps between the cold and
+    the hot rungs are accepted and rejected, and swaps at rungs 95 <-> 96
+    (the shard boundary of the split) are accepted."""
     from scipy.stats import chi2_contingency
 
     from sbayes_tpu_torch.config.schema import SBayesConfig
@@ -625,10 +647,11 @@ def test_split_mc3_ladder_cold_rungs_match_jax(monkeypatch, jax_apply, split):
         cfg = SBayesConfig.from_config_file(FIXTURES / "config.yaml")
     rt = SamplerRuntime(Model(Data.from_config(cfg), cfg.model, device="cpu"), cfg.mcmc)
     _same_schedule(rt, jax_apply)
-    cpu_devices(monkeypatch, 2)
+    n_shards = 1 if split == "unsplit" else 2
+    cpu_devices(monkeypatch, n_shards)
     n, n_cold, steps, interval = 192, 128, 250, 10
-    sh = rt.shard(n) if split == "processes" else thread_split(rt, n)
-    assert sh.n_shards == 2
+    sh = rt.shard(n)
+    assert sh.n_shards == n_shards
     temps = torch.cat([torch.ones(n_cold), torch.full((32,), 1.5), torch.full((32,), 2.5)])
     gen, op_gen = make_generators(17, "cpu")
     gens = mesh.ShardGenerators(gen)
