@@ -172,8 +172,7 @@ class Posterior:
         if c.size_prior_type == "uniform_area":
             return torch.zeros(sizes.shape[0], device=sizes.device)
         if c.size_prior_type == "uniform_size":
-            with span("sbt.sync/size_prior.n"):
-                n = torch.tensor(float(c.N), device=sizes.device)
+            n = torch.full((), float(c.N), device=sizes.device)
             rest = n - sizes.sum(-1)
             log_multinom = (torch.lgamma(n + 1.0) - torch.lgamma(sizes + 1.0).sum(-1)
                             - torch.lgamma(rest + 1.0))
@@ -265,8 +264,7 @@ class Posterior:
             x0, s = g.inflection_point, g.scale
             log_expit = torch.nn.functional.logsigmoid
             log_p = log_expit(-(agg_cost - x0) / s)
-            with span("sbt.sync/geo.sigmoid"):
-                offset = torch.tensor(x0 / s, dtype=agg_cost.dtype, device=agg_cost.device)
+            offset = torch.full((), x0 / s, dtype=agg_cost.dtype, device=agg_cost.device)
             return log_p - log_expit(offset)
         raise ValueError(f"Unknown probability_function {g.probability_function}")
 

@@ -138,16 +138,36 @@ class LaunchCounter:
         self.by_place: dict = {}
         self._lock = threading.Lock()
 
-    def add(self, variant=None, place=None):
-        """Count one launch (of ``variant``, for kernels built in variants)
-        at ``place``: (device index, stream handle) of the launch."""
+    def add(self, variant=None, place=None, n: int = 1):
+        """Count ``n`` launches (of ``variant``, for kernels built in
+        variants) at ``place``: (device index, stream handle) of the launch."""
         with self._lock:
-            self.count += 1
+            self.count += n
             if variant is not None:
-                self.variants[variant] = self.variants.get(variant, 0) + 1
+                self.variants[variant] = self.variants.get(variant, 0) + n
             if place is not None:
                 counts = self.by_place.setdefault(place, {})
-                counts[variant] = counts.get(variant, 0) + 1
+                counts[variant] = counts.get(variant, 0) + n
+
+    def state(self) -> tuple:
+        """The counts as they are, for ``rewind``."""
+        with self._lock:
+            return (self.count, dict(self.variants),
+                    {p: dict(v) for p, v in self.by_place.items()})
+
+    def rewind(self, state: tuple) -> dict:
+        """Put the counts back to ``state`` and return what was counted
+        since, by variant (None: launches of no variant). A CUDA graph's
+        capture counts launches that only its replays make
+        (``sampling/graphs.py``)."""
+        with self._lock:
+            count, variants, by_place = state
+            since = {v: n - variants.get(v, 0) for v, n in self.variants.items()
+                     if n != variants.get(v, 0)}
+            if self.count - count - sum(since.values()):
+                since[None] = self.count - count - sum(since.values())
+            self.count, self.variants, self.by_place = count, dict(variants), by_place
+            return since
 
     def reset(self):
         with self._lock:

@@ -18,18 +18,21 @@ MARGINAL_TOL_FEATURES = 36       # wider data: the tolerance grows with the logs
 MST_TOL_REL = 1e-5               # the total: float32 edges added in another order
 
 
+# The launch counter of every kernel entry (``_cuda.LaunchCounter``).
+COUNTERS = (loglh.launches, loglh.counts_launches, loglh.from_counts_launches,
+            marginal.launches, mst.launches, draw.launches)
+
+
 def launch_counts() -> dict:
     """The launches of every kernel entry counted in this process: per
     counter its total, by variant and by place (``_cuda.LaunchCounter``)."""
     return {c.name: {"count": c.count, "variants": dict(c.variants),
                      "by_place": {p: dict(v) for p, v in c.by_place.items()}}
-            for c in (loglh.launches, loglh.counts_launches, loglh.from_counts_launches,
-                      marginal.launches, mst.launches, draw.launches)}
+            for c in COUNTERS}
 
 
 def reset_launches():
-    for c in (loglh.launches, loglh.counts_launches, loglh.from_counts_launches,
-              marginal.launches, mst.launches, draw.launches):
+    for c in COUNTERS:
         c.reset()
 
 

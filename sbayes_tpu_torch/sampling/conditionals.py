@@ -95,6 +95,17 @@ class Conditionals:
         self.inv_Tp = 1.0 / self.Tp
         self.sample_from_prior = posterior.sample_from_prior
 
+    def load_temperatures(self, temperature, prior_temperature):
+        """Copy the (B,) per-chain temperatures into this object's own
+        tensors and their inverses beside them, in place, where a captured
+        CUDA graph reads them (``sampling/graphs.py``); float temperatures
+        stay as they are."""
+        for name, t in (("T", temperature), ("Tp", prior_temperature)):
+            mine = getattr(self, name)
+            if isinstance(mine, torch.Tensor):
+                mine.copy_(t)
+                getattr(self, "inv_" + name).copy_(1.0 / mine)
+
     @property
     def object_layout(self):
         """What ``ops.marginal.marginal`` takes for its objects: the model
@@ -445,6 +456,17 @@ class ObjectSplitConditionals(Conditionals):
         fi = self.split.take_rows([b.feat_idx for b in self.split.blocks], idx, batched=False)
         feats = (fi[..., None] == torch.arange(c.S, dtype=fi.dtype, device=fi.device)).float()
         return feats, fi == c.S, c.hc_conf[idx]
+
+    def load_temperatures(self, temperature, prior_temperature):
+        """Copy the (B,) per-chain temperatures into this object's own
+        tensors and their inverses beside them, in place, where a captured
+        CUDA graph reads them (``sampling/graphs.py``); float temperatures
+        stay as they are."""
+        for name, t in (("T", temperature), ("Tp", prior_temperature)):
+            mine = getattr(self, name)
+            if isinstance(mine, torch.Tensor):
+                mine.copy_(t)
+                getattr(self, "inv_" + name).copy_(1.0 / mine)
 
     @property
     def object_layout(self):

@@ -58,6 +58,13 @@ class OperatorStats(NamedTuple):
         return OperatorStats(accepts, rejects, sss, self.non_finite + nf.int())
 
 
+def mh_step(apply, gen, op_idx: int, state, stats: OperatorStats) -> tuple:
+    """One MH step of the operator ``op_idx`` (``apply`` of
+    ``make_mh_apply_fn``) and its statistics: (state, stats)."""
+    state, accept, step_size, nf = apply(op_idx, gen, state)
+    return state, stats.record(op_idx, accept, step_size, nf)
+
+
 def mh_log_ratio(d_ll, d_prior, log_q, log_q_back, T, Tp):
     """(B,) MH log acceptance ratio ``d_ll / T + d_prior / Tp - (log_q -
     log_q_back)``; T, Tp floats or (B,) per-chain temperatures."""

@@ -43,6 +43,7 @@ from sbayes_tpu_torch.model.math import (
     sample_categorical_onehot,
     source_n_changed,
 )
+from sbayes_tpu_torch.model.posterior import skeleton_of
 from sbayes_tpu_torch.ops.marginal import marginal
 from sbayes_tpu_torch.sampling.conditionals import EPS32, Conditionals, _pick_cluster
 from sbayes_tpu_torch.sampling.state import ChainState
@@ -704,6 +705,10 @@ class OperatorFactory:
         if logspace is None:
             logspace = consts.F >= 512
         informed = gibbsish and not self.sample_from_prior
+        # The two membership writes take device values: a Python scalar would
+        # be copied to the card in every step, and wait for it.
+        out = torch.zeros((), dtype=torch.bool, device=consts.device)
+        into = torch.ones((), dtype=torch.bool, device=consts.device)
 
         def op(gen, state):
             B = state.n_chains
@@ -724,10 +729,8 @@ class OperatorFactory:
 
             obj = _masked_categorical(gen, pj_vec, source_cluster)
             clusters_new = state.clusters.clone()
-            with span("sbt.sync/jump.move_out"):
-                clusters_new[ar, i_src, obj] = False
-            with span("sbt.sync/jump.move_in"):
-                clusters_new[ar, i_tgt, obj] = True
+            clusters_new[ar, i_src, obj] = out
+            clusters_new[ar, i_tgt, obj] = into
             obj_idx = obj[:, None]
             valid = torch.ones((B, 1), dtype=torch.bool, device=dev)
             rs = cond.gibbs_resample_source_jump_rows(
@@ -783,6 +786,11 @@ class OperatorFactory:
                                       "chains x objects grid (nor does a split of 10 objects "
                                       "or fewer)")
         k_cap = min(max_size, N)
+        # Per component (the clusters, then each confounder): its number of
+        # groups and its first row in the stacked memberships of a group draw.
+        n_groups = torch.tensor([K] + [int(n) for n in consts.n_groups], device=consts.device)
+        offsets = torch.tensor([0] + [K + i * consts.Gmax for i in range(n_conf)],
+                               device=consts.device)
 
         def select_subset_idx(gen, state):
             """(obj_idx (B, k), valid (B, k)): distinct indices per chain."""
@@ -792,12 +800,7 @@ class OperatorFactory:
                 perm = torch.argsort(torch.rand((B, N), generator=gen, device=dev), dim=-1)
                 return perm[:, :k_cap], torch.ones((B, k_cap), dtype=torch.bool, device=dev)
             comp = torch.randint(0, 1 + n_conf, (B,), generator=gen, device=dev)
-            with span("sbt.sync/source_groups.sizes"):
-                n_groups = torch.tensor([K] + [int(n) for n in consts.n_groups], device=dev)
             g_idx = torch.randint(0, 10 ** 9, (B,), generator=gen, device=dev) % n_groups[comp]
-            with span("sbt.sync/source_groups.offsets"):
-                offsets = torch.tensor([0] + [K + i * consts.Gmax for i in range(n_conf)],
-                                       device=dev)
             stacked = torch.cat([state.clusters, (consts.groups > 0).reshape(1, -1, N)
                                  .expand(B, -1, -1)], dim=1)                   # (B, K + n_conf*G, N)
             member = stacked[torch.arange(B, device=dev), offsets[comp] + g_idx]
@@ -1052,8 +1055,11 @@ class OperatorSpec(NamedTuple):
     fn: Callable
     changes: str = "clusters"
     parameters: dict = {}
+    graphable: bool = True
     """``changes``: the state group the operator can modify ('clusters',
-    'source' or 'weights'); the MH kernel recomputes only those terms."""
+    'source' or 'weights'); the MH kernel recomputes only those terms.
+    ``graphable``: the step reads nothing from the host, so that a CUDA
+    graph can replay it (``sampling/graphs.py``)."""
 
 
 def get_operator_schedule(cond: Conditionals, operators_config,
@@ -1064,10 +1070,13 @@ def get_operator_schedule(cond: Conditionals, operators_config,
     jump only with more than one cluster), the source share 0.4 / 0.6 over
     the random-subset and per-group resamples. Under a cost-based geo prior
     the main Gibbsish and the wide operator weight their proposals by it;
-    the naive operators never do, whatever their names."""
+    the naive operators never do, whatever their names. No CUDA graph
+    replays the wide operator (its redraw loop reads the card), nor, under
+    the Delaunay skeleton (computed on the host), any cluster operator."""
     factory = OperatorFactory(cond, p_grow=p_grow)
     consts = cond.consts
     geo_on = consts.geo.prior_type == "cost_based"
+    host_geo = cond.post.carry_geo and skeleton_of(consts.geo) == "delaunay"
     w_c = operators_config.clusters
     w_w = operators_config.weights
     w_s = operators_config.source
@@ -1091,7 +1100,7 @@ def get_operator_schedule(cond: Conditionals, operators_config,
                      "clusters", {"geo": geo_on}),
         OperatorSpec("gibbsish_sample_cluster_wide_geo", 0.05 * w_c,
                      factory.make_alter_cluster_wide(consider_geo=geo_on),
-                     "clusters", {"geo": geo_on, "w_stay": 0.15}),
+                     "clusters", {"geo": geo_on, "w_stay": 0.15}, graphable=False),
         OperatorSpec("cluster_jump_gibbsish", 0.25 * w_c if consts.K > 1 else 0.0,
                      factory.make_cluster_jump(gibbsish=True),
                      "clusters"),
@@ -1107,4 +1116,6 @@ def get_operator_schedule(cond: Conditionals, operators_config,
     ]
     ops = [o for o in ops if o.weight > 0]
     total = sum(o.weight for o in ops)
-    return [o._replace(weight=o.weight / total) for o in ops]
+    return [o._replace(weight=o.weight / total,
+                       graphable=o.graphable and not (host_geo and o.changes == "clusters"))
+            for o in ops]

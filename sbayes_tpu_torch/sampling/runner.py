@@ -4,7 +4,9 @@ Port of ``sbayes_tpu/sampling/runner.py``. All chains (the warm-up race, the
 runs of an ensemble, the rungs of an MC3 ladder) are one chain axis of the
 batched operators. One operator per step is drawn for the whole batch on the
 host, from a CPU ``torch.Generator``, so dispatch never waits on the device;
-the per-chain randomness comes from a generator on the model's device. The
+the per-chain randomness comes from a generator on the model's device. On
+the card ``run_ops`` replays each step from its operator's CUDA graph
+(``sampling/graphs.py``), bit-equal to the eager step it holds. The
 temperatures are Python floats at 1 (plain runs and ensembles) or (B,)
 tensors, one per chain (MC3). The MC3 swap phase runs on the host, on the
 ladder's carried log-likelihoods and log-priors (one device read per
@@ -86,9 +88,10 @@ from sbayes_tpu_torch.results.loggers import (
     SampleRecord,
     StateDumper,
 )
+from sbayes_tpu_torch.sampling import graphs
 from sbayes_tpu_torch.sampling.conditionals import Conditionals, ObjectSplitConditionals
 from sbayes_tpu_torch.sampling.initializer import Initializer
-from sbayes_tpu_torch.sampling.kernel import OperatorStats, make_mh_apply_fn
+from sbayes_tpu_torch.sampling.kernel import OperatorStats, make_mh_apply_fn, mh_step
 from sbayes_tpu_torch.sampling.operators import get_operator_schedule
 from sbayes_tpu_torch.sampling.state import ChainState
 from sbayes_tpu_torch.tracing import span
@@ -246,6 +249,8 @@ class SamplerRuntime:
         self.op_weights = torch.tensor([o.weight for o in self._op_specs], dtype=torch.float64)
         self._apply = make_mh_apply_fn(self.cond, self._op_specs)
         self._shards: dict = {}
+        self._graphs: Optional[graphs.StepGraphs] = None
+        self._eager = False        # tests only: the eager step on the card too
 
     def replica(self, consts) -> "SamplerRuntime":
         """The same sampler over ``consts`` (the model constants on another
@@ -282,24 +287,28 @@ class SamplerRuntime:
         return self._shards[mesh]
 
     def close(self):
-        """End the worker processes of every split ``shard`` made."""
+        """End the worker processes of every split ``shard`` made, and free
+        the step graphs."""
         for sh in self._shards.values():
             sh.close()
         self._shards.clear()
+        self._graphs = None
 
     # -------------------- batched programs --------------------
 
     def new_stats(self, n_chains: int) -> OperatorStats:
         return OperatorStats.zeros(n_chains, self.n_ops, self.device)
 
-    def apply_fn(self, temps=None, prior_temps=None):
+    def apply_fn(self, temps=None, prior_temps=None, cond=None):
         """The MH step ``apply(op_idx, gen, states)`` of the schedule: at unit
         temperatures (None) or at the per-chain (B,) ``temps`` /
-        ``prior_temps`` on the model's device."""
-        if temps is None and prior_temps is None:
-            return self._apply
-        cond = type(self.cond)(self.post, 1.0 if temps is None else temps,
-                               1.0 if prior_temps is None else prior_temps)
+        ``prior_temps`` on the model's device, or over the conditionals
+        ``cond``."""
+        if cond is None:
+            if temps is None and prior_temps is None:
+                return self._apply
+            cond = type(self.cond)(self.post, 1.0 if temps is None else temps,
+                                   1.0 if prior_temps is None else prior_temps)
         return make_mh_apply_fn(cond, get_operator_schedule(cond, self.mcmc_config.operators,
                                                             self.p_grow))
 
@@ -334,20 +343,42 @@ class SamplerRuntime:
 
     def run_ops(self, gen, ops: list, states: ChainState, stats: OperatorStats, temps=None,
                 prior_temps=None, trace: bool = False):
-        """``run_chunk`` on the drawn operators ``ops``, one a step."""
+        """``run_chunk`` on the drawn operators ``ops``, one a step; on the
+        card each step replayed from its operator's CUDA graph where one can
+        hold it (``sampling/graphs.py``)."""
         with span("sbt.chunk"):
-            apply = self.apply_fn(temps, prior_temps)
+            step_graphs = self._step_graphs(gen, states, stats, temps, prior_temps)
+            if step_graphs is None:
+                step = functools.partial(mh_step, self.apply_fn(temps, prior_temps), gen)
+            else:
+                step = step_graphs.step
             log_post = (torch.empty((len(ops), states.n_chains), device=self.device) if trace
                         else None)
             for i, op_idx in enumerate(ops):
-                states, accept, step_size, nf = apply(op_idx, gen, states)
-                stats = stats.record(op_idx, accept, step_size, nf)
+                states, stats = step(op_idx, states, stats)
                 if trace:
                     torch.add(states.log_lh, states.log_prior, out=log_post[i])
+            graphs.record.steps += len(ops)
+            if step_graphs is not None:
+                states, stats = step_graphs.release(states, stats)
             if trace:
                 with span("sbt.sync/run_ops.trace"):
                     return states, stats, _host(log_post)
             return states, stats
+
+    def _step_graphs(self, gen, states, stats, temps, prior_temps):
+        """The step graphs of this batch, or None where the eager step runs:
+        off the card, on a grid row (``split``) and under the tests' switch.
+        One set at a time: a batch of another layout, generator or kind of
+        temperatures replaces it."""
+        if self.device.type != "cuda" or self.split is not None or self._eager:
+            return None
+        if self._graphs is None or not self._graphs.fits(gen, states, stats, temps,
+                                                         prior_temps):
+            self._graphs = None               # the old set's memory goes first
+            self._graphs = graphs.StepGraphs(self, gen, states, stats, temps, prior_temps)
+        self._graphs.load_temperatures(temps, prior_temps)
+        return self._graphs
 
     def run_mc3_chunk(self, gen, op_gen, states: ChainState, stats: OperatorStats, temps,
                       prior_temps, swap_matrix: np.ndarray, step0: int, n_steps: int,

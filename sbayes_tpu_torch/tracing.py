@@ -13,9 +13,13 @@ The spans, and what reads them (``perfbench/metrics/<name>.py``):
 - ``sbt.chunk``: each public chunk entry of ``SamplerRuntime``
   (``run_chunk``, ``run_ops``, ``run_mc3_chunk``; they nest, readers take
   the union): ``dispatch_ms_per_step``, ``idle_outside_program_share``.
-- ``sbt.op/<operator name>``: one MH step of an operator
+- ``sbt.op/<operator name>``: one eager MH step of an operator
   (``sampling/kernel.py``), in ``run_ops``, ``op_steps`` and the warm-ups.
   They name the idle gaps of the benchmark's breakdown.
+- ``sbt.graph``: one MH step replayed from its operator's CUDA graph
+  (``sampling/graphs.py``), in ``run_ops`` on the card, where no
+  ``sbt.op`` span opens. It names the idle gaps too; the share of the steps
+  replayed is a counter (``graphs.record``): ``graph_step_share``.
 - ``sbt.prim``: the batched Prim (``ops/mst.py``: ``cluster_mst_stats``,
   ``update_mst_stats``): on the card the kernel's launch, on the CPU the
   plain loop with its size read: ``prim_ms_per_step``.
@@ -46,14 +50,8 @@ The places of ``sbt.sync/``, each around one read of the device:
 - ``mc3.permute``: the rungs' new order to the device, once a swap phase
   that accepted a swap (``parallel/mesh.py::place_chains``; more where a
   split ladder moves chains between shards).
-- ``source_groups.sizes``, ``source_groups.offsets``: two small tables to
-  the device in each step of the source operator over a group's members.
-- ``jump.move_out``, ``jump.move_in``: the jump's two membership writes,
-  whose Python scalar goes to the device first.
-- ``size_prior.n``, ``geo.sigmoid``, ``geo.delaunay`` (``model/posterior.py``):
-  a scalar to the device under the ``uniform_size`` size prior and the
-  ``sigmoid`` geo probability; the masks to the host and the triples back
-  under the ``delaunay`` skeleton.
+- ``geo.delaunay`` (``model/posterior.py``): the masks to the host and the
+  triples back under the ``delaunay`` skeleton.
 
 A copy from host memory to the card that is not pinned waits for the
 card like a read does (PyTorch synchronises the stream after it), so

@@ -4,6 +4,7 @@ This file imports no JAX: the card's machine has none."""
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -338,3 +339,133 @@ def test_run_experiment_on_the_fixture_yaml_on_the_card(tmp_path):
     assert lh.dtype == "<f4" and lh.shape == (20, 10)
     assert bool(((lh > 0) & (lh < float("inf"))).all())
     assert out["na_values"].dtype == bool and int(out["na_values"].sum()) == 1
+
+
+def _graphed_and_eager(rt, run):
+    """``run()`` with the step graphs (``sampling/graphs.py``), then with the
+    eager step: each result beside the change of ``graphs.record`` it made."""
+    import dataclasses
+
+    from sbayes_tpu_torch.sampling import graphs
+
+    out = []
+    for eager in (False, True):
+        rt._eager = eager
+        before = dataclasses.replace(graphs.record)
+        got = run()
+        torch.cuda.synchronize()
+        out.append((got, {k: getattr(graphs.record, k) - getattr(before, k)
+                          for k in ("steps", "replayed", "captures")}))
+    rt._eager = False
+    return out
+
+
+@pytest.mark.gpu
+def test_graphed_chunks_equal_eager_chunks_on_the_card():
+    """Three chunks of ``run_chunk`` (100 steps each) of 64 chains of the
+    south_america-shaped K = 3 model with the cost-based geo prior, replayed
+    from the operators' CUDA graphs and stepped eagerly from the same start
+    and seeds: end states and ``OperatorStats`` bit-equal; every step but
+    the wide operator's replayed, each operator captured once; a chunk's
+    returned state is not overwritten by the next chunk's replays."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from sbayes_tpu_torch.sampling.runner import make_generators
+
+    rt = chip_smoke.full_width_runtime(3, "cost_based")
+    start = rt.init_chains(make_generators(3, "cuda")[0], 64)
+    wide = rt.op_names.index("gibbsish_sample_cluster_wide_geo")
+
+    def run():
+        gen, op_gen = make_generators(4, "cuda")
+        states, stats, ends = start, rt.new_stats(64), []
+        for _ in range(3):
+            states, stats = rt.run_chunk(gen, op_gen, states, stats, 100)
+            ends.append((states, type(states)(*(None if x is None else x.clone()
+                                                for x in states))))
+        return states, stats, ends
+
+    (graphed, counts), (eager, eager_counts) = _graphed_and_eager(rt, run)
+    for a, b in zip(graphed[:2], eager[:2]):
+        assert chip_smoke.unequal_fields(a, b) == []
+    for kept, copy in graphed[2]:
+        assert chip_smoke.unequal_fields(kept, copy) == []
+    _, op_gen = make_generators(4, "cuda")
+    ops = [op for _ in range(3) for op in rt.draw_ops(op_gen, 100)]
+    assert counts == {"steps": 300, "replayed": 300 - ops.count(wide),
+                      "captures": len(set(ops) - {wide})}
+    assert eager_counts == {"steps": 300, "replayed": 0, "captures": 0}
+
+
+@pytest.mark.gpu
+def test_graphed_mc3_ladder_equals_eager_on_the_card():
+    """Two ``run_mc3_chunk`` calls of 100 steps of a 4-rung ladder (T = 1 +
+    0.05 i) with a swap phase every 50 steps, graphed and eager from the
+    same start and seeds: states, statistics, swap counts and accepts
+    bit-equal; across the segments and chunks each operator captured once
+    (one set of buffers for the ladder's temperatures)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from sbayes_tpu_torch.sampling.runner import make_generators
+
+    rt = chip_smoke.full_width_runtime(3, "cost_based")
+    start = rt.init_chains(make_generators(8, "cuda")[0], 4)
+    temps = 1 + 0.05 * torch.arange(4, dtype=torch.float32, device="cuda")
+
+    def run():
+        gen, op_gen = make_generators(9, "cuda")
+        states, stats = start, rt.new_stats(4)
+        swaps, accepted = np.zeros((2, 4, 4), dtype=np.int64), 0
+        for i in range(2):
+            states, stats, acc, att = rt.run_mc3_chunk(gen, op_gen, states, stats, temps, temps,
+                                                       swaps, 100 * i, 100, 50, 6, False)
+            accepted += acc
+        return states, stats, swaps, accepted, len(rt._graphs.graphs) if rt._graphs else 0
+
+    (graphed, counts), (eager, eager_counts) = _graphed_and_eager(rt, run)
+    for a, b in zip(graphed[:2], eager[:2]):
+        assert chip_smoke.unequal_fields(a, b) == []
+    np.testing.assert_array_equal(graphed[2], eager[2])
+    assert graphed[2][1].sum() == 4 * 6 and graphed[3] == eager[3]
+    assert counts["steps"] == 200 and counts["captures"] == graphed[4] > 0
+    assert counts["replayed"] > 0.8 * counts["steps"] and eager_counts["replayed"] == 0
+
+
+@pytest.mark.gpu
+def test_profiler_sees_the_counted_launches_of_replays():
+    """A chunk of 200 steps replayed from warm graphs under the profiler (the
+    benchmark's trace reader): the marginal kernels in the trace equal the
+    change of ``ops/marginal.py::launches`` (each replay adds its graph's
+    captured launches); the steps' graphs run in ``sbt.graph`` spans."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from perfbench.tracing import WINDOW, Window, read_chrome_trace
+    from sbayes_tpu_torch.ops.marginal import launches
+    from sbayes_tpu_torch.sampling.runner import make_generators
+
+    rt = chip_smoke.full_width_runtime(3, "cost_based")
+    gen, op_gen = make_generators(10, "cuda")
+    states, stats = rt.run_ops(gen, list(range(rt.n_ops)), rt.init_chains(gen, 64),
+                               rt.new_stats(64))
+    seen = []
+    for _ in range(2):                       # the profiler can lose records: a second try
+        torch.cuda.synchronize()
+        before = launches.count
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            with torch.profiler.record_function(WINDOW):
+                states, stats = rt.run_chunk(gen, op_gen, states, stats, 200)
+                torch.cuda.synchronize()
+        counted = launches.count - before
+        events = read_chrome_trace(prof)
+        seen.append(len(Window(events, 200).kernels("marginal_kernel")))
+        if seen[-1] == counted:
+            break
+    assert counted > 0 and seen[-1] == counted, (seen, counted)
+    assert sum(e["name"] == "sbt.graph" for e in events) > 150

@@ -112,9 +112,7 @@ def test_chunk_spans_nest_and_change_no_bits(rt, start, tmp_path):
     for s in prims:
         assert inside(s, ops), s
     assert {s[0] for s in syncs} <= {"sbt.sync/mst.size", "sbt.sync/wide.redraw",
-                                      "sbt.sync/run_ops.trace", "sbt.sync/source_groups.sizes",
-                                      "sbt.sync/source_groups.offsets", "sbt.sync/jump.move_out",
-                                      "sbt.sync/jump.move_in"}
+                                      "sbt.sync/run_ops.trace"}
     assert sum(s[0] == "sbt.sync/run_ops.trace" for s in syncs) == 1
     # every Prim reads its size once
     assert sum(s[0] == "sbt.sync/mst.size" for s in syncs) == len(prims)
