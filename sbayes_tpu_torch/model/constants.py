@@ -221,13 +221,19 @@ def auto_source_packed(n_objects: int, n_features: int, n_components: int,
 
 def auto_feature_chunk(n_objects: int, n_features: int, cell_threshold: int = 4_000_000,
                        target: int = 512) -> Optional[int]:
-    """Feature-tile width for large models: the divisor of F closest to
-    ``target`` once N * F passes ``cell_threshold`` (None: no tiling, and
-    for small models; the JAX package's rule)."""
+    """Feature-tile width for large models, once N * F passes
+    ``cell_threshold`` (None: no tiling, and for small models): the divisor
+    of F closest to ``target`` where it lies within a factor of two of it
+    (the JAX package's rule, the same tiles), else ``target`` with a shorter
+    last tile. The JAX package keeps the divisor wherever it lies: at F =
+    3,183 = 3 x 1,061 that is 1,061 tiles of 3 features, where this rule
+    gives 6 of 512 and one of 111."""
     if n_objects * n_features <= cell_threshold:
         return None
     divisors = [d for d in range(1, n_features + 1) if n_features % d == 0]
     best = min(divisors, key=lambda d: abs(d - target))
+    if not target // 2 <= best <= 2 * target:
+        best = target
     return best if best < n_features else None
 
 

@@ -19,7 +19,8 @@ chosen at scale). The ``source_*`` helpers, ``gather_rows``,
 ``scatter_rows`` and ``compute_feature_counts`` take either; operators
 compute with one-hot ROWS in both. ``feature_tiles`` cuts the feature axis
 into the tiles of ``ModelConstants.feature_chunk``, over which the
-full-width (B, N, F, ...) computations run at scale. A source split over
+full-width (B, N, F, ...) computations run at scale; ``tile_passes``
+counts the tiles they walk. A source split over
 object blocks (``parallel/mesh.py::SplitSource``) does the work of
 ``gather_rows`` and ``scatter_rows`` itself.
 """
@@ -30,9 +31,14 @@ import operator
 
 import torch
 
-from sbayes_tpu_torch.ops import draw
+from sbayes_tpu_torch.ops import _cuda, draw
 
 TINY = 1e-35
+
+# One count for each feature tile a tiled computation walks (none untiled),
+# kept like the kernels' launch counters (``ops/check.py::COUNTERS``): a
+# CUDA graph's replay counts the passes of its capture.
+tile_passes = _cuda.LaunchCounter("tile_passes")
 
 
 def normalize(x, dim=-1):
@@ -91,10 +97,13 @@ def dirichlet_logpdf(x, alpha, where=None):
 def feature_tiles(n_features: int, f_chunk=None) -> list:
     """Slices of the feature axis: tiles of ``f_chunk`` features (the last
     one shorter when ``f_chunk`` does not divide F), or one slice of all of
-    them when ``f_chunk`` is None or not below F."""
+    them when ``f_chunk`` is None or not below F. A tiled walk counts its
+    tiles in ``tile_passes``."""
     if f_chunk is None or f_chunk >= n_features:
         return [slice(0, n_features)]
-    return [slice(f0, min(f0 + f_chunk, n_features)) for f0 in range(0, n_features, f_chunk)]
+    tiles = [slice(f0, min(f0 + f_chunk, n_features)) for f0 in range(0, n_features, f_chunk)]
+    tile_passes.add(n=len(tiles))
+    return tiles
 
 
 def add_tiles(parts):

@@ -4,12 +4,15 @@ and the launch counts of this process.
 ``chip_smoke.py`` holds every kernel against its plain version with these
 functions, in its own process and, through the process split
 (``parallel/processes.py``), inside a shard's worker process, whose launch
-counts only the worker can read (``launch_counts``).
+counts only the worker can read (``launch_counts``). Beside the kernels'
+launch counters ``COUNTERS`` holds ``model/math.py::tile_passes``, the
+feature tiles walked, which a CUDA graph's replay counts as its launches.
 """
 from __future__ import annotations
 
 import torch
 
+from sbayes_tpu_torch.model.math import tile_passes
 from sbayes_tpu_torch.ops import draw, loglh, marginal, mst
 
 LOGLH_TOL_REL = 1e-5             # lgammaf vs torch.lgamma, summation order (of the total)
@@ -18,9 +21,10 @@ MARGINAL_TOL_FEATURES = 36       # wider data: the tolerance grows with the logs
 MST_TOL_REL = 1e-5               # the total: float32 edges added in another order
 
 
-# The launch counter of every kernel entry (``_cuda.LaunchCounter``).
+# The launch counter of every kernel entry (``_cuda.LaunchCounter``), and the
+# count of feature tiles walked.
 COUNTERS = (loglh.launches, loglh.counts_launches, loglh.from_counts_launches,
-            marginal.launches, mst.launches, draw.launches)
+            marginal.launches, mst.launches, draw.launches, tile_passes)
 
 
 def launch_counts() -> dict:

@@ -34,7 +34,7 @@ kernel launches are taken back out of the launch counters
 ``record`` counts the MH steps that ``run_ops`` ran in this process, those
 replayed from a graph and the graphs captured (read by
 ``perfbench/metrics/graph_step_share.py``). A replay runs in the span
-``sbt.graph``.
+``sbt.graph``, a sweep operator's also in ``sbt.sweep``.
 """
 from __future__ import annotations
 
@@ -107,6 +107,7 @@ class StepGraphs:
                 for t in (temps, prior_temps)))
         self.apply = rt.apply_fn(cond=self.cond)
         self.graphable = [spec.graphable for spec in rt._op_specs]
+        self.sweep_spans = ["sbt.sweep" if spec.sweep else None for spec in rt._op_specs]
         self.graphs: dict = {}
         self.pool = torch.cuda.graph_pool_handle()
         self.stream = torch.cuda.Stream(self.device)
@@ -128,7 +129,7 @@ class StepGraphs:
         graph = self.graphs.get(op_idx)
         if graph is None:
             graph = self.graphs[op_idx] = self._capture(op_idx)
-        with span("sbt.graph"), torch.cuda.device(self.device):
+        with span(self.sweep_spans[op_idx]), span("sbt.graph"), torch.cuda.device(self.device):
             graph.graph.replay()
             place = (self.device.index, torch.cuda.current_stream(self.device).cuda_stream)
         for counter, launched in graph.launches:

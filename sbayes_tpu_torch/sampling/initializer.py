@@ -21,6 +21,13 @@ package computes the same numbers from a gathered (n, G, N, F) table, 272 GB
 for 640 attempt-chains at Grambank's 2,467 objects x 195 features in 215
 families, and from a geo product over all G = 221 rows, 44 times the K rows'.
 
+At many features the clusters' responsibilities underflow and the JAX
+package's discretization leaves clusters below the minimum size (ROADMAP
+C.4): the port draws such chains anew from the log responsibilities
+(``Initializer._in_bounds``). Where the attempt-chains' full-width tensors
+would pass ``BATCH_BYTES``, the chains are initialised in batches, each
+chain's attempts in one (``Initializer.chains_per_batch``).
+
 Spans ``sbt.init/em`` (the EM and its discretization) and ``sbt.init/refine``
 (the source passes, the ML cluster steps and the best of attempts); the
 module's ``record`` keeps what the last ``generate_sample`` measured.
@@ -62,6 +69,12 @@ class InitRecord:
 
 
 record = InitRecord()
+
+# The most bytes one float32 (attempt-chains, N, F, C) tensor of a batch of
+# the init may take (``Initializer.chains_per_batch``): 8 GiB, so that
+# grambank_k5's 640 attempt-chains (3.7 GB) start in one batch and
+# phoible_k5's 320 (26.7 GB) in four.
+BATCH_BYTES = 1 << 33
 
 
 def _truncnorm_sample(gen, n, mid, lower, upper, scale, device):
@@ -109,9 +122,14 @@ class Initializer:
 
             z = torch.rand((n, avail.shape[0], N), generator=gen, device=dev) * avail
             z = z / torch.clamp(z.sum(1, keepdim=True), min=1e-35)
+            lh = None
             for i_step in range(self.n_em_steps):
-                z = self.em_step(z, i_step)
+                lh = self.em_logits(z, i_step)
+                z = torch.softmax(lh, dim=1)
+                if i_step < self.n_em_steps - 1:
+                    lh = None
             clusters = self._discretize_fuzzy_clusters(z, total_size)
+            clusters = self._in_bounds(clusters, self._log_responsibilities(z, lh), total_size)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         record.em_s = time.perf_counter() - t0
@@ -120,6 +138,11 @@ class Initializer:
     def em_step(self, z, i_step: int):
         """One annealed EM step of the (n, G, N) responsibilities ``z`` over
         the K clusters and the G - K valid confounder groups."""
+        return torch.softmax(self.em_logits(z, i_step), dim=1)
+
+    def em_logits(self, z, i_step: int):
+        """The (n, G, N) logits of ``em_step``: the annealed group
+        log-likelihoods with the geo term, -inf at unavailable groups."""
         c = self.consts
         N, K = c.N, c.K
         n, G = z.shape[:2]
@@ -139,9 +162,62 @@ class Initializer:
                                 - math.log(K * N))
             lh[:, :K] += log_geo
             lh[:, K:] += mean_cluster_geo[:, None, None]
-        lh = torch.where(self.groups_available, lh, torch.full((), float("-inf"),
-                                                               device=z.device))
-        return torch.softmax(lh, dim=1)
+        return torch.where(self.groups_available, lh, torch.full((), float("-inf"),
+                                                                 device=z.device))
+
+    def _log_responsibilities(self, z, lh):
+        """(n, K, N) log responsibilities of the clusters after the EM:
+        ``log z`` from the last step's logits ``lh``, finite where ``z``
+        underflows to 0. Each object's largest responsibility (at least 1 /
+        G) gives the normaliser: log z_k = lh_k - lh_max + log z_max."""
+        K = self.consts.K
+        if lh is None:
+            return torch.log(z[:, :K])
+        z_max, g_max = z.max(dim=1, keepdim=True)
+        return lh[:, :K] - lh.gather(1, g_max) + torch.log(z_max)
+
+    def _in_bounds(self, clusters, log_z, total_size):
+        """``clusters`` (n, K, N) where each of a chain's clusters holds at
+        least ``min_size`` objects; every other chain's clusters drawn anew
+        from the log responsibilities ``log_z`` (n, K, N): each cluster in
+        turn takes the ``min_size`` objects most likely in it among those not
+        yet taken, then the free objects, most likely first, each join their
+        most likely cluster while it holds fewer than ``max_size``, up to
+        ``total_size`` objects in all.
+
+        ``_discretize_fuzzy_clusters`` (the JAX package's) ranks objects by
+        the responsibilities themselves. At many features those of the
+        clusters underflow to 0, and a cluster's top objects tie with the
+        ones an earlier cluster was guaranteed: it takes them, the earlier
+        cluster ends below ``min_size``, and the chain starts with one
+        cluster of nearly every object and the others empty (ROADMAP C.4),
+        which no operator moves into bounds. Only such chains are drawn
+        anew; a cluster above ``max_size`` beside clusters of at least
+        ``min_size`` is left as the JAX package leaves it, and every other
+        chain keeps its clusters bit for bit."""
+        c = self.consts
+        K, N, dev = c.K, c.N, log_z.device
+        ok = (clusters.sum(-1) >= c.min_size).all(-1)
+        n = clusters.shape[0]
+        neg_inf = torch.full((), float("-inf"), device=dev)
+        taken = torch.zeros((n, N), dtype=torch.bool, device=dev)
+        best = torch.full((n, N), K, dtype=torch.long, device=dev)
+        for i_c in range(K):
+            ids = torch.topk(torch.where(taken, neg_inf, log_z[:, i_c]), c.min_size,
+                             dim=-1).indices
+            taken.scatter_(1, ids, True)
+            best.scatter_(1, ids, i_c)
+        value, choice = torch.where(taken[:, None], neg_inf, log_z).max(dim=1)      # (n, N)
+        order = torch.argsort(value, dim=-1, descending=True)
+        choice = choice.gather(1, order)
+        # Each free object's place among those of its cluster, in this order.
+        onehot = torch.nn.functional.one_hot(choice, K)
+        place = (onehot.cumsum(1) * onehot).sum(-1) - 1
+        room = (place < c.max_size - c.min_size) & ~taken.gather(1, order)
+        join = room & (room.cumsum(1) <= (total_size - K * c.min_size)[:, None])
+        best.scatter_(1, order, torch.where(join, choice, best.gather(1, order)))
+        drawn = torch.nn.functional.one_hot(best, K + 1)[..., :K].permute(0, 2, 1).bool()
+        return torch.where(ok[:, None, None], clusters, drawn)
 
     def generate_clusters_seed_points(self, gen, n: int):
         """(n, K, N) clusters of one random object each, distinct per chain;
@@ -256,17 +332,39 @@ class Initializer:
                 state = self.ml_step(gen, state, i_c)
         return state
 
+    def chains_per_batch(self, n_chains: int) -> int:
+        """Chains whose attempts are initialised together: all of them while
+        one float32 (attempt-chains, N, F, C) tensor stays within
+        ``BATCH_BYTES``, else as few even batches as keep it there (the
+        init's temporaries of the source and its feature tiles scale with
+        the attempt-chains of a batch)."""
+        c = self.consts
+        per_chain = 4 * self.attempts * c.N * c.F * c.C
+        n_batches = -(-n_chains * per_chain // BATCH_BYTES)
+        return -(-n_chains // max(1, n_batches))
+
     def generate_sample(self, gen, n_chains: int) -> ChainState:
-        """Best of ``attempts`` initial samples per chain, by likelihood; fills
-        ``record``."""
+        """Best of ``attempts`` initial samples per chain, by likelihood, in
+        batches of ``chains_per_batch`` chains (each chain's attempts in one
+        batch); fills ``record``."""
         record.em_s = record.peak_bytes = None
+        per = self.chains_per_batch(n_chains)
+        parts, em_s = [], None
+        for lo in range(0, n_chains, per):
+            parts.append(self._best_of_attempts(gen, min(per, n_chains - lo)))
+            if record.em_s is not None:
+                em_s = (em_s or 0.0) + record.em_s
+        record.em_s = em_s
+        states = parts[0] if len(parts) == 1 else ChainState.concat(parts)
+        if states.clusters.device.type == "cuda":
+            record.peak_bytes = int(torch.cuda.max_memory_allocated(states.clusters.device))
+        return states
+
+    def _best_of_attempts(self, gen, n_chains: int) -> ChainState:
         A = self.attempts
         clusters = self.generate_initial_clusters(gen, n_chains * A)
         with span("sbt.init/refine"):
             states = self.refine(gen, clusters)
             lh = self.cond.post.log_likelihood(states).view(n_chains, A)
             best = lh.argmax(dim=1) + torch.arange(n_chains, device=lh.device) * A
-            states = states.select(best)
-        if states.clusters.device.type == "cuda":
-            record.peak_bytes = int(torch.cuda.max_memory_allocated(states.clusters.device))
-        return states
+            return states.select(best)

@@ -74,9 +74,11 @@ def mh_log_ratio(d_ll, d_prior, log_q, log_q_back, T, Tp):
 def make_mh_apply_fn(cond: Conditionals, op_specs: Sequence[OperatorSpec]) -> Callable:
     """``apply(op_idx, gen, state) -> (new_state, accept, step_size, nf)``:
     operator ``op_idx`` (one draw for the whole batch) and the MH step, in
-    the span ``sbt.op/<operator name>``."""
+    the span ``sbt.op/<operator name>`` (a sweep operator's inside
+    ``sbt.sweep``)."""
     post = cond.post
     span_names = [f"sbt.op/{spec.name}" for spec in op_specs]
+    sweep_spans = ["sbt.sweep" if spec.sweep else None for spec in op_specs]
     T, Tp = cond.T, cond.Tp
     sfp = cond.sample_from_prior
 
@@ -123,7 +125,7 @@ def make_mh_apply_fn(cond: Conditionals, op_specs: Sequence[OperatorSpec]) -> Ca
         return cand, d_ll, d_parts.sum(-1)
 
     def apply(op_idx: int, gen, state):
-        with span(span_names[op_idx]):
+        with span(sweep_spans[op_idx]), span(span_names[op_idx]):
             return _apply(op_idx, gen, state)
 
     def _apply(op_idx: int, gen, state):

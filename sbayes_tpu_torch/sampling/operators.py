@@ -158,6 +158,12 @@ class OperatorFactory:
         self.source_sweep = (source_sweep_rule(self.consts.F) if source_sweep is None
                              else bool(source_sweep))
 
+    def sweeps(self, object_selector: str) -> bool:
+        """Whether ``make_gibbs_sample_source(object_selector, ...)`` draws
+        with the sequential sweep (``op_rows_sweep``)."""
+        return (self.source_sweep and not self.sample_from_prior and self.consts.N > 10
+                and object_selector != "all")
+
     # ==================================================================
     # Shared cluster-posterior math
     # ==================================================================
@@ -917,11 +923,10 @@ class OperatorFactory:
 
         def op_all(gen, state):
             counts_old = self._state_counts(state)
-            tiles = feature_tiles(consts.F, consts.feature_chunk)
             every = torch.ones((state.n_chains, N), dtype=torch.bool,
                                device=state.clusters.device)
             new_tiles, log_q = [], []
-            for sl in tiles:
+            for sl in feature_tiles(consts.F, consts.feature_chunk):
                 p = posterior_probs(state, counts_old, sl)
                 na = consts.na[:, sl]
                 x = sample_categorical_onehot(gen, p) & ~na[None, :, :, None]
@@ -936,13 +941,13 @@ class OperatorFactory:
             log_q_back = add_tiles([
                 cond._masked_logp(posterior_probs(state_new, (cl, conf), sl),
                                   state.source[:, :, sl], every, consts.na[:, sl])
-                for sl in tiles])
+                for sl in feature_tiles(consts.F, consts.feature_chunk)])
             return OpResult(state_new, add_tiles(log_q), log_q_back,
                             source_n_changed(source_new, state.source))
 
         if object_selector == "all":
             return op_all
-        return op_rows_sweep if self.source_sweep and not self.sample_from_prior else op_rows
+        return op_rows_sweep if self.sweeps(object_selector) else op_rows
 
     # ==================================================================
     # GibbsSampleWeights: per-feature independent MH on two components
@@ -1056,10 +1061,13 @@ class OperatorSpec(NamedTuple):
     changes: str = "clusters"
     parameters: dict = {}
     graphable: bool = True
+    sweep: bool = False
     """``changes``: the state group the operator can modify ('clusters',
     'source' or 'weights'); the MH kernel recomputes only those terms.
     ``graphable``: the step reads nothing from the host, so that a CUDA
-    graph can replay it (``sampling/graphs.py``)."""
+    graph can replay it (``sampling/graphs.py``). ``sweep``: the step is the
+    sequential source sweep (``op_rows_sweep``), run in the span
+    ``sbt.sweep``."""
 
 
 def get_operator_schedule(cond: Conditionals, operators_config,
@@ -1106,10 +1114,12 @@ def get_operator_schedule(cond: Conditionals, operators_config,
                      "clusters"),
         OperatorSpec("gibbs_sample_sources", 0.4 * w_s,
                      factory.make_gibbs_sample_source("random_subset", max_size=20),
-                     "source", {"object_selector": "RANDOM_SUBSET", "max_step_size": 20}),
+                     "source", {"object_selector": "RANDOM_SUBSET", "max_step_size": 20},
+                     sweep=factory.sweeps("random_subset")),
         OperatorSpec("gibbs_sample_sources_groups", 0.6 * w_s,
                      factory.make_gibbs_sample_source("groups", max_size=30),
-                     "source", {"object_selector": "GROUPS", "max_step_size": 30}),
+                     "source", {"object_selector": "GROUPS", "max_step_size": 30},
+                     sweep=factory.sweeps("groups")),
         OperatorSpec("gibbs_sample_weights", 1.0 * w_w,
                      factory.make_gibbs_sample_weights(),
                      "weights"),

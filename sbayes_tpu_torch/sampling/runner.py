@@ -57,7 +57,7 @@ import numpy as np
 import torch
 
 from sbayes_tpu_torch.data.loader import Data
-from sbayes_tpu_torch.model.math import normalize_weights, sample_categorical_onehot
+from sbayes_tpu_torch.model.math import normalize_weights, sample_categorical_onehot, tile_passes
 from sbayes_tpu_torch.model.model import Model
 from sbayes_tpu_torch.model.posterior import ObjectSplitPosterior, Posterior
 from sbayes_tpu_torch.ops import _cuda
@@ -94,7 +94,7 @@ from sbayes_tpu_torch.sampling.initializer import Initializer
 from sbayes_tpu_torch.sampling.kernel import OperatorStats, make_mh_apply_fn, mh_step
 from sbayes_tpu_torch.sampling.operators import get_operator_schedule
 from sbayes_tpu_torch.sampling.state import ChainState
-from sbayes_tpu_torch.tracing import span
+from sbayes_tpu_torch.tracing import profiled, recording, span
 
 # Chunk cadence of the exact carried-invariant refresh in the sampling loops.
 REFRESH_EVERY_CHUNKS = 64
@@ -345,8 +345,10 @@ class SamplerRuntime:
                 prior_temps=None, trace: bool = False):
         """``run_chunk`` on the drawn operators ``ops``, one a step; on the
         card each step replayed from its operator's CUDA graph where one can
-        hold it (``sampling/graphs.py``)."""
+        hold it (``sampling/graphs.py``). Steps run under a profiler are
+        kept in ``tracing.profiled`` with the feature tiles they walked."""
         with span("sbt.chunk"):
+            passes = tile_passes.count
             step_graphs = self._step_graphs(gen, states, stats, temps, prior_temps)
             if step_graphs is None:
                 step = functools.partial(mh_step, self.apply_fn(temps, prior_temps), gen)
@@ -359,6 +361,9 @@ class SamplerRuntime:
                 if trace:
                     torch.add(states.log_lh, states.log_prior, out=log_post[i])
             graphs.record.steps += len(ops)
+            if recording():
+                profiled.steps += len(ops)
+                profiled.tile_passes += tile_passes.count - passes
             if step_graphs is not None:
                 states, stats = step_graphs.release(states, stats)
             if trace:

@@ -20,6 +20,11 @@ The spans, and what reads them (``perfbench/metrics/<name>.py``):
   (``sampling/graphs.py``), in ``run_ops`` on the card, where no
   ``sbt.op`` span opens. It names the idle gaps too; the share of the steps
   replayed is a counter (``graphs.record``): ``graph_step_share``.
+- ``sbt.sweep``: one MH step of a source operator that runs the exact
+  sequential sweep (``sampling/operators.py::op_rows_sweep``, F >= 512;
+  ``OperatorSpec.sweep``), around its ``sbt.op`` span when eager and its
+  ``sbt.graph`` span when replayed: ``sweep_ms_per_step`` (the device time
+  of the kernels launched inside it, matched by correlation id).
 - ``sbt.prim``: the batched Prim (``ops/mst.py``: ``cluster_mst_stats``,
   ``update_mst_stats``): on the card the kernel's launch, on the CPU the
   plain loop with its size read: ``prim_ms_per_step``.
@@ -57,19 +62,39 @@ A copy from host memory to the card that is not pinned waits for the
 card like a read does (PyTorch synchronises the stream after it), so
 those copies are syncs too.
 
-The program's count of kernel launches is ``ops/_cuda.py::LaunchCounter``.
+The program's count of kernel launches is ``ops/_cuda.py::LaunchCounter``;
+``model/math.py::tile_passes``, one count for each feature tile a tiled
+computation walks, is kept in the same way (a replayed CUDA graph counts
+its capture's passes). ``profiled`` keeps the MH steps ``run_ops`` ran
+while a profiler recorded and the tile passes they made:
+``tile_passes_per_step``.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+from typing import Optional
 
 import torch
 
 _OFF = contextlib.nullcontext()
-_recording = torch._C._autograd._profiler_enabled
+recording = torch._C._autograd._profiler_enabled
 
 
-def span(name: str):
+def span(name: Optional[str]):
     """A context that records ``name`` as a span while a profiler records,
-    else the shared no-op context."""
-    return torch.profiler.record_function(name) if _recording() else _OFF
+    else (and for a ``name`` of None) the shared no-op context."""
+    return torch.profiler.record_function(name) if name is not None and recording() else _OFF
+
+
+@dataclasses.dataclass
+class ProfiledRecord:
+    """The MH steps of ``SamplerRuntime.run_ops`` that ran while a profiler
+    recorded (``steps``), and the feature tiles they walked
+    (``tile_passes``, ``model/math.py::tile_passes``)."""
+
+    steps: int = 0
+    tile_passes: int = 0
+
+
+profiled = ProfiledRecord()

@@ -469,3 +469,54 @@ def test_profiler_sees_the_counted_launches_of_replays():
             break
     assert counted > 0 and seen[-1] == counted, (seen, counted)
     assert sum(e["name"] == "sbt.graph" for e in events) > 150
+
+
+@pytest.mark.gpu
+def test_replayed_sweep_steps_equal_eager_on_the_card():
+    """phoible_k5's model at 200 objects x 601 binary features in 12
+    families, K = 5, with every switch of its path (packed source, tiles of
+    128 with a last of 89, the sequential sweep, the log-space jump), 16
+    chains from the EM start: each operator once and then the two sweep
+    operators and the jump, 6 rounds, replayed from their CUDA graphs and
+    stepped eagerly from the same start and seeds: end states and
+    ``OperatorStats`` bit-equal, every sweep step replayed, and the tile
+    passes (``model/math.py::tile_passes``) counted alike."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    sys.path.insert(0, str(ROOT))
+    import copy
+    import json
+
+    import chip_smoke
+    from perfbench import datagen, harness
+    from sbayes_tpu_torch.config.schema import MCMCConfig, ModelConfig
+    from sbayes_tpu_torch.model.math import tile_passes
+    from sbayes_tpu_torch.model.model import Model
+    from sbayes_tpu_torch.sampling.runner import SamplerRuntime, make_generators
+
+    config = copy.deepcopy(json.loads((ROOT / "perfbench" / "configs" / "phoible_k5.json")
+                                      .read_text()))
+    config["model"]["prior"]["objects_per_cluster"].update(min=3, max=30)
+    config["mcmc"]["initialization"].update(attempts=2, em_steps=10)
+    arrays = datagen.large(200, 601, 2, 12, seed=5, na_fraction=0.0)
+    model = Model(harness.port_data(arrays), ModelConfig.from_dict(config["model"]),
+                  device="cuda", source_packed=True, feature_chunk=128)
+    rt = SamplerRuntime(model, MCMCConfig.from_dict(config["mcmc"]))
+    sweeps = [i for i, s in enumerate(rt._op_specs) if s.sweep]
+    assert len(sweeps) == 2 and rt.consts.source_packed
+    ops = list(range(rt.n_ops)) + (sweeps + [rt.op_names.index("cluster_jump_gibbsish")]) * 6
+    start = rt.init_chains(make_generators(6, "cuda")[0], 16)
+
+    def run():
+        gen, _ = make_generators(7, "cuda")
+        before = tile_passes.count
+        states, stats = rt.run_ops(gen, ops, start, rt.new_stats(16))
+        return states, stats, tile_passes.count - before
+
+    (graphed, counts), (eager, eager_counts) = _graphed_and_eager(rt, run)
+    for a, b in zip(graphed[:2], eager[:2]):
+        assert chip_smoke.unequal_fields(a, b) == []
+    assert graphed[2] == eager[2]
+    wide = rt.op_names.index("gibbsish_sample_cluster_wide_geo")
+    assert counts["replayed"] == len(ops) - ops.count(wide) and eager_counts["replayed"] == 0
+    assert (graphed[1].accepts[:, sweeps] == 7).all()

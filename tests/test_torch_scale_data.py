@@ -58,13 +58,15 @@ def test_scale_model_constants_on_small_data():
     assert tuple(c.cost_matrix.shape) == (1, 1)
 
 
-def test_em_initializer_at_many_features_equals_jax():
-    """Pins a finding shared with the JAX package (ROADMAP C.4): on the scale
+def test_em_initializer_at_many_features_equals_jax(monkeypatch):
+    """Pins a finding about the JAX package (ROADMAP C.4): on the scale
     workload's data at many features (400 objects x 600 features here) the
     EM responsibilities of the clusters underflow to 0, the discretization's
     ties put all but the last cluster's minimum into the first cluster and
-    leave the others empty. Both packages give the same sizes on every
-    chain, their random streams apart."""
+    leave the others empty. The port's discretization gives the JAX
+    package's sizes on every chain, their random streams apart; the port's
+    EM start then draws such chains anew from the log responsibilities
+    (``Initializer._in_bounds``), every cluster within the size bounds."""
     from sbayes_tpu.model.model import Model as JaxModel
     from sbayes_tpu.sampling.runner import SamplerRuntime as JaxRuntime
     from sbayes_tpu.testing import synthetic_config as jax_config
@@ -88,6 +90,11 @@ def test_em_initializer_at_many_features_equals_jax():
     init.attempts, init.em_steps, init.objects_per_cluster = 1, 3, 20
     rt = SamplerRuntime(Model(synthetic_data_large(**shape), cfg.model, device="cpu"), cfg.mcmc)
     want = np.asarray(jrt.init_chains(jax.random.PRNGKey(0), 2, shard=False).clusters).sum(-1)
+    drawn = rt.init_chains(make_generators(0, "cpu")[0], 2).clusters.sum(-1).numpy()
+    assert ((drawn >= 10) & (drawn <= 3000)).all(), drawn
+    from sbayes_tpu_torch.sampling.initializer import Initializer
+
+    monkeypatch.setattr(Initializer, "_in_bounds", lambda self, clusters, *a: clusters)
     got = rt.init_chains(make_generators(0, "cpu")[0], 2).clusters.sum(-1).numpy()
     np.testing.assert_array_equal(got, want)
     assert (got == [390, 0, 0, 0, 10]).all()
