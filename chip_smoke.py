@@ -159,14 +159,14 @@ turns in one call (a, b, b, a).
 4. kernels: each kernel (and each variant of the marginal) against its plain
    PyTorch version at the shapes of phase 3, timed beside the plain version,
    the memory/compute bound and an empty kernel launched the same way
-   (``launch_floor_ms``); then both kernels once more at 400 features,
+   (``launch_floor_ms``); then both kernels once more at 1000 features,
    where they walk the features in shared-memory tiles, at an odd shape
    (37 objects x 7 features x 5 states, 3 chains, some objects in no
    family), where no table is 16-byte aligned and the kernels load with
    plain loads, and with 1, 3 and 4 confounders, so that every component
-   count the kernels are compiled for is launched, and with 1100 families,
-   where one feature's rows need more shared memory than a block gets by
-   default; the absolute and two-effect variants are timed on the inputs
+   count the kernels are compiled for is launched, and with 2300 families
+   at one marginal block a chain, where one feature's rows need more shared
+   memory than a block gets by default; the absolute and two-effect variants are timed on the inputs
    the jump gives them at K = 3 (two clusters' effects, ``hc_flip = hc``,
    ``incl = 1``), the likelihood also on the K = 3 states, the two-effect
    variant also at ``jump_512``'s shapes, the heat variant also on the
@@ -2129,7 +2129,7 @@ def random_kernel_inputs(c, n_chains: int, seed: int) -> dict:
             "inv_t": 0.5 + rand(B)}
 
 
-def tiled_check(n_features: int = 400, n_chains: int = 64) -> dict:
+def tiled_check(n_features: int = 1000, n_chains: int = 64) -> dict:
     """Both kernels against their plain versions on data wide enough that
     their tables pass the shared-memory budget, so each walks the features
     in tiles; random memberships, valid sources, random effects."""
@@ -2140,7 +2140,9 @@ def tiled_check(n_features: int = 400, n_chains: int = 64) -> dict:
 
     c = Model(synthetic_data(n_features=n_features), synthetic_config(n_clusters=1).model,
               device=DEVICE).consts
-    tiles = {"loglh": loglh.feature_tile(c), "marginal": marginal.feature_tile(c)}
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    tiles = {"loglh": loglh.feature_tile(c),
+             "marginal": marginal.launch_shape(c, n_chains, n_sm).f_tile}
     for name, f_tile in tiles.items():
         if f_tile >= c.F:
             raise AssertionError(f"{name}: {c.F} features fit one tile: no tiling to check")
@@ -2198,25 +2200,32 @@ def components_check(n_chains: int = 5) -> dict:
     return out
 
 
-def many_groups_check(n_chains: int = 2) -> dict:
+def many_groups_check(n_chains: int = 0) -> dict:
     """Both kernels against their plain versions where one feature's rows
-    alone pass the 48 KB of shared memory a block gets by default: 1200
-    objects in 1100 families, 3 features. Each kernel then asks for a larger
-    block (up to 227 KB) and walks the features one at a time."""
+    alone pass the 48 KB of shared memory a block gets by default: 2400
+    objects in 2300 families, 3 features, at ``n_chains`` chains (0: as many
+    as the card has SMs, so that each marginal block holds all objects and
+    stages every family). Each kernel then asks for a larger block (up to
+    227 KB) and walks the features one at a time."""
     from sbayes_tpu_torch.model.model import Model
     from sbayes_tpu_torch.ops import loglh, marginal
     from sbayes_tpu_torch.ops.check import compare_with_plain
     from sbayes_tpu_torch.testing import synthetic_config, synthetic_data
 
-    data = synthetic_data(n_objects=1200, n_features=3, n_states=6, n_families=1100, seed=3)
+    data = synthetic_data(n_objects=2400, n_features=3, n_states=6, n_families=2300, seed=3)
     c = Model(data, synthetic_config(n_clusters=1).model, device=DEVICE).consts
+    n_chains = n_chains or torch.cuda.get_device_properties(0).multi_processor_count
     rows = c.K + (c.C - 1) * c.Gmax
-    if 4 * rows * c.S <= 48 * 1024:
-        raise AssertionError(f"{rows} rows of one feature fit the default shared memory")
-    tiles = {"loglh": loglh.feature_tile(c), "marginal": marginal.feature_tile(c)}
+    shape = marginal.launch_shape(c, n_chains, torch.cuda.get_device_properties(0)
+                                  .multi_processor_count)
+    for name, n in (("loglh", rows), ("marginal", 1 + shape.rows)):
+        if 4 * n * c.S <= 48 * 1024:
+            raise AssertionError(f"{name}: {n} rows of one feature fit the default shared memory")
+    tiles = {"loglh": loglh.feature_tile(c), "marginal": shape.f_tile}
     if tiles != {"loglh": 1, "marginal": 1}:
         raise AssertionError(f"expected tiles of one feature, got {tiles}")
-    return {"N": c.N, "F": c.F, "Gmax": c.Gmax, "rows": rows, "chains": n_chains,
+    return {"N": c.N, "F": c.F, "Gmax": c.Gmax, "rows": rows, "marginal_rows": shape.rows,
+            "chains": n_chains,
             "errors": compare_with_plain(c, random_kernel_inputs(c, n_chains, seed=9))}
 
 

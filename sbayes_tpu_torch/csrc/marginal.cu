@@ -28,9 +28,10 @@
 // elements of about 100 instructions each, a third of them the one logf.
 //
 // Design: one block per chain (or per chain and object tile, below). The
-// chain's effect tables (p_eff, conf_eff) and weights go to shared memory
+// effect rows the block's objects read (p_eff, the confounder groups of its
+// objects: group-sorted tiles, below) and the weights go to shared memory
 // once per block (stage.cuh: bulk copies where the rows are 16-byte
-// aligned, plain loads otherwise), so device memory and L2 see each table
+// aligned, plain loads otherwise), so device memory and L2 see each row
 // once per block instead of once per object. Lanes run over
 // objects, 2^lpo_log2 neighbouring lanes share an object and split its
 // features; the feature loop reads only shared memory and one coalesced
@@ -52,11 +53,24 @@
 // at the scale shape, 16 chains x 10,000 objects x 5,000 features, 16 of
 // 132 SMs). The wrapper then splits each chain's objects into tiles
 // (ops/marginal.py: object_tile), and the grid is (chain, object tile):
-// every block stages its chain's tables as before and walks only its own
-// objects, the lanes per object chosen for the tile. This follows the JAX
-// kernel's own grid, (N // nb, t). Per object nothing changes but the lanes
-// that split its features; with as many chains as SMs the tile is all N
-// objects and the launch is the one-block-per-chain launch, bit for bit.
+// every block walks only its own objects, the lanes per object chosen for
+// the tile. This follows the JAX kernel's own grid, (N // nb, t).
+//
+// Group-sorted tiles: a block stages only the confounder-group rows its own
+// objects read. The wrapper lays the objects out once per model
+// (ops/marginal.py: ObjectLayout): sorted by their group in the confounder
+// with the most groups, with the state index and the group index copied in
+// that order, and for each tile and confounder the range of groups its
+// objects are in. A block stages those ranges (the universal confounder:
+// one row, not Gmax), reads each object's availabilities and membership
+// through the order and writes its result in place. With 215 families a
+// tile of 243 sorted objects stages about 27 rows a feature instead of the
+// padded 431, so the features fit 17 shared-memory tiles instead of 266 and
+// the per-row staging stops setting the time. The tile boundaries follow
+// the staged rows; per object the arithmetic, the lanes that split its
+// features and their summation order within a tile are unchanged, so where
+// the features fit one tile before and after (the south_america shapes) the
+// results are the same bits.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -69,7 +83,8 @@ namespace {
 // 512 threads, and a feature loop unrolled once instead of 4 times, were
 // each 9 to 24% slower at the main shapes (H100; PERF.md, section 6).
 constexpr int kMaxThreads = 256;
-// Dynamic shared memory of a block: what it gets without asking, and the
+// Dynamic shared memory of a block: what it gets without asking (the
+// wrapper's budget for a feature tile, ops/marginal.py: SMEM_BUDGET), and the
 // most it can ask for (48 KB and 227 KB, less 1 KB for the static part).
 constexpr int kSmemBudget = 47 * 1024;
 constexpr int kSmemMax = 226 * 1024;
@@ -83,27 +98,21 @@ __device__ __forceinline__ float quotient(float x, float y) { return __fdividef(
 
 __host__ __device__ inline int align4(int x) { return (x + 3) & ~3; }
 
-// Floats of shared memory for a tile of ft features (each table starts on
-// 16 bytes).
-__host__ __device__ inline int tile_floats(int ft, int S, int C, int G, int E) {
-  return align4(E * ft * S) + align4((C - 1) * G * ft * S) + align4(ft * C);
-}
-
-// Features per shared-memory tile: all of them when the tables fit the
-// budget, else the largest multiple of 4 that does (so that every row of a
-// tile stays 16-byte aligned), at least 1.
-int feature_tile(int F, int S, int C, int G, int E) {
-  if (tile_floats(F, S, C, G, E) * 4 <= kSmemBudget) return F;
-  int ft = kSmemBudget / 4 / ((E + (C - 1) * G) * S + C);
-  while (ft > 1 && tile_floats(ft, S, C, G, E) * 4 > kSmemBudget) --ft;
-  if (ft >= 4) ft &= ~3;
-  return ft < 1 ? 1 : ft;
+// Floats of shared memory for a tile of ft features with `rows` confounder
+// rows (each table starts on 16 bytes). The wrapper picks ft from the same
+// sum (ops/marginal.py: feature_tile).
+__host__ __device__ inline int tile_floats(int ft, int S, int C, int rows, int E) {
+  return align4(E * ft * S) + align4(rows * ft * S) + align4(ft * C);
 }
 
 template <bool RATIO, bool HEAT, bool TWO, int CT>
 __global__ void __launch_bounds__(kMaxThreads)
-marginal_kernel(const int8_t* __restrict__ feat_idx_t,  // (F, N), S = NA
-                const int32_t* __restrict__ group_idx,  // (C-1, N), -1 = none
+marginal_kernel(const int8_t* __restrict__ feat_idx_t,  // (F, N) in sorted order, S = NA
+                const int32_t* __restrict__ group_idx,  // (C-1, N) in sorted order, -1 = none
+                const int32_t* __restrict__ order,      // (N,) the object at each sorted place
+                const int32_t* __restrict__ tile_lo,    // (tiles, C-1) first group staged
+                const int32_t* __restrict__ tile_base,  // (tiles, C) first staged row of each
+                                                        // confounder, then the rows in all
                 const float* __restrict__ p_eff,        // (B, E, F, S)
                 const float* __restrict__ conf_eff,     // (B, C-1, G, F, S)
                 const float* __restrict__ wh,           // (B, F, C)
@@ -112,7 +121,7 @@ marginal_kernel(const int8_t* __restrict__ feat_idx_t,  // (F, N), S = NA
                 const float* __restrict__ incl,         // (B, N)
                 const float* __restrict__ inv_t,        // (B,) when HEAT
                 float* __restrict__ out,                // (B, N) or (B, N, 2)
-                int N, int F, int S, int C_any, int G, int f_tile, int lpo_log2,
+                int N, int F, int S, int C_any, int G, int f_tile, int rows, int lpo_log2,
                 int obj_tile) {
   constexpr int E = (TWO || !RATIO) ? 2 : 1;
   constexpr int CR = CT > 0 ? CT : 1;  // registers per object and component
@@ -121,16 +130,17 @@ marginal_kernel(const int8_t* __restrict__ feat_idx_t,  // (F, N), S = NA
   __shared__ __align__(8) uint64_t bar;
 
   const int b = blockIdx.x;
-  const int rows_c = (C - 1) * G;
   float* sp = smem;                                // (E, ft, S)
-  float* sc = sp + align4(E * f_tile * S);         // ((C-1) G, ft, S)
-  float* sw = sc + align4(rows_c * f_tile * S);    // (ft, C)
+  float* sc = sp + align4(E * f_tile * S);         // (rows, ft, S): the tile's group rows
+  float* sw = sc + align4(rows * f_tile * S);      // (ft, C)
+  const int32_t* lo = tile_lo + (size_t)blockIdx.y * (C - 1);
+  const int32_t* first_row = tile_base + (size_t)blockIdx.y * C;
   const float* pe = p_eff + (size_t)b * E * F * S;
-  const float* ce = conf_eff + (size_t)b * rows_c * F * S;
+  const float* ce = conf_eff + (size_t)b * (C - 1) * G * F * S;
   const float* w = wh + (size_t)b * F * C;
   const float it = HEAT ? inv_t[b] : 1.f;
   const int lpo = 1 << lpo_log2;
-  const int n0 = blockIdx.y * obj_tile;  // the block's objects: [n0, n0 + obj_tile) within N
+  const int n0 = blockIdx.y * obj_tile;  // the block's sorted places: [n0, n0 + obj_tile)
   const int items = min(obj_tile, N - n0) << lpo_log2;
 
   if (threadIdx.x == 0) sbt::barrier_init(&bar);
@@ -142,7 +152,10 @@ marginal_kernel(const int8_t* __restrict__ feat_idx_t,  // (F, N), S = NA
     const int fs = ft * S;
     if (f0 > 0) __syncthreads();  // every thread has left the previous tile
     uint32_t tx = sbt::stage_rows(sp, pe + (size_t)f0 * S, E, fs, (size_t)F * S, &bar);
-    tx += sbt::stage_rows(sc, ce + (size_t)f0 * S, rows_c, fs, (size_t)F * S, &bar);
+    for (int c = 0; c < C - 1; ++c)  // confounder c's groups from lo[c], from its first row
+      tx += sbt::stage_rows(sc + (size_t)first_row[c] * fs,
+                            ce + ((size_t)(c * G + lo[c]) * F + f0) * S,
+                            first_row[c + 1] - first_row[c], fs, (size_t)F * S, &bar);
     tx += sbt::stage_rows(sw, w + (size_t)f0 * C, 1, ft * C, (size_t)ft * C, &bar);
     if (threadIdx.x == 0) sbt::barrier_arrive_expect(&bar, tx);
     sbt::barrier_wait(&bar, parity);
@@ -151,7 +164,8 @@ marginal_kernel(const int8_t* __restrict__ feat_idx_t,  // (F, N), S = NA
     for (int base = 0; base < items; base += blockDim.x) {
       const int item = base + threadIdx.x;
       const bool valid = item < items;
-      const int n = n0 + (valid ? item >> lpo_log2 : 0);
+      const int i = n0 + (valid ? item >> lpo_log2 : 0);  // sorted place
+      const int n = order[i];                             // object
       const int j = item & (lpo - 1);
       const size_t o = (size_t)b * N + n;
       const bool in_cluster = incl[o] > 0.5f;
@@ -165,8 +179,8 @@ marginal_kernel(const int8_t* __restrict__ feat_idx_t,  // (F, N), S = NA
           h_cur[c] = hn[c];
           h_flip[c] = fn[c];
           if (c > 0) {
-            const int g = group_idx[(size_t)(c - 1) * N + n];
-            g_row[c] = g < 0 ? -1 : ((c - 1) * G + g) * fs;
+            const int g = group_idx[(size_t)(c - 1) * N + i];
+            g_row[c] = g < 0 ? -1 : (first_row[c - 1] + g - lo[c - 1]) * fs;
           }
         }
       }
@@ -174,7 +188,7 @@ marginal_kernel(const int8_t* __restrict__ feat_idx_t,  // (F, N), S = NA
       float acc0 = 0.f, acc1 = 0.f;
       // The lane's first feature and its steps: the state index (one byte per
       // object, neighbouring lanes on neighbouring bytes) and the cell row.
-      const int8_t* fi = feat_idx_t + ((size_t)f0 + j) * N + n;
+      const int8_t* fi = feat_idx_t + ((size_t)f0 + j) * N + i;
       const size_t fi_step = (size_t)N << lpo_log2;
       int cell0 = j * S;
       const int cell_step = S << lpo_log2;
@@ -203,8 +217,8 @@ marginal_kernel(const int8_t* __restrict__ feat_idx_t,  // (F, N), S = NA
           if (CT > 0) {
             row = g_row[c];
           } else {
-            const int g = group_idx[(size_t)(c - 1) * N + n];
-            row = g < 0 ? -1 : ((c - 1) * G + g) * fs;
+            const int g = group_idx[(size_t)(c - 1) * N + i];
+            row = g < 0 ? -1 : (first_row[c - 1] + g - lo[c - 1]) * fs;
           }
           float lh = row < 0 ? 0.f : sc[row + cell];
           if (na) lh = 1.f;
@@ -247,18 +261,19 @@ marginal_kernel(const int8_t* __restrict__ feat_idx_t,  // (F, N), S = NA
 }
 
 struct Args {
-  const void *feat_idx_t, *group_idx, *p_eff, *conf_eff, *wh, *hc, *hcf, *incl, *inv_t;
+  const void *feat_idx_t, *group_idx, *order, *tile_lo, *tile_base, *p_eff, *conf_eff, *wh, *hc,
+      *hcf, *incl, *inv_t;
   void* out;
-  int B, N, F, S, C, G, obj_tile;
+  int B, N, F, S, C, G, obj_tile, f_tile, rows;
   cudaStream_t stream;
 };
 
 template <bool RATIO, bool HEAT, bool TWO, int CT>
 int launch(const Args& a) {
-  if (a.obj_tile < 1 || a.obj_tile > a.N) return (int)cudaErrorInvalidValue;
+  if (a.obj_tile < 1 || a.obj_tile > a.N || a.f_tile < 1 || a.f_tile > a.F || a.rows < 0)
+    return (int)cudaErrorInvalidValue;
   constexpr int E = (TWO || !RATIO) ? 2 : 1;
-  const int f_tile = feature_tile(a.F, a.S, a.C, a.G, E);
-  const int smem = tile_floats(f_tile, a.S, a.C, a.G, E) * 4;
+  const int smem = tile_floats(a.f_tile, a.S, a.C, a.rows, E) * 4;
   auto kernel = marginal_kernel<RATIO, HEAT, TWO, CT>;
   if (smem > kSmemBudget) {  // one feature's rows alone pass the budget
     if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
@@ -274,11 +289,13 @@ int launch(const Args& a) {
   const dim3 grid(a.B, (a.N + a.obj_tile - 1) / a.obj_tile);
   kernel<<<grid, threads, smem, a.stream>>>(
       static_cast<const int8_t*>(a.feat_idx_t), static_cast<const int32_t*>(a.group_idx),
-      static_cast<const float*>(a.p_eff), static_cast<const float*>(a.conf_eff),
-      static_cast<const float*>(a.wh), static_cast<const float*>(a.hc),
-      static_cast<const float*>(a.hcf), static_cast<const float*>(a.incl),
+      static_cast<const int32_t*>(a.order), static_cast<const int32_t*>(a.tile_lo),
+      static_cast<const int32_t*>(a.tile_base), static_cast<const float*>(a.p_eff),
+      static_cast<const float*>(a.conf_eff), static_cast<const float*>(a.wh),
+      static_cast<const float*>(a.hc), static_cast<const float*>(a.hcf),
+      static_cast<const float*>(a.incl),
       static_cast<const float*>(a.inv_t), static_cast<float*>(a.out), a.N, a.F, a.S, a.C, a.G,
-      f_tile, lpo_log2, a.obj_tile);
+      a.f_tile, a.rows, lpo_log2, a.obj_tile);
   return (int)cudaGetLastError();
 }
 
@@ -294,21 +311,21 @@ int launch_components(const Args& a) {
 
 }  // namespace
 
-// Features per shared-memory tile for these shapes (all of them = no tiling).
-extern "C" int sbt_marginal_feature_tile(int F, int S, int C, int G, int n_effect_rows) {
-  return feature_tile(F, S, C, G, n_effect_rows);
-}
-
-// Returns the cudaError_t of the launch (0 = launched). obj_tile: objects
-// per block (N: one block per chain).
-extern "C" int sbt_marginal(const void* feat_idx_t, const void* group_idx, const void* p_eff,
+// Returns the cudaError_t of the launch (0 = launched). The objects in the
+// sorted order of ops/marginal.py's layout: feat_idx_t, group_idx and order
+// in that order, tile_lo / tile_base of its tiles of obj_tile objects (N:
+// one block per chain); f_tile features a shared-memory tile, rows the most
+// confounder rows a block stages.
+extern "C" int sbt_marginal(const void* feat_idx_t, const void* group_idx, const void* order,
+                            const void* tile_lo, const void* tile_base, const void* p_eff,
                             const void* conf_eff, const void* wh, const void* hc,
                             const void* hcf, const void* incl, const void* inv_t, void* out,
                             int B, int N, int F, int S, int C, int G, int ratio, int heat,
-                            int two_eff, int obj_tile, void* stream) {
+                            int two_eff, int obj_tile, int f_tile, int rows, void* stream) {
   if (B == 0 || N == 0) return 0;
-  const Args a{feat_idx_t, group_idx, p_eff, conf_eff, wh, hc, hcf, incl, inv_t, out,
-               B, N, F, S, C, G, obj_tile, static_cast<cudaStream_t>(stream)};
+  const Args a{feat_idx_t, group_idx, order, tile_lo, tile_base, p_eff, conf_eff, wh, hc, hcf,
+               incl, inv_t, out, B, N, F, S, C, G, obj_tile, f_tile, rows,
+               static_cast<cudaStream_t>(stream)};
   if (ratio) {
     if (heat) return two_eff ? launch_components<true, true, true>(a)
                              : launch_components<true, true, false>(a);

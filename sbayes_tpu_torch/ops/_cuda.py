@@ -34,8 +34,7 @@ SIGNATURES = {
     "sbt_loglh_feature_tile": [_I] * 7,
     "sbt_loglh_counts": [_P] * 6 + [_I] * 8 + [_P],
     "sbt_loglh_from_counts": [_P] * 5 + [_I] * 6 + [_P],
-    "sbt_marginal": [_P] * 10 + [_I] * 10 + [_P],
-    "sbt_marginal_feature_tile": [_I] * 5,
+    "sbt_marginal": [_P] * 13 + [_I] * 12 + [_P],
     "sbt_mst": [_P] * 6 + [_I] * 3 + [_P],
     "sbt_draw": [_P] * 3 + [_L] + [_I] * 2 + [_P],
     "sbt_empty": [_P],

@@ -6,7 +6,9 @@ functions, in its own process and, through the process split
 (``parallel/processes.py``), inside a shard's worker process, whose launch
 counts only the worker can read (``launch_counts``). Beside the kernels'
 launch counters ``COUNTERS`` holds ``model/math.py::tile_passes``, the
-feature tiles walked, which a CUDA graph's replay counts as its launches.
+feature tiles walked, and ``ops/marginal.py::staged_bytes``, the bytes the
+marginal stages into shared memory, which a CUDA graph's replay counts as
+its launches.
 """
 from __future__ import annotations
 
@@ -21,10 +23,11 @@ MARGINAL_TOL_FEATURES = 36       # wider data: the tolerance grows with the logs
 MST_TOL_REL = 1e-5               # the total: float32 edges added in another order
 
 
-# The launch counter of every kernel entry (``_cuda.LaunchCounter``), and the
-# count of feature tiles walked.
+# The launch counter of every kernel entry (``_cuda.LaunchCounter``), the
+# count of feature tiles walked and the marginal's staged bytes.
 COUNTERS = (loglh.launches, loglh.counts_launches, loglh.from_counts_launches,
-            marginal.launches, mst.launches, draw.launches, tile_passes)
+            marginal.launches, mst.launches, draw.launches, tile_passes,
+            marginal.staged_bytes)
 
 
 def launch_counts() -> dict:

@@ -60,7 +60,7 @@ from sbayes_tpu_torch.data.loader import Data
 from sbayes_tpu_torch.model.math import normalize_weights, sample_categorical_onehot, tile_passes
 from sbayes_tpu_torch.model.model import Model
 from sbayes_tpu_torch.model.posterior import ObjectSplitPosterior, Posterior
-from sbayes_tpu_torch.ops import _cuda
+from sbayes_tpu_torch.ops import _cuda, marginal
 from sbayes_tpu_torch.ops.check import launch_counts, reset_launches
 from sbayes_tpu_torch.parallel.mesh import (
     ObjectSplit,
@@ -346,9 +346,10 @@ class SamplerRuntime:
         """``run_chunk`` on the drawn operators ``ops``, one a step; on the
         card each step replayed from its operator's CUDA graph where one can
         hold it (``sampling/graphs.py``). Steps run under a profiler are
-        kept in ``tracing.profiled`` with the feature tiles they walked."""
+        kept in ``tracing.profiled`` with the feature tiles they walked and
+        the bytes the marginal staged."""
         with span("sbt.chunk"):
-            passes = tile_passes.count
+            passes, staged = tile_passes.count, marginal.staged_bytes.count
             step_graphs = self._step_graphs(gen, states, stats, temps, prior_temps)
             if step_graphs is None:
                 step = functools.partial(mh_step, self.apply_fn(temps, prior_temps), gen)
@@ -364,6 +365,7 @@ class SamplerRuntime:
             if recording():
                 profiled.steps += len(ops)
                 profiled.tile_passes += tile_passes.count - passes
+                profiled.marginal_staged_bytes += marginal.staged_bytes.count - staged
             if step_graphs is not None:
                 states, stats = step_graphs.release(states, stats)
             if trace:

@@ -65,9 +65,11 @@ those copies are syncs too.
 The program's count of kernel launches is ``ops/_cuda.py::LaunchCounter``;
 ``model/math.py::tile_passes``, one count for each feature tile a tiled
 computation walks, is kept in the same way (a replayed CUDA graph counts
-its capture's passes). ``profiled`` keeps the MH steps ``run_ops`` ran
-while a profiler recorded and the tile passes they made:
-``tile_passes_per_step``.
+its capture's passes), and so is ``ops/marginal.py::staged_bytes``, the
+effect-table bytes the marginal's launches stage into shared memory.
+``profiled`` keeps the MH steps ``run_ops`` ran while a profiler recorded,
+the tile passes they made and the bytes they staged:
+``tile_passes_per_step``, ``marginal_stage_mb_per_step``.
 """
 from __future__ import annotations
 
@@ -90,11 +92,13 @@ def span(name: Optional[str]):
 @dataclasses.dataclass
 class ProfiledRecord:
     """The MH steps of ``SamplerRuntime.run_ops`` that ran while a profiler
-    recorded (``steps``), and the feature tiles they walked
-    (``tile_passes``, ``model/math.py::tile_passes``)."""
+    recorded (``steps``), the feature tiles they walked (``tile_passes``,
+    ``model/math.py::tile_passes``) and the bytes their marginal launches
+    staged (``marginal_staged_bytes``, ``ops/marginal.py::staged_bytes``)."""
 
     steps: int = 0
     tile_passes: int = 0
+    marginal_staged_bytes: int = 0
 
 
 profiled = ProfiledRecord()

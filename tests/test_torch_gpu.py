@@ -14,7 +14,7 @@ ROOT = Path(__file__).parent.parent
 @pytest.mark.gpu
 def test_kernels_match_plain_on_the_card():
     """chip_smoke's kernel comparison (both kernels, every marginal variant,
-    each within its stated tolerance) at the full-width shapes, at 400
+    each within its stated tolerance) at the full-width shapes, at 1000
     features (feature tiles), at the odd shape (plain-load path, objects in
     no family), with 2, 4 and 5 components and with more groups than the
     default shared memory holds; the absolute and two-effect variants on the

@@ -101,8 +101,9 @@ def test_port_equals_the_reference_at_a_small_grambank_shape(seed, packed):
 def test_kernels_match_plain_at_the_cells_shape():
     """Both kernels and every marginal variant against their plain versions
     (``ops/check.py``'s tolerances) on 64 random in-bounds states of the
-    cell's model: the marginal in feature tiles of shared memory (2 x 215
-    group rows a feature), the Prim a block a mask (N = 2,467)."""
+    cell's model: the marginal in feature tiles of shared memory, each block
+    staging only its objects' group rows (fewer than the padded 1 + 2 x 215
+    a feature), the Prim a block a mask (N = 2,467)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from sbayes_tpu_torch.ops import check, marginal
@@ -112,12 +113,14 @@ def test_kernels_match_plain_at_the_cells_shape():
     rt = harness.build_runtime(arrays, config, "cuda")
     c = rt.consts
     assert (c.N, c.F, c.Gmax) == (2467, 195, 215) and c.N > 1024
-    assert marginal.feature_tile(c) < c.F
+    shape = marginal.launch_shape(c, int(cell["chains"]),
+                                  torch.cuda.get_device_properties(0).multi_processor_count)
+    assert 1 + shape.rows < 1 + (c.C - 1) * c.Gmax and shape.f_tile < c.F
     size = config["model"]["prior"]["objects_per_cluster"]
     states = rt.post.fill_state(random_states(c, int(cell["chains"]), 5, size["min"],
                                               size["max"]))
     errs = check.compare_with_plain(c, check.path_kernel_inputs(rt, states))
     errs_jump = check.compare_with_plain(c, check.jump_kernel_inputs(rt.cond, states))
     assert "mst_stats_rel" in errs and "marginal" in errs and "marginal_abs" in errs_jump
-    print(json.dumps({"path": errs, "jump": errs_jump,
-                      "feature_tile": marginal.feature_tile(c)}))
+    print(json.dumps({"path": errs, "jump": errs_jump, "obj_tile": shape.obj_tile,
+                      "rows": shape.rows, "f_tile": shape.f_tile}))
